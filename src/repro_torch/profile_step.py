@@ -1,0 +1,68 @@
+"""Where one training step's time goes on the card: ``torch.profiler`` over
+steady steps of the main path.
+
+    PYTHONPATH=src python -m repro_torch.profile_step [--model sage] [--steps 2]
+
+Builds the papers-s trainer of ``chip_smoke.py``'s main path (SAGE 128 ->
+256 -> 256 -> 16, fan-outs 15,15,15, batch 1024, P=4, presample cut to 2
+epochs), takes one warm-up step, then profiles ``--steps`` steps with CPU
+and CUDA activities. Prints the top operators by device time, then one JSON
+line: the host wall time of the profiled steps, the device time summed over
+kernels and copies, and the device idle share over the window. Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.graph.datasets import make_dataset
+from repro_torch.models.gnn import GNNSpec
+from repro_torch.train.trainer import TrainConfig, Trainer
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", default="sage", choices=("sage", "gcn", "gat"))
+    ap.add_argument("--steps", type=int, default=2)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_step: needs a CUDA card")
+    cfg = TrainConfig(num_devices=4, fanouts=(15, 15, 15), batch_size=1024,
+                      presample_epochs=2)
+    tr = Trainer(make_dataset("papers-s"), GNNSpec(model=args.model), cfg)
+    tr.train_epoch(max_iters=1)  # warm-up: library init, allocator growth
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        stats = tr.train_epoch(max_iters=args.steps)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = prof.key_averages()
+    print(events.table(sort_by="self_device_time_total", row_limit=25))
+    # device rows only (kernels, copies): an operator's row repeats the time
+    # of the kernels it launched
+    device_us = sum(
+        e.self_device_time_total for e in events
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    )
+    print(json.dumps({"profile": {
+        "model": args.model,
+        "steps": len(stats.iters),
+        "wall_ms": 1e3 * wall,
+        "device_ms": device_us / 1e3,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "host_stage_ms": 1e3 * sum(
+            i.t_sample + i.t_split + i.t_load for i in stats.iters
+        ),
+        "compute_ms": 1e3 * sum(i.t_compute for i in stats.iters),
+        "device": torch.cuda.get_device_name(0),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
