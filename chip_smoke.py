@@ -7,8 +7,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. device  -- requires a CUDA card; prints the nvidia-smi name/power line.
 2. build   -- compiles the CUDA kernels from ``src/repro_torch/csrc``.
-3. kernels -- at the layer shapes of a real papers-s plan, holds each kernel
-              against its plain torch version (forward 3e-5, adjoints 3e-4),
+3. kernels -- at the layer shapes of a real papers-s plan that the main path
+              gives each kernel (the input layer; layer 1 for the
+              unweighted row adjoint, which SAGE and GCN never launch at
+              the input layer), holds each kernel against its plain torch
+              version (forward 3e-5, adjoints 3e-4),
               checks it repeats bit for bit, and times it (CUDA events,
               median of 30 launches after warm-up) beside the plain version,
               a library call computing the same function where one exists,
@@ -36,6 +39,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
@@ -103,54 +107,73 @@ def papers_plan(seed=0):
     return repad_plan(plan, {})
 
 
-def kernel_phase(dev):
-    """Phase 3: each kernel against its plain version at main-path shapes."""
+def layer_pack(lp, P, dev):
+    """One layer's pack on the card, and what the bounds and the library
+    calls need: its valid slots as the (dst, src) entries of one
+    block-diagonal (P*num_out x P*M) matrix, and the distinct rows they
+    touch."""
     import torch
 
-    from repro_torch.kernels.gather_segsum import kernel, ops, ref
+    from repro_torch.kernels.gather_segsum import ops
     from repro_torch.kernels.gather_segsum.layout import AGG_ROWS as R
 
-    plan = papers_plan()
-    lp = plan.layers[-1]  # the input layer: the largest aggregation
-    P = plan.num_devices
     num_out = lp.self_pos.shape[1]
     M = lp.n_local + P * lp.send_idx.shape[2]
     _, DB, EB = lp.pack_dst.shape
-    gen = torch.Generator(device=dev).manual_seed(0)
-    edge_src = torch.as_tensor(lp.edge_src, device=dev)
-    pack_perm = torch.as_tensor(lp.pack_perm, device=dev)
     pack_dst = torch.as_tensor(lp.pack_dst, device=dev)
-    pack_src = ops._pack_src(edge_src, pack_perm, pack_dst, M)
-
+    pack_src = ops._pack_src(torch.as_tensor(lp.edge_src, device=dev),
+                             torch.as_tensor(lp.pack_perm, device=dev), pack_dst, M)
     valid = (pack_dst < R).reshape(P, -1)
     n_valid = int(valid.sum())
     split = torch.arange(P, device=dev)[:, None]
     db = (torch.arange(DB * EB, device=dev) // EB)[None]
     flat_src = (split * M + pack_src.reshape(P, -1))[valid]
     flat_dst = (split * num_out + db * R + pack_dst.reshape(P, -1))[valid]
-    src_rows = int(torch.unique(flat_src).numel())
-    dst_rows = int(torch.unique(flat_dst).numel())
-    index_bytes = 2 * 4 * pack_dst.numel()
-    shapes = dict(P=P, M=M, num_out=num_out, DB=DB, EB=EB, slots=P * DB * EB,
-                  valid_slots=n_valid, src_rows=src_rows, dst_rows=dst_rows)
-    emit("kernel_shapes", shapes)
-
-    # the same functions as one library call each: a block-diagonal CSR
-    # (P*num_out x P*M) built from the plan's valid slots (yardstick only)
-    ones = torch.ones(n_valid, device=dev)
     adj = torch.sparse_coo_tensor(
-        torch.stack([flat_dst, flat_src]), ones, (P * num_out, P * M)
+        torch.stack([flat_dst, flat_src]), torch.ones(n_valid, device=dev),
+        (P * num_out, P * M),
     ).coalesce()
-    adj_csr = adj.to_sparse_csr()
-    adj_t_csr = adj.t().coalesce().to_sparse_csr()
+    return SimpleNamespace(
+        P=P, M=M, num_out=num_out, DB=DB, EB=EB, pack_src=pack_src,
+        pack_dst=pack_dst, valid=valid, n_valid=n_valid,
+        slot_key=flat_dst * (P * M) + flat_src,
+        src_rows=int(torch.unique(flat_src).numel()),
+        dst_rows=int(torch.unique(flat_dst).numel()),
+        # pack_dst is read in full, pack_src only at the valid slots
+        index_bytes=4 * (P * DB * EB + n_valid),
+        adj=adj, adj_csr=adj.to_sparse_csr(),
+        adj_t_csr=adj.t().coalesce().to_sparse_csr(),
+    )
 
+
+def kernel_phase(dev):
+    """Phase 3: each kernel against its plain version at the shapes the main
+    path gives it. The input layer (F=128 rows, no gradient) is SAGE's and
+    GCN's largest forward; its rows get a gradient only under GAT (F=256 =
+    4 heads x 64), so the unweighted row adjoint is held and timed at layer 1
+    (F=256), the largest shape where SAGE and GCN launch it."""
+    import torch
+
+    from repro_torch.kernels.gather_segsum import kernel, ref
+
+    plan = papers_plan()
+    P = plan.num_devices
+    inp = layer_pack(plan.layers[-1], P, dev)
+    hid = layer_pack(plan.layers[1], P, dev)
+    emit("kernel_shapes", {
+        name: dict(P=P, M=lay.M, num_out=lay.num_out, DB=lay.DB, EB=lay.EB,
+                   slots=P * lay.DB * lay.EB, valid_slots=lay.n_valid,
+                   src_rows=lay.src_rows, dst_rows=lay.dst_rows)
+        for name, lay in (("input_layer", inp), ("layer_1", hid))
+    })
+    gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
 
-    def record(name, out, want, tol, fn, plain, library, nbytes, nops):
+    def record(name, lay, out, want, tol, fn, plain, library, row_bytes, nops):
         err = float((out - want).abs().max())
         torch.testing.assert_close(out, want, **tol)
         check(torch.equal(out, fn()), f"{name}: two launches differ")
-        bound_ms, bound_by = bound(nbytes, nops)
+        bound_ms, bound_by = bound(lay.index_bytes + row_bytes, nops)
         results[name] = dict(
             name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
             launches=0, max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
@@ -159,54 +182,82 @@ def kernel_phase(dev):
         )
         emit("kernel", {k: v for k, v in results[name].items() if k != "launches"})
 
+    def csr_for(lay, layer):
+        csr = kernel.src_sorted_csr(lay.pack_src, lay.pack_dst, lay.M, lay.num_out)
+        ms = time_ms(lambda: kernel.src_sorted_csr(
+            lay.pack_src, lay.pack_dst, lay.M, lay.num_out))
+        emit("src_sorted_csr", {"layer": layer, "ms": ms})
+        return csr
+
     # forward at SAGE's input-layer width (F = 128)
     F = 128
-    mixed = torch.randn(P, M, F, device=dev, generator=gen)
-    fwd = lambda: kernel.gather_segsum_fwd(mixed, pack_src, pack_dst, None, num_out)  # noqa: E731
-    plain = lambda: ref.gather_segsum_fwd_packed(mixed, pack_src, pack_dst, None, num_out)  # noqa: E731
-    flat_mixed = mixed.reshape(P * M, F)
-    library = lambda: torch.sparse.mm(adj_csr, flat_mixed)  # noqa: E731
+    mixed = torch.randn(P, inp.M, F, device=dev, generator=gen)
+    args = (mixed, inp.pack_src, inp.pack_dst, None, inp.num_out)
+    fwd = lambda: kernel.gather_segsum_fwd(*args)  # noqa: E731
+    plain = lambda: ref.gather_segsum_fwd_packed(*args)  # noqa: E731
+    flat_mixed = mixed.reshape(P * inp.M, F)
+    library = lambda: torch.sparse.mm(inp.adj_csr, flat_mixed)  # noqa: E731
     out = fwd()
-    torch.testing.assert_close(library().reshape(P, num_out, F), out, **FWD_TOL)
-    record("gather_segsum_fwd", out, plain(), FWD_TOL, fwd, plain, library,
-           index_bytes + 4 * F * (src_rows + P * num_out), n_valid * F)
+    torch.testing.assert_close(library().reshape(P, inp.num_out, F), out, **FWD_TOL)
+    record("gather_segsum_fwd", inp, out, plain(), FWD_TOL, fwd, plain, library,
+           4 * F * (inp.src_rows + P * inp.num_out), inp.n_valid * F)
 
-    # GAT's weighted forward: checked, not timed
+    # GAT's weighted forward at the input layer (F = 256 = 4 x 64): checked
     H, Fw = 4, 256
-    mixed_w = torch.randn(P, M, Fw, device=dev, generator=gen)
-    w = torch.randn(P, DB * EB, H, device=dev, generator=gen)
-    out_w = kernel.gather_segsum_fwd(mixed_w, pack_src, pack_dst, w, num_out)
-    want_w = ref.gather_segsum_fwd_packed(mixed_w, pack_src, pack_dst, w, num_out)
+    mixed_w = torch.randn(P, inp.M, Fw, device=dev, generator=gen)
+    w = torch.randn(P, inp.DB * inp.EB, H, device=dev, generator=gen)
+    out_w = kernel.gather_segsum_fwd(mixed_w, inp.pack_src, inp.pack_dst, w, inp.num_out)
+    want_w = ref.gather_segsum_fwd_packed(mixed_w, inp.pack_src, inp.pack_dst, w,
+                                          inp.num_out)
     torch.testing.assert_close(out_w, want_w, **FWD_TOL)
-    emit("kernel_check", {"name": "gather_segsum_fwd (weighted, H=4, F=256)",
+    emit("kernel_check", {"name": "gather_segsum_fwd (weighted, input layer, H=4, F=256)",
                           "max_abs_err": float((out_w - want_w).abs().max())})
 
-    # adjoint w.r.t. the rows (F = 128), the src-sorted walk built once
-    g = torch.randn(P, num_out, F, device=dev, generator=gen)
-    csr = kernel.src_sorted_csr(pack_src, pack_dst, M, num_out)
-    t_csr = time_ms(lambda: kernel.src_sorted_csr(pack_src, pack_dst, M, num_out))
-    emit("src_sorted_csr", {"ms": t_csr})
-    bwd = lambda: kernel.gather_segsum_bwd_mixed(g, pack_src, pack_dst, None, M, csr)  # noqa: E731
-    plain = lambda: ref.gather_segsum_bwd_mixed_packed(g, pack_src, pack_dst, None, M)  # noqa: E731
-    flat_g = g.reshape(P * num_out, F)
-    library = lambda: torch.sparse.mm(adj_t_csr, flat_g)  # noqa: E731
+    # adjoint w.r.t. the rows, unweighted, at layer 1 (F = 256): SAGE and GCN
+    g = torch.randn(P, hid.num_out, Fw, device=dev, generator=gen)
+    csr = csr_for(hid, 1)
+    args = (g, hid.pack_src, hid.pack_dst, None, hid.M)
+    bwd = lambda: kernel.gather_segsum_bwd_mixed(*args, csr)  # noqa: E731
+    plain = lambda: ref.gather_segsum_bwd_mixed_packed(*args)  # noqa: E731
+    flat_g = g.reshape(P * hid.num_out, Fw)
+    library = lambda: torch.sparse.mm(hid.adj_t_csr, flat_g)  # noqa: E731
     out = bwd()
-    torch.testing.assert_close(library().reshape(P, M, F), out, **ADJ_TOL)
-    record("gather_segsum_bwd_mixed", out, plain(), ADJ_TOL, bwd, plain, library,
-           index_bytes + 4 * F * (dst_rows + P * M), n_valid * F)
-    g_w = torch.randn(P, num_out, Fw, device=dev, generator=gen)
-    gm_w = kernel.gather_segsum_bwd_mixed(g_w, pack_src, pack_dst, w, M, csr)
-    want = ref.gather_segsum_bwd_mixed_packed(g_w, pack_src, pack_dst, w, M)
+    torch.testing.assert_close(library().reshape(P, hid.M, Fw), out, **ADJ_TOL)
+    record("gather_segsum_bwd_mixed", hid, out, plain(), ADJ_TOL, bwd, plain, library,
+           4 * Fw * (hid.dst_rows + P * hid.M), hid.n_valid * Fw)
+
+    # GAT's weighted row adjoint at the input layer: checked
+    g_w = torch.randn(P, inp.num_out, Fw, device=dev, generator=gen)
+    csr_w = csr_for(inp, len(plan.layers) - 1)
+    gm_w = kernel.gather_segsum_bwd_mixed(g_w, inp.pack_src, inp.pack_dst, w, inp.M, csr_w)
+    want = ref.gather_segsum_bwd_mixed_packed(g_w, inp.pack_src, inp.pack_dst, w, inp.M)
     torch.testing.assert_close(gm_w, want, **ADJ_TOL)
-    emit("kernel_check", {"name": "gather_segsum_bwd_mixed (weighted, H=4, F=256)",
+    emit("kernel_check", {"name": "gather_segsum_bwd_mixed (weighted, input layer, H=4, F=256)",
                           "max_abs_err": float((gm_w - want).abs().max())})
 
-    # adjoint w.r.t. GAT's per-slot weights (F = 256 = 4 heads x 64)
-    bw = lambda: kernel.gather_segsum_bwd_w(mixed_w, g_w, pack_src, pack_dst, H)  # noqa: E731
-    plain = lambda: ref.gather_segsum_bwd_w_packed(mixed_w, g_w, pack_src, pack_dst, H)  # noqa: E731
-    record("gather_segsum_bwd_w", bw(), plain(), ADJ_TOL, bw, plain, None,
-           index_bytes + 4 * Fw * (src_rows + dst_rows) + 4 * P * DB * EB * H,
-           2 * n_valid * Fw)
+    # adjoint w.r.t. GAT's per-slot weights at the input layer; the library
+    # call is an SDDMM over the plan's (dst, src) pattern, heads as the batch
+    args = (mixed_w, g_w, inp.pack_src, inp.pack_dst, H)
+    bw = lambda: kernel.gather_segsum_bwd_w(*args)  # noqa: E731
+    plain = lambda: ref.gather_segsum_bwd_w_packed(*args)  # noqa: E731
+    rows, cols, nnz = P * inp.num_out, P * inp.M, inp.adj._nnz()
+    pattern = torch.sparse_csr_tensor(
+        inp.adj_csr.crow_indices().expand(H, -1).contiguous(),
+        inp.adj_csr.col_indices().expand(H, -1).contiguous(),
+        torch.zeros(H, nnz, device=dev), (H, rows, cols),
+    )
+    g_heads = g_w.reshape(rows, H, Fw // H).transpose(0, 1).contiguous()
+    mixed_heads_t = mixed_w.reshape(cols, H, Fw // H).permute(1, 2, 0).contiguous()
+    library = lambda: torch.sparse.sampled_addmm(  # noqa: E731
+        pattern, g_heads, mixed_heads_t, beta=0.0)
+    keys = inp.adj.indices()[0] * cols + inp.adj.indices()[1]
+    at_slot = torch.searchsorted(keys, inp.slot_key)
+    out = bw()
+    torch.testing.assert_close(library().values()[:, at_slot].T,
+                               out.reshape(P, -1, H)[inp.valid], **ADJ_TOL)
+    record("gather_segsum_bwd_w", inp, out, plain(), ADJ_TOL, bw, plain, library,
+           4 * Fw * (inp.src_rows + inp.dst_rows) + 4 * P * inp.DB * inp.EB * H,
+           2 * inp.n_valid * Fw)
     return results
 
 

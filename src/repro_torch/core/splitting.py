@@ -153,45 +153,6 @@ class SplitPlan:
     def shuffle_rows(self) -> int:
         return sum(l.shuffle_rows() for l in self.layers)
 
-    def padded_edge_slots(self) -> int:
-        """Edge slots actually executed by the (padded, vmapped) sim step."""
-        return int(sum(l.edge_mask.size for l in self.layers))
-
-    def busiest_edges(self) -> int:
-        """True edges on the most-loaded device (the straggler's work)."""
-        per_dev = np.zeros(self.num_devices, dtype=np.int64)
-        for l in self.layers:
-            per_dev += l.edge_mask.sum(axis=1)
-        return int(per_dev.max())
-
-    def load_imbalance(self) -> float:
-        """max/mean edges per split across layers l>0 (paper Fig. 5 metric)."""
-        per_dev = np.zeros(self.num_devices, dtype=np.int64)
-        for l in self.layers:
-            per_dev += l.edge_mask.sum(axis=1)
-        mean = per_dev.mean()
-        return float(per_dev.max() / mean) if mean > 0 else 1.0
-
-    def cross_edge_fraction(self) -> float:
-        """Cross-split edges / total edges (paper Fig. 5 metric)."""
-        total = self.computed_edges()
-        # an edge is cross-split iff its src addresses the recv region
-        # ``[n_local, n_local + P*S)``; the boundary is the layer's recorded
-        # n_local (== the current front width only because repad keeps the
-        # two in sync — using the front shape directly undercounted on
-        # repadded plans).
-        cross = 0
-        for l in self.layers:
-            recv_end = l.n_local + self.num_devices * l.max_send
-            cross += int(
-                (
-                    (l.edge_src >= l.n_local)
-                    & (l.edge_src < recv_end)
-                    & l.edge_mask
-                ).sum()
-            )
-        return cross / total if total else 0.0
-
 
 def _group_by_owner(frontier: np.ndarray, owner_of: np.ndarray, num_devices: int):
     """Group a sorted-unique frontier by owner.

@@ -63,10 +63,6 @@ _SLICE = {
     "num_replicas": (0, "the 2-D (replica, split) mesh"),
 }
 
-#: wire bytes per element for each supported wire dtype
-_WIRE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
-
-
 def check_config(cfg: TrainConfig) -> None:
     """Raise ``ValueError`` for a value this slice of the port does not run."""
     for name, (value, what) in _SLICE.items():
@@ -94,18 +90,6 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
-def modeled_wire_bytes(plan, spec: GNNSpec, wire_dtype: str) -> int:
-    """Bytes the per-layer shuffles put on the wire for one plan (modeled):
-    true cross-split rows times the raw activation width."""
-    size = _WIRE_BYTES[wire_dtype]
-    dims = spec.layer_dims()
-    L = spec.num_layers
-    return sum(
-        lp.shuffle_rows() * dims[L - 1 - li][0] * size
-        for li, lp in enumerate(plan.layers)
-    )
-
-
 @dataclass
 class IterStats:
     loss: float
@@ -117,11 +101,6 @@ class IterStats:
     loaded_rows: int
     computed_edges: int
     shuffle_rows: int
-    padded_edge_slots: int = 0
-    busiest_edges: int = 0
-    load_imbalance: float = 1.0
-    cross_edge_fraction: float = 0.0
-    wire_bytes: int = 0
 
 
 @dataclass
@@ -136,14 +115,9 @@ class EpochStats:
         }
         for k in (
             "t_sample", "t_split", "t_load", "t_compute", "loaded_rows",
-            "computed_edges", "shuffle_rows", "padded_edge_slots",
-            "busiest_edges", "wire_bytes",
+            "computed_edges", "shuffle_rows",
         ):
             agg[k] = float(np.sum([getattr(i, k) for i in self.iters]))
-        agg["load_imbalance"] = float(np.mean([i.load_imbalance for i in self.iters]))
-        agg["cross_edge_fraction"] = float(
-            np.mean([i.cross_edge_fraction for i in self.iters])
-        )
         return agg
 
 
@@ -236,11 +210,6 @@ class Trainer:
             loaded_rows=plan.loaded_feature_rows(),
             computed_edges=plan.computed_edges(),
             shuffle_rows=plan.shuffle_rows(),
-            padded_edge_slots=plan.padded_edge_slots(),
-            busiest_edges=plan.busiest_edges(),
-            load_imbalance=plan.load_imbalance(),
-            cross_edge_fraction=plan.cross_edge_fraction(),
-            wire_bytes=modeled_wire_bytes(plan, self.spec, self.cfg.wire_dtype),
         )
 
     def train_iter(self, targets: np.ndarray) -> IterStats:
