@@ -1,21 +1,26 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's split-parallel training path on one CUDA card.
+"""Drive the PyTorch port's split-parallel training paths on one CUDA card.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
 Phases (any failure exits non-zero; nothing is caught and continued):
 
 1. device  -- requires a CUDA card; prints the nvidia-smi name/power line.
-2. build   -- compiles the CUDA kernels from ``src/repro_torch/csrc``.
-3. kernels -- at the layer shapes of a real papers-s plan that the main path
-              gives each kernel (the input layer; layer 1 for the
-              unweighted row adjoint, which SAGE and GCN never launch at
-              the input layer), holds each kernel against its plain torch
-              version (forward 3e-5, adjoints 3e-4),
-              checks it repeats bit for bit, and times it (CUDA events,
+2. build   -- compiles the CUDA sources of ``src/repro_torch/csrc``, one
+              ``nvcc`` each, all started together.
+3. kernels -- at the shapes of the first papers-s batch that the paths give
+              each kernel, holds each kernel against its plain torch version
+              and checks it repeats bit for bit, and times it (CUDA events,
               median of 30 launches after warm-up) beside the plain version,
               a library call computing the same function where one exists,
-              and the least time the card could take (``bound_ms``).
+              and the least time the card could take (``bound_ms``). The
+              gather_segsum kernels at the plan's input layer (layer 1 for
+              the unweighted row adjoint, which SAGE and GCN never launch at
+              the input layer): forward 3e-5, adjoints 3e-4. The wavefront
+              expansion at the device sampler's largest launch (P*N rows of
+              the largest frontier cap, fan-out 15): bitwise. The packed
+              segment sum (F=128) and edge softmax (H=4) on the input layer's
+              edges, all P splits flattened with dst offset by split: 3e-5.
 4. main    -- the trainer's main path at full width: papers-s, SAGE (128 ->
               256 -> 256 -> 16), fan-outs 15,15,15, batch 1024, P=4 splits in
               sim form; one epoch (3 steps). Presampling is cut to 2 epochs.
@@ -23,14 +28,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 6. parity  -- tiny graph, 2 layers, hidden 64: 3 steps on the card (kernels)
               and on the CPU (plain versions) from the same weights agree to
               rtol 1e-4, for all three models.
-7. determinism -- two identical 2-step SAGE runs on papers-s, reported as
-              bitwise equal or not (informational: the shuffle's backward is a
-              library scatter with atomics; the kernels' own repeatability is
+7. device source -- the main path's SAGE run with ``plan_source="device"``:
+              sampling on the card (the cooperative sampler and its
+              wavefront kernel), one epoch (3 steps). Fails unless a batch was
+              sampled on the card without a fallback, and unless the
+              wavefront launches equal the layers times the device sampling
+              runs. The card's ``sample_batch(targets, 0, 0)`` is held
+              bitwise against a ``DeviceSampler`` on the CPU (plain versions)
+              with the same shards and caps, and one ``_sample_device`` call
+              runs under ``torch.cuda.set_sync_debug_mode("error")``, before
+              its single transfer: it fails if that (prototype) detector
+              raises on a sync, and reports that none was raised.
+8. determinism -- two identical 2-step runs each of SAGE and GAT (serial
+              source) and of SAGE on the device source, papers-s, then five
+              calls of the edge softmax alone on each backend, reported as
+              bitwise equal or not (informational: the plain edge softmax
+              sums with ``index_add``, whose float atomics on the card may
+              add in another order; the kernels' own repeatability is
               enforced in phase 3).
 
 Launch counts are set to 0 just before each trainer run and read just after;
 a kernel of the run's path that was never launched fails the script. The
-last lines are the ``kernels`` JSON, the nvidia-smi line and the result line.
+packed segment kernels run on no trainer path (``segment_ops``'s packed
+backend, which the model does not call): their counts come from one call of
+``segment_ops.segment_sum``/``edge_softmax`` with ``backend="packed"``,
+driven with the counts at 0. The last lines are the ``kernels`` JSON, the
+nvidia-smi line and the result line.
 """
 import copy
 import json
@@ -46,14 +69,53 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+# 32-bit integer ops outside the tensor cores: the fp32 rate counts 128 lanes
+# an SM at 2 ops (a fused multiply-add); Hopper's SM has 64 INT32 lanes
+INT32_OPS = FP32_FLOPS / 4
 FWD_TOL = dict(rtol=3e-5, atol=3e-5)
 ADJ_TOL = dict(rtol=3e-4, atol=3e-4)
-SOURCE = "src/repro_torch/csrc/gather_segsum.cu"
-REPLACES = {
-    "gather_segsum_fwd": "src/repro/kernels/gather_segsum/kernel.py:190",
-    "gather_segsum_bwd_mixed": "src/repro/kernels/gather_segsum/kernel.py:240",
-    "gather_segsum_bwd_w": "src/repro/kernels/gather_segsum/kernel.py:293",
+PACKED_TOL = dict(rtol=3e-5, atol=3e-5)
+CSRC = "src/repro_torch/csrc/"
+#: kernel -> (CUDA source, the TPU kernel it replaces)
+KERNELS = {
+    "gather_segsum_fwd": ("gather_segsum.cu",
+                          "src/repro/kernels/gather_segsum/kernel.py:190"),
+    "gather_segsum_bwd_mixed": ("gather_segsum.cu",
+                                "src/repro/kernels/gather_segsum/kernel.py:240"),
+    "gather_segsum_bwd_w": ("gather_segsum.cu",
+                            "src/repro/kernels/gather_segsum/kernel.py:293"),
+    "wavefront_expand": ("wavefront_expand.cu", "src/repro/sampler/kernel.py:43"),
+    "segment_sum_packed": ("segsum_packed.cu",
+                           "src/repro/kernels/segsum/kernel.py:44"),
+    "edge_softmax_packed": ("edge_softmax_packed.cu",
+                            "src/repro/kernels/edge_softmax/kernel.py:61"),
 }
+LIBRARIES = ("gather_segsum", "wavefront_expand", "segsum_packed",
+             "edge_softmax_packed")
+FANOUTS = (15, 15, 15)
+
+
+def counters():
+    """The wrappers' launch-count modules (each has ``LAUNCHES`` and
+    ``reset_launches``)."""
+    from repro_torch.kernels.edge_softmax import ops as es_ops
+    from repro_torch.kernels.gather_segsum import kernel as gss
+    from repro_torch.kernels.segsum import ops as ss_ops
+    from repro_torch.sampler import kernel as wf
+
+    return (gss, wf, ss_ops, es_ops)
+
+
+def reset_launches():
+    for mod in counters():
+        mod.reset_launches()
+
+
+def read_launches():
+    out = {}
+    for mod in counters():
+        out.update(mod.LAUNCHES)
+    return out
 
 
 def check(cond, msg):
@@ -84,27 +146,29 @@ def time_ms(fn, iters=30, warmup=5):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
-def bound(nbytes, ops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_FLOPS
+def bound(nbytes, ops, rate=FP32_FLOPS):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def papers_plan(seed=0):
-    """The first batch of a papers-s plan as the trainer builds it (P=4,
-    fan-outs 15,15,15, batch 1024, presample cut to 2 epochs)."""
+def papers_first_batch(seed=0):
+    """The first batch of papers-s as the trainer builds it (P=4, fan-outs
+    15,15,15, batch 1024, presample cut to 2 epochs): the dataset, the
+    partition, the host sampler, the batch's targets and its repadded plan."""
     from repro_torch.core import build_split_plan, partition_graph, presample, repad_plan
     from repro_torch.graph.datasets import make_dataset
     from repro_torch.graph.sampling import NeighborSampler
 
     ds = make_dataset("papers-s")
-    fan = [15, 15, 15]
+    fan = list(FANOUTS)
     w = presample(ds.graph, ds.train_ids, fan, 1024, num_epochs=2, seed=seed + 1)
     part = partition_graph(ds.graph, 4, method="gsplit", weights=w, seed=seed)
     sampler = NeighborSampler(ds.graph, ds.train_ids, fan, 1024, seed=seed)
     targets = sampler.epoch_targets(0)[0]
     plan = build_split_plan(sampler.sample_batch(targets, 0, 0),
                             part.assignment, 4, pad_multiple=-1)
-    return repad_plan(plan, {})
+    return SimpleNamespace(ds=ds, part=part, sampler=sampler, targets=targets,
+                           plan=repad_plan(plan, {}))
 
 
 def layer_pack(lp, P, dev):
@@ -146,17 +210,44 @@ def layer_pack(lp, P, dev):
     )
 
 
-def kernel_phase(dev):
-    """Phase 3: each kernel against its plain version at the shapes the main
-    path gives it. The input layer (F=128 rows, no gradient) is SAGE's and
-    GCN's largest forward; its rows get a gradient only under GAT (F=256 =
-    4 heads x 64), so the unweighted row adjoint is held and timed at layer 1
-    (F=256), the largest shape where SAGE and GCN launch it."""
+def record(results, name, out, want, fn, plain, library, nbytes, nops,
+           tol=None, rate=FP32_FLOPS):
+    """Hold a kernel's output against its plain version's (``tol``, or
+    bitwise when None), check that a second launch repeats it bit for bit,
+    time the kernel, its plain version and the library call, and keep the
+    row of the ``kernels`` line."""
+    import torch
+
+    if tol is None:
+        check(torch.equal(out, want), f"{name}: differs from its plain version")
+        err = 0.0
+    else:
+        err = float((out.float() - want.float()).abs().max())
+        torch.testing.assert_close(out, want, **tol)
+    check(torch.equal(out, fn()), f"{name}: two launches differ")
+    bound_ms, bound_by = bound(nbytes, nops, rate)
+    source, replaces = KERNELS[name]
+    results[name] = dict(
+        name=name, route="cuda", source=CSRC + source, replaces=replaces,
+        launches=0, max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(library) if library is not None else None,
+    )
+    emit("kernel", {k: v for k, v in results[name].items() if k != "launches"})
+
+
+def kernel_phase(dev, first, results):
+    """Phase 3, the gather_segsum kernels, each against its plain version at
+    the shapes the main path gives it. The input layer (F=128 rows, no
+    gradient) is SAGE's and GCN's largest forward; its rows get a gradient
+    only under GAT (F=256 = 4 heads x 64), so the unweighted row adjoint is
+    held and timed at layer 1 (F=256), the largest shape where SAGE and GCN
+    launch it."""
     import torch
 
     from repro_torch.kernels.gather_segsum import kernel, ref
 
-    plan = papers_plan()
+    plan = first.plan
     P = plan.num_devices
     inp = layer_pack(plan.layers[-1], P, dev)
     hid = layer_pack(plan.layers[1], P, dev)
@@ -167,20 +258,6 @@ def kernel_phase(dev):
         for name, lay in (("input_layer", inp), ("layer_1", hid))
     })
     gen = torch.Generator(device=dev).manual_seed(0)
-    results = {}
-
-    def record(name, lay, out, want, tol, fn, plain, library, row_bytes, nops):
-        err = float((out - want).abs().max())
-        torch.testing.assert_close(out, want, **tol)
-        check(torch.equal(out, fn()), f"{name}: two launches differ")
-        bound_ms, bound_by = bound(lay.index_bytes + row_bytes, nops)
-        results[name] = dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=0, max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
-            bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=time_ms(library) if library is not None else None,
-        )
-        emit("kernel", {k: v for k, v in results[name].items() if k != "launches"})
 
     def csr_for(lay, layer):
         csr = kernel.src_sorted_csr(lay.pack_src, lay.pack_dst, lay.M, lay.num_out)
@@ -199,8 +276,9 @@ def kernel_phase(dev):
     library = lambda: torch.sparse.mm(inp.adj_csr, flat_mixed)  # noqa: E731
     out = fwd()
     torch.testing.assert_close(library().reshape(P, inp.num_out, F), out, **FWD_TOL)
-    record("gather_segsum_fwd", inp, out, plain(), FWD_TOL, fwd, plain, library,
-           4 * F * (inp.src_rows + P * inp.num_out), inp.n_valid * F)
+    record(results, "gather_segsum_fwd", out, plain(), fwd, plain, library,
+           inp.index_bytes + 4 * F * (inp.src_rows + P * inp.num_out),
+           inp.n_valid * F, FWD_TOL)
 
     # GAT's weighted forward at the input layer (F = 256 = 4 x 64): checked
     H, Fw = 4, 256
@@ -223,8 +301,9 @@ def kernel_phase(dev):
     library = lambda: torch.sparse.mm(hid.adj_t_csr, flat_g)  # noqa: E731
     out = bwd()
     torch.testing.assert_close(library().reshape(P, hid.M, Fw), out, **ADJ_TOL)
-    record("gather_segsum_bwd_mixed", hid, out, plain(), ADJ_TOL, bwd, plain, library,
-           4 * Fw * (hid.dst_rows + P * hid.M), hid.n_valid * Fw)
+    record(results, "gather_segsum_bwd_mixed", out, plain(), bwd, plain, library,
+           hid.index_bytes + 4 * Fw * (hid.dst_rows + P * hid.M),
+           hid.n_valid * Fw, ADJ_TOL)
 
     # GAT's weighted row adjoint at the input layer: checked
     g_w = torch.randn(P, inp.num_out, Fw, device=dev, generator=gen)
@@ -255,10 +334,144 @@ def kernel_phase(dev):
     out = bw()
     torch.testing.assert_close(library().values()[:, at_slot].T,
                                out.reshape(P, -1, H)[inp.valid], **ADJ_TOL)
-    record("gather_segsum_bwd_w", inp, out, plain(), ADJ_TOL, bw, plain, library,
-           4 * Fw * (inp.src_rows + inp.dst_rows) + 4 * P * inp.DB * inp.EB * H,
-           2 * inp.n_valid * Fw)
-    return results
+    record(results, "gather_segsum_bwd_w", out, plain(), bw, plain, library,
+           inp.index_bytes + 4 * Fw * (inp.src_rows + inp.dst_rows)
+           + 4 * P * inp.DB * inp.EB * H, 2 * inp.n_valid * Fw, ADJ_TOL)
+
+
+def wavefront_phase(dev, first, results):
+    """Phase 3, the wavefront expansion at the device sampler's largest
+    launch of the first papers-s batch: the frontier of the largest cap,
+    P*N rows x fan-out 15, bitwise against its plain version. There is no
+    library call for it. Bound: the larger of the bytes (vid and deg read,
+    the codes written) and the integer work of the valid rows (about 28
+    ops a slot for the three hash rounds, the reduction and the selects,
+    plus a compare per earlier slot for the dedup) at the INT32 rate."""
+    from repro_torch.sampler import DeviceSampler
+    from repro_torch.sampler import kernel as wf
+    from repro_torch.sampler import ref
+    from repro_torch.sampler.engine import _sample_device, frontier_degrees
+
+    eng = DeviceSampler(first.ds.graph, first.part.assignment, 4, FANOUTS, 0,
+                        host_sampler=first.sampler, device=dev)
+    t_dev, keys = eng.device_inputs(first.targets, 0, 0)
+    fronts, counts, _, _ = _sample_device(
+        eng._dev, t_dev, len(first.targets), keys, caps=eng.caps_tuple(),
+        fanouts=FANOUTS,
+    )
+    layer = max(range(len(FANOUTS)), key=lambda l: fronts[l].numel())
+    _, _, deg = frontier_degrees(eng._dev, fronts[layer], counts[layer])
+    vid, deg, key = fronts[layer].reshape(-1), deg.reshape(-1), keys[layer]
+    fanout = FANOUTS[layer]
+    rows, valid_rows = vid.numel(), int((deg >= 0).sum())
+    emit("kernel_shapes", {"wavefront_expand": dict(
+        layer=layer, rows=rows, valid_rows=valid_rows, fanout=fanout,
+        caps=dict(eng.caps_tuple()))})
+    fn = lambda: wf.wavefront_expand(vid, deg, key, fanout)  # noqa: E731
+    plain = lambda: ref.expand_codes(vid, deg, key[0], key[1], fanout)  # noqa: E731
+    ops = valid_rows * fanout * (28 + (fanout - 1) / 2)
+    record(results, "wavefront_expand", fn(), plain(), fn, plain, None,
+           8 * rows + 16 + 4 * fanout * rows, ops, rate=INT32_OPS)
+
+
+def packed_phase(dev, first, results):
+    """Phase 3, the packed segment sum (F=128) and edge softmax (H=4) on the
+    input layer's edges, all P splits flattened with dst offset by split,
+    against their plain versions (3e-5), ``index_add_`` over the valid edges
+    and ``torch.sparse.softmax`` over a hybrid COO (num_out, E, H) tensor.
+    Bound: bytes (the valid rows or logits and the indices read once, the
+    output written once)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels.edge_softmax import ops as es_ops
+    from repro_torch.kernels.segsum import ops as ss_ops
+
+    lp = first.plan.layers[-1]
+    P, E = lp.edge_dst.shape
+    num_out = lp.self_pos.shape[1]
+    N = P * num_out
+    dst = (np.arange(P)[:, None] * num_out + lp.edge_dst).reshape(-1)
+    mask = lp.edge_mask.reshape(-1)
+    pack = ss_ops.pack_edges(dst.astype(np.int32), mask, N)
+    R, EB, DB = pack["rows"], pack["edge_block"], pack["num_blocks"]
+    total, n_valid = DB * EB, int(mask.sum())
+    local = torch.as_tensor(pack["local_dst"], device=dev)
+    emit("kernel_shapes", {"packed_input_layer": dict(
+        edges=P * E, valid_edges=n_valid, num_out=N, DB=DB, EB=EB,
+        slots=total)})
+    gen = torch.Generator(device=dev).manual_seed(1)
+    dst_v = torch.as_tensor(dst[mask], device=dev).long()
+    mask_d = torch.as_tensor(mask, device=dev)
+
+    F = 128
+    contrib = torch.randn(P * E, F, device=dev, generator=gen)
+    packed = ss_ops.gather_packed(contrib, pack["perm"]).contiguous()
+    contrib_v = contrib[mask_d]
+    fn = lambda: ss_ops.segment_sum_packed(packed, local, R, EB)  # noqa: E731
+    plain = lambda: ss_ops.segment_sum_packed_ref(packed, local, R, EB)  # noqa: E731
+    library = lambda: torch.zeros(N, F, device=dev).index_add_(  # noqa: E731
+        0, dst_v, contrib_v)
+    out = fn()
+    torch.testing.assert_close(out[:N], library(), **PACKED_TOL)
+    record(results, "segment_sum_packed", out, plain(), fn, plain, library,
+           4 * F * n_valid + 4 * total + 4 * F * DB * R, n_valid * F,
+           PACKED_TOL)
+
+    H = 4
+    logits = 3 * torch.randn(P * E, H, device=dev, generator=gen)
+    packed = ss_ops.gather_packed(logits, pack["perm"]).contiguous()
+    sp = torch.sparse_coo_tensor(
+        torch.stack([dst_v, torch.arange(n_valid, device=dev)]), logits[mask_d],
+        (N, n_valid, H),
+    ).coalesce()
+    fn = lambda: es_ops.edge_softmax_packed(packed, local, R, EB)  # noqa: E731
+    plain = lambda: es_ops.edge_softmax_packed_ref(packed, local, R, EB)  # noqa: E731
+    library = lambda: torch.sparse.softmax(sp, 1)  # noqa: E731
+    out = fn()
+    lib = library().coalesce()
+    want = torch.zeros(n_valid, H, device=dev)
+    want[lib.indices()[1]] = lib.values()
+    perm = torch.as_tensor(pack["perm"], device=dev).long()
+    by_edge = torch.zeros(P * E + 1, H, device=dev).index_copy_(0, perm, out)
+    torch.testing.assert_close(by_edge[:-1][mask_d], want, **PACKED_TOL)
+    record(results, "edge_softmax_packed", out, plain(), fn, plain, library,
+           4 * H * n_valid + 4 * total + 4 * H * total, 5 * n_valid * H,
+           PACKED_TOL)
+    return dst, mask, N
+
+
+def packed_entry_points(dev, dst, mask, N):
+    """Path B through the entry points a user calls: ``segment_ops``'s
+    ``segment_sum``, ``segment_mean`` and ``edge_softmax`` with
+    ``backend="packed"`` on the input layer's edges, counts at 0 just before
+    and read just after, each result held against the torch backend."""
+    import torch
+
+    from repro_torch.kernels import segment_ops
+
+    gen = torch.Generator(device=dev).manual_seed(2)
+    d = torch.as_tensor(dst, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    x = torch.randn(len(dst), 128, device=dev, generator=gen)
+    logits = torch.randn(len(dst), 4, device=dev, generator=gen)
+    reset_launches()
+    out = {
+        op: getattr(segment_ops, op)(arg, d, m, N, backend="packed")
+        for op, arg in (("segment_sum", x), ("segment_mean", x),
+                        ("edge_softmax", logits))
+    }
+    launches = read_launches()
+    check(launches["segment_sum_packed"] == 2 and launches["edge_softmax_packed"] == 1,
+          f"packed entry points: launches {launches}")
+    errs = {}
+    for op, arg in (("segment_sum", x), ("segment_mean", x), ("edge_softmax", logits)):
+        want = getattr(segment_ops, op)(arg, d, m, N, backend="torch")
+        torch.testing.assert_close(out[op], want, **PACKED_TOL)
+        errs[op] = float((out[op] - want).abs().max())
+    emit("run", {"name": "segment_ops packed backend", "max_abs_err": errs,
+                 "launches": launches})
+    return launches
 
 
 def run_trainer(ds, spec, cfg, dev, steps, name, expect):
@@ -267,7 +480,6 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect):
     import numpy as np
     import torch
 
-    from repro_torch.kernels.gather_segsum import kernel
     from repro_torch.train.trainer import Trainer
 
     t0 = time.perf_counter()
@@ -275,17 +487,18 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect):
     t_setup = time.perf_counter() - t0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launches()
+    reset_launches()
     st = tr.train_epoch(max_iters=steps)
-    launches = dict(kernel.LAUNCHES)
+    launches = read_launches()
     losses = [it.loss for it in st.iters]
     check(len(losses) == steps, f"{name}: {len(losses)} steps, expected {steps}")
     check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
     for k in expect:
         check(launches[k] > 0, f"{name}: kernel {k} was never launched")
     emit("run", {
-        "name": name, "setup_s": t_setup, "presample_s": tr.t_presample,
-        "partition_s": tr.t_partition, "losses": losses,
+        "name": name, "plan_source": cfg.plan_source, "setup_s": t_setup,
+        "presample_s": tr.t_presample, "partition_s": tr.t_partition,
+        "losses": losses,
         "step_ms": [1e3 * (it.t_sample + it.t_split + it.t_load + it.t_compute)
                     for it in st.iters],
         "compute_ms": [1e3 * it.t_compute for it in st.iters],
@@ -294,8 +507,148 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect):
         "load_ms": [1e3 * it.t_load for it in st.iters],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches,
+        "source_stats": st.pipeline,
     })
-    return launches, tr
+    return launches, tr, st
+
+
+def device_source_phase(papers, cfg, dev):
+    """Phase 7: the main path's SAGE run on the device plan source, then the
+    card's sample of the first batch against the CPU's, and one sampling
+    call under the sync guard."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.sampler import DeviceSampler
+    from repro_torch.sampler.engine import _sample_device, to_host
+
+    dcfg = replace(cfg, plan_source="device")
+    launches, tr, st = run_trainer(
+        papers, GNNSpec(model="sage"), dcfg, dev, 3, "sage, device source",
+        ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "wavefront_expand"),
+    )
+    stats = st.pipeline
+    check(stats["sampler_batches"] - stats["sampler_fallbacks"] >= 1,
+          f"device source: no batch sampled on the card without a fallback {stats}")
+    # every device sampling run launches the kernel once per layer, also when
+    # it overflows and the batch falls back to the host sampler
+    check(launches["wavefront_expand"] == len(FANOUTS) * stats["sampler_batches"],
+          f"device source: {launches['wavefront_expand']} wavefront launches "
+          f"for {stats['sampler_batches']} sampled batches")
+
+    card = tr.device_sampler
+    card.refresh_caps()  # the epoch boundary: any flagged cap has grown
+    cpu = DeviceSampler(papers.graph, tr.partition.assignment, dcfg.num_devices,
+                        FANOUTS, dcfg.seed, host_sampler=tr.sampler, device="cpu")
+    cpu._caps = dict(card._caps)
+    targets = tr.sampler.epoch_targets(0)[0]
+    a, b = card.sample_batch(targets, 0, 0), cpu.sample_batch(targets, 0, 0)
+    check(card.stats()["sampler_epoch_fallbacks"] == 0,
+          "device source: the card's check sample fell back to the host")
+    for la, lb in zip(a.layers, b.layers, strict=True):
+        for f in ("src", "dst", "edge_id"):
+            check(np.array_equal(getattr(la, f), getattr(lb, f)),
+                  f"device source: card and CPU samples differ in {f}")
+    for fa, fb in zip(a.frontiers, b.frontiers, strict=True):
+        check(np.array_equal(fa, fb), "device source: frontiers differ")
+
+    # one sampling call under the sync guard, timed part by part on the
+    # host clock: upload, enqueueing the loop, the device finishing it, the
+    # one transfer back, and assembling the host sample
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    t_dev, keys = card.device_inputs(targets, 0, 0)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = _sample_device(card._dev, t_dev, len(targets), keys,
+                             caps=card.caps_tuple(), fanouts=FANOUTS)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t2 = time.perf_counter()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    fronts, counts, layers, flags = to_host(out)
+    t4 = time.perf_counter()
+    card._assemble(targets, fronts, counts, layers)
+    t5 = time.perf_counter()
+    # what the enqueue is made of: the loop's top-level torch calls (views
+    # included), counted by the profiler on a further call
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _sample_device(card._dev, t_dev, len(targets), keys,
+                       caps=card.caps_tuple(), fanouts=FANOUTS)
+    n_calls = sum(1 for e in prof.events() if e.cpu_parent is None)
+    emit("device_source", {
+        "sampler": stats,
+        "card_vs_cpu_sample": "bitwise equal",
+        "sync_debug_mode_error": "no sync raised",
+        "sample_breakdown_ms": {
+            "upload": 1e3 * (t1 - t0), "enqueue": 1e3 * (t2 - t1),
+            "device_after_enqueue": 1e3 * (t3 - t2),
+            "transfer": 1e3 * (t4 - t3), "assemble": 1e3 * (t5 - t4),
+        },
+        "sample_device_torch_calls": n_calls,
+        "transfer_bytes": 4 * sum(
+            a.size for a in (*fronts, *counts, *(v for lay in layers
+                                                  for v in lay.values()))),
+        "edges_per_layer": [int(lay["valid"].sum()) for lay in layers],
+        "frontier_sizes": [int(c.sum()) for c in counts],
+        "overflow": sorted(k for k, f in flags.items() if f),
+    })
+    return launches
+
+
+def determinism_phase(papers, cfg, dev, dst, mask, N):
+    """Phase 8: two identical 2-step runs, reported as bitwise equal or not,
+    for SAGE and GAT on the serial source and SAGE on the device source;
+    then GAT's edge softmax alone, both backends, five calls each on the
+    input layer's edges (H=4), reported the same way."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.kernels import segment_ops
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.trainer import Trainer
+
+    for name, model, c in (
+        ("sage", "sage", cfg),
+        ("gat", "gat", cfg),
+        ("sage, device source", "sage", replace(cfg, plan_source="device")),
+    ):
+        spec = GNNSpec(model=model, num_heads=4)
+        # two trainers built alike: seeded partition, sampler and weights
+        runs = [Trainer(papers, spec, c, device=dev) for _ in range(2)]
+        same_start = all(
+            torch.equal(x, y) for x, y in zip(runs[0].params, runs[1].params)
+        )
+        losses = [[it.loss for it in tr.train_epoch(max_iters=2).iters]
+                  for tr in runs]
+        same_params = all(
+            torch.equal(x, y) for x, y in zip(runs[0].params, runs[1].params)
+        )
+        emit("determinism", {"name": name, "same_start": same_start,
+                             "losses_a": losses[0],
+                             "losses_b": losses[1],
+                             "bitwise_equal": losses[0] == losses[1] and same_params})
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d = torch.as_tensor(dst, device=dev)
+    m = torch.as_tensor(mask, device=dev)
+    logits = 3 * torch.randn(len(dst), 4, device=dev, generator=gen)
+    for backend in segment_ops.BACKENDS:
+        outs = [segment_ops.edge_softmax(logits, d, m, N, backend=backend)
+                for _ in range(5)]
+        emit("determinism", {
+            "name": f"segment_ops.edge_softmax, backend={backend!r}, input layer",
+            "bitwise_equal": all(torch.equal(outs[0], o) for o in outs[1:]),
+            "max_abs_diff": max(float((outs[0] - o).abs().max()) for o in outs[1:]),
+        })
 
 
 def main():
@@ -320,30 +673,41 @@ def main():
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
-    # ---- 2. build -------------------------------------------------------
-    build.load_library("gather_segsum")
-    ptxas = [line.strip() for line in build.build_log.get("gather_segsum", "").splitlines()
-             if "Compiling entry function" in line or "Used" in line]
-    emit("build", {"seconds": build.build_seconds["gather_segsum"], "ptxas": ptxas})
+    # ---- 2. build: one nvcc per source, all together ----------------------
+    t0 = time.perf_counter()
+    build.load_libraries(LIBRARIES)
+    emit("build", {
+        "wall_s": time.perf_counter() - t0,
+        "seconds": {n: build.build_seconds[n] for n in LIBRARIES},
+        "ptxas": {n: [line.strip() for line in build.build_log.get(n, "").splitlines()
+                      if "Compiling entry function" in line or "Used" in line]
+                  for n in LIBRARIES},
+    })
 
     # ---- 3. kernels -----------------------------------------------------
-    results = kernel_phase(dev)
+    first = papers_first_batch()
+    results = {}
+    kernel_phase(dev, first, results)
+    wavefront_phase(dev, first, results)
+    dst, mask, N = packed_phase(dev, first, results)
+    total = {k: 0 for k in KERNELS}
+    for k, v in packed_entry_points(dev, dst, mask, N).items():
+        total[k] += v
 
     # ---- 4. main path at full width ------------------------------------
-    papers = make_dataset("papers-s")
-    cfg = TrainConfig(num_devices=4, fanouts=(15, 15, 15), batch_size=1024,
+    papers = first.ds
+    cfg = TrainConfig(num_devices=4, fanouts=FANOUTS, batch_size=1024,
                       presample_epochs=2)
     both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed")
-    total = {k: 0 for k in results}
-    launches, _ = run_trainer(papers, GNNSpec(model="sage"), cfg, dev, 3,
-                              "sage", both)
+    launches, _, _ = run_trainer(papers, GNNSpec(model="sage"), cfg, dev, 3,
+                                 "sage", both)
     for k in total:
         total[k] += launches[k]
 
     # ---- 5. the other models -------------------------------------------
     for model, expect in (("gcn", both), ("gat", both + ("gather_segsum_bwd_w",))):
-        launches, _ = run_trainer(papers, GNNSpec(model=model, num_heads=4), cfg,
-                                  dev, 2, model, expect)
+        launches, _, _ = run_trainer(papers, GNNSpec(model=model, num_heads=4), cfg,
+                                     dev, 2, model, expect)
         for k in total:
             total[k] += launches[k]
 
@@ -363,20 +727,17 @@ def main():
         emit("card_vs_cpu", {"model": model, "cuda": losses[str(dev)],
                              "cpu": losses["cpu"]})
 
-    # ---- 7. run-to-run determinism (reported) ---------------------------
-    tr_a = Trainer(papers, GNNSpec(model="sage"), cfg, device=dev)
-    tr_b = copy.deepcopy(tr_a)
-    la = [it.loss for it in tr_a.train_epoch(max_iters=2).iters]
-    lb = [it.loss for it in tr_b.train_epoch(max_iters=2).iters]
-    same_params = all(
-        torch.equal(a, b) for a, b in zip(tr_a.params, tr_b.params)
-    )
-    emit("determinism", {"losses_a": la, "losses_b": lb,
-                         "bitwise_equal": la == lb and same_params})
+    # ---- 7. the device plan source --------------------------------------
+    for k, v in device_source_phase(papers, cfg, dev).items():
+        total[k] += v
+
+    # ---- 8. run-to-run determinism (reported) ---------------------------
+    determinism_phase(papers, cfg, dev, dst, mask, N)
 
     for k, r in results.items():
         r["launches"] = total[k]
-    print(json.dumps({"kernels": list(results.values())}), flush=True)
+    check(sorted(results) == sorted(KERNELS), f"kernels held: {sorted(results)}")
+    print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,11 +12,15 @@ its design does about it, is noted beside each wrapper and in the source.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import INT as _I
+from repro_torch.kernels.build import PTR as _P
+from repro_torch.kernels.build import check_tensor as _check
+from repro_torch.kernels.build import ptr as _ptr
+from repro_torch.kernels.build import raise_on as _raise_on
+from repro_torch.kernels.build import stream as _stream
+from repro_torch.kernels.build import typed_library
 from repro_torch.kernels.gather_segsum import ref
 from repro_torch.kernels.gather_segsum.layout import AGG_ROWS as R
 
@@ -28,8 +32,6 @@ LAUNCHES = {
     "gather_segsum_bwd_w": 0,
 }
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
 _SIGNATURES = {
     # mixed, pack_src, row_off, w, out, P, M, F, DB, EB, num_out, H, dh, R
     "gss_fwd": [_P] * 5 + [_I] * 9 + [_P],
@@ -45,41 +47,8 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-_typed: list = []  # the loaded library once its entry points are typed
-
-
 def _lib():
-    if not _typed:
-        lib = load_library("gather_segsum")
-        for fn, argtypes in _SIGNATURES.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
-        _typed.append(lib)
-    return _typed[0]
-
-
-def _check(name, t, dtype, ndim, device):
-    if t.dtype != dtype or t.dim() != ndim:
-        raise TypeError(
-            f"{name}: expected {ndim}-d {dtype}, got {t.dim()}-d {t.dtype}"
-        )
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-
-
-def _ptr(t):
-    return ctypes.c_void_p(t.data_ptr() if t is not None else 0)
-
-
-def _stream(device):
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _raise_on(rc, fn):
-    if rc != 0:
-        raise RuntimeError(f"{fn} launch failed: cudaError {rc}")
+    return typed_library("gather_segsum", _SIGNATURES)
 
 
 def _check_pack(mixed, pack_src, pack_dst, w):

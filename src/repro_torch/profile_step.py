@@ -2,10 +2,12 @@
 steady steps of the main path.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--model sage] [--steps 2]
+        [--plan-source serial|device]
 
 Builds the papers-s trainer of ``chip_smoke.py``'s main path (SAGE 128 ->
 256 -> 256 -> 16, fan-outs 15,15,15, batch 1024, P=4, presample cut to 2
-epochs), takes one warm-up step, then profiles ``--steps`` steps with CPU
+epochs) on the chosen plan source (``device``: sampling on the card), takes
+one warm-up step, then profiles ``--steps`` steps with CPU
 and CUDA activities. Prints the top operators by device time, then one JSON
 line: the host wall time of the profiled steps, the device time summed over
 kernels and copies, and the device idle share over the window. Needs a card.
@@ -28,11 +30,12 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="sage", choices=("sage", "gcn", "gat"))
     ap.add_argument("--steps", type=int, default=2)
+    ap.add_argument("--plan-source", default="serial", choices=("serial", "device"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
     cfg = TrainConfig(num_devices=4, fanouts=(15, 15, 15), batch_size=1024,
-                      presample_epochs=2)
+                      presample_epochs=2, plan_source=args.plan_source)
     tr = Trainer(make_dataset("papers-s"), GNNSpec(model=args.model), cfg)
     tr.train_epoch(max_iters=1)  # warm-up: library init, allocator growth
     torch.cuda.synchronize()
@@ -51,6 +54,7 @@ def main(argv=None) -> int:
     )
     print(json.dumps({"profile": {
         "model": args.model,
+        "plan_source": args.plan_source,
         "steps": len(stats.iters),
         "wall_ms": 1e3 * wall,
         "device_ms": device_us / 1e3,

@@ -1,12 +1,17 @@
 """Plan sources: who builds the per-iteration ``SplitPlan`` and when — the
-serial part of ``repro/runtime/plan_source.py``.
+serial and device parts of ``repro/runtime/plan_source.py``.
 
-``SerialPlanSource`` builds each batch inline on the consumer thread. Every
-batch's draws are keyed by ``(seed, epoch, index)``
-(``NeighborSampler.sample_batch``), and padding to the running high-water
-marks (``repad_plan``) is applied at delivery (``finalize``), on the ordered
-side. The pipelined source, which builds ahead on producer threads with the
-same keys and the same delivery step, comes with a later slice.
+``SerialPlanSource`` builds each batch inline on the consumer thread.
+``DevicePlanSource`` delivers the same way with the sampling stage on the
+device (``repro_torch.sampler``): the producer hands the targets to its
+``DeviceSampler`` and builds the standard ``SplitPlan`` from the returned
+sample, so repadding and the trainer are untouched. Its capacity growth is
+applied when iteration starts (the epoch boundary), never mid-epoch. Every
+batch's draws are keyed by ``(seed, epoch, index)``, and padding to the
+running high-water marks (``repad_plan``) is applied at delivery
+(``finalize``), on the ordered side. The pipelined sources, which build ahead
+on producer threads with the same keys and the same delivery step, come with
+a later slice.
 """
 from __future__ import annotations
 
@@ -42,8 +47,9 @@ class PlanBatch:
 
 class PlanProducer:
     """Builds one ``PlanBatch``: sample -> online split -> feature load
-    (split mode, host sampler). Holds only read-only references, so any
-    thread may build any batch; repadding is left to ``finalize``."""
+    (split mode). Sampling runs on ``device_sampler`` when one is given,
+    else on the host sampler. Holds only read-only references, so any thread
+    may build any batch; repadding is left to ``finalize``."""
 
     def __init__(
         self,
@@ -53,6 +59,7 @@ class PlanProducer:
         num_devices: int,
         pad_multiple: int,
         assignment: np.ndarray,
+        device_sampler=None,  # repro_torch.sampler.DeviceSampler | None
     ):
         self.sampler = sampler
         self.features = features
@@ -60,10 +67,14 @@ class PlanProducer:
         self.num_devices = num_devices
         self.pad_multiple = pad_multiple
         self.assignment = assignment
+        self.device_sampler = device_sampler
 
     def build(self, epoch: int, index: int, targets: np.ndarray) -> PlanBatch:
         t0 = time.perf_counter()
-        sample = self.sampler.sample_batch(targets, epoch, index)
+        # both samplers are pure functions of (seed, epoch, index); the
+        # device one falls back to the host's keyed API on cap overflow
+        sampler = self.device_sampler or self.sampler
+        sample = sampler.sample_batch(targets, epoch, index)
         t1 = time.perf_counter()
         plan = build_split_plan(
             sample, self.assignment, self.num_devices,
@@ -102,3 +113,40 @@ class SerialPlanSource:
     def __iter__(self) -> Iterator[PlanBatch]:
         for idx, targets in enumerate(self.batches):
             yield finalize(self.producer.build(self.epoch, idx, targets), self.hwm)
+
+    def stats(self) -> dict:
+        return {}
+
+
+@dataclass
+class DevicePlanSource(SerialPlanSource):
+    """Inline delivery; sampling runs on the producer's ``DeviceSampler``."""
+
+    def _device_sampler(self):
+        eng = self.producer.device_sampler
+        if eng is None:
+            raise ValueError(
+                "device plan source needs a PlanProducer with a device_sampler"
+            )
+        return eng
+
+    def __iter__(self) -> Iterator[PlanBatch]:
+        self._device_sampler().refresh_caps()
+        yield from SerialPlanSource.__iter__(self)
+
+    def stats(self) -> dict:
+        return self._device_sampler().stats()
+
+
+#: the plan sources this slice runs
+PLAN_SOURCES = {"serial": SerialPlanSource, "device": DevicePlanSource}
+
+
+def make_plan_source(kind: str, producer: PlanProducer, epoch: int,
+                     batches: list, hwm: dict) -> SerialPlanSource:
+    if kind not in PLAN_SOURCES:
+        raise ValueError(
+            f"unknown plan source {kind!r} ({' | '.join(PLAN_SOURCES)}; the "
+            "pipelined sources come with a later slice)"
+        )
+    return PLAN_SOURCES[kind](producer, epoch, batches, hwm)

@@ -1,6 +1,6 @@
 """Training runtime for the split-parallel main path — the counterpart of
-``repro/train/trainer.py`` restricted to ``mode="split"`` with the serial plan
-source and the blocking per-layer shuffle.
+``repro/train/trainer.py`` restricted to ``mode="split"`` with the serial or
+device plan source and the blocking per-layer shuffle.
 
 The P splits run in sim form, as a leading axis on one device. One step:
 stage a plan to device tensors; per layer, shuffle (``sim_shuffle``) and
@@ -23,7 +23,8 @@ from repro_torch.core.splitting import build_split_plan, repad_plan
 from repro_torch.graph.datasets import GraphDataset
 from repro_torch.graph.sampling import NeighborSampler
 from repro_torch.models.gnn.layers import GNN, GNNSpec, gnn_forward
-from repro_torch.runtime.plan_source import PlanProducer, SerialPlanSource
+from repro_torch.runtime.plan_source import PlanProducer, make_plan_source
+from repro_torch.sampler import DeviceSampler
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loss import masked_accuracy, masked_softmax_xent
 from repro_torch.train.plan_io import load_features, load_labels, plan_to_device
@@ -44,7 +45,7 @@ class TrainConfig:
     presample_epochs: int = 10
     pad_multiple: int = -1  # -1 = pow2 bucketing
     cache_mode: str = "none"  # distributed | partitioned: later slice
-    plan_source: str = "serial"  # pipelined | device*: later slices
+    plan_source: str = "serial"  # serial | device; pipelined: later slice
     shuffle_overlap: bool = False  # overlap schedule: later slice
     wire_dtype: str = "float32"  # float32 | bfloat16 | float16
     replication_budget: float = 0.0  # hot-vertex replication: later slice
@@ -54,23 +55,23 @@ class TrainConfig:
 
 #: config values this slice runs, and the slice each other value waits for
 _SLICE = {
-    "mode": ("split", "the dp and pushpull modes"),
-    "partition_method": ("gsplit", "the partitioner ablation arms"),
-    "plan_source": ("serial", "the pipelined and device plan sources"),
-    "cache_mode": ("none", "cache serving"),
-    "shuffle_overlap": (False, "the overlap schedule"),
-    "replication_budget": (0.0, "hot-vertex replication"),
-    "num_replicas": (0, "the 2-D (replica, split) mesh"),
+    "mode": (("split",), "the dp and pushpull modes"),
+    "partition_method": (("gsplit",), "the partitioner ablation arms"),
+    "plan_source": (("serial", "device"), "the pipelined plan sources"),
+    "cache_mode": (("none",), "cache serving"),
+    "shuffle_overlap": ((False,), "the overlap schedule"),
+    "replication_budget": ((0.0,), "hot-vertex replication"),
+    "num_replicas": ((0,), "the 2-D (replica, split) mesh"),
 }
 
 def check_config(cfg: TrainConfig) -> None:
     """Raise ``ValueError`` for a value this slice of the port does not run."""
-    for name, (value, what) in _SLICE.items():
-        if getattr(cfg, name) != value:
+    for name, (values, what) in _SLICE.items():
+        if getattr(cfg, name) not in values:
             raise ValueError(
                 f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported yet "
                 f"({what}: a later slice of the port; this slice runs "
-                f"{name}={value!r})"
+                f"{name} in {values!r})"
             )
     if cfg.wire_dtype not in WIRE_DTYPES:
         raise ValueError(
@@ -107,6 +108,7 @@ class IterStats:
 class EpochStats:
     iters: list[IterStats] = field(default_factory=list)
     t_wall: float = 0.0  # consumer wall time for the whole epoch
+    pipeline: dict = field(default_factory=dict)  # plan source's stats()
 
     def totals(self) -> dict:
         agg = {
@@ -126,7 +128,9 @@ class Trainer:
 
     ``device=None`` is the card. ``model`` (a ``GNN``, e.g. from
     ``params_from_jax``) replaces the trainer's own initialization, which
-    draws from a ``torch.Generator`` seeded with ``cfg.seed``.
+    draws from a ``torch.Generator`` seeded with ``cfg.seed``. With
+    ``cfg.plan_source="device"`` the batches are sampled on that device by
+    ``self.device_sampler``, whose shards live there.
     """
 
     def __init__(
@@ -171,10 +175,18 @@ class Trainer:
         self.opt_state = self.opt.init(self.params)
         self._pad_hwm: dict = {}  # high-water-mark padding (stable shapes)
         self._epoch = 0  # epochs consumed via train_epoch (keyed RNG input)
+        self.device_sampler = None
+        if cfg.plan_source == "device":
+            self.device_sampler = DeviceSampler(
+                dataset.graph, self.partition.assignment, cfg.num_devices,
+                list(cfg.fanouts), cfg.seed, host_sampler=self.sampler,
+                device=self.device,
+            )
         self.producer = PlanProducer(
             self.sampler, dataset.features, dataset.labels,
             num_devices=cfg.num_devices, pad_multiple=cfg.pad_multiple,
             assignment=self.partition.assignment,
+            device_sampler=self.device_sampler,
         )
 
     # ------------------------------------------------------------------ #
@@ -233,13 +245,19 @@ class Trainer:
         return self._iter_stats(plan, loss, acc, t1 - t0, t2 - t1, t3 - t2,
                                 t4 - t3)
 
-    def train_epoch(self, max_iters: int | None = None) -> EpochStats:
-        """One epoch through the serial plan source: batches keyed by
-        ``(seed, epoch, index)``, repadded at delivery."""
-        batches = self.sampler.epoch_targets(self._epoch)
+    def plan_source_for(self, epoch: int, max_iters: int | None = None):
+        """The configured plan source over ``epoch``'s batches (the first
+        ``max_iters``), delivering into the trainer's high-water marks."""
+        batches = self.sampler.epoch_targets(epoch)
         if max_iters is not None:
             batches = batches[:max_iters]
-        source = SerialPlanSource(self.producer, self._epoch, batches, self._pad_hwm)
+        return make_plan_source(self.cfg.plan_source, self.producer, epoch,
+                                batches, self._pad_hwm)
+
+    def train_epoch(self, max_iters: int | None = None) -> EpochStats:
+        """One epoch through the configured plan source: batches keyed by
+        ``(seed, epoch, index)``, repadded at delivery."""
+        source = self.plan_source_for(self._epoch, max_iters)
         stats = EpochStats()
         t_epoch = time.perf_counter()
         for batch in source:
@@ -250,5 +268,6 @@ class Trainer:
                 batch.t_load, time.perf_counter() - t0,
             ))
         stats.t_wall = time.perf_counter() - t_epoch
+        stats.pipeline = source.stats()
         self._epoch += 1
         return stats

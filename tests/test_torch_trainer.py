@@ -126,6 +126,12 @@ def test_port_imports_no_jax_and_no_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    scanned = {p.relative_to(ROOT).as_posix() for p in files}
+    assert {
+        "src/repro_torch/sampler/engine.py",
+        "src/repro_torch/kernels/segsum/ops.py",
+        "src/repro_torch/kernels/edge_softmax/ops.py",
+    } <= scanned
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -155,7 +161,7 @@ def test_trainer_runs_on_the_card_unless_asked(monkeypatch):
     ("partition_method", "node"),
     ("partition_method", "rand"),
     ("plan_source", "pipelined"),
-    ("plan_source", "device"),
+    ("plan_source", "device_pipelined"),
     ("cache_mode", "partitioned"),
     ("shuffle_overlap", True),
     ("replication_budget", 0.05),
