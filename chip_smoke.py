@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's split-parallel training paths on one CUDA card.
+"""Drive the PyTorch port's paths on one CUDA card: the split-parallel
+training paths and the transformer serve path.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -8,19 +9,25 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 1. device  -- requires a CUDA card; prints the nvidia-smi name/power line.
 2. build   -- compiles the CUDA sources of ``src/repro_torch/csrc``, one
               ``nvcc`` each, all started together.
-3. kernels -- at the shapes of the first papers-s batch that the paths give
-              each kernel, holds each kernel against its plain torch version
-              and checks it repeats bit for bit, and times it (CUDA events,
-              median of 30 launches after warm-up) beside the plain version,
-              a library call computing the same function where one exists,
-              and the least time the card could take (``bound_ms``). The
-              gather_segsum kernels at the plan's input layer (layer 1 for
-              the unweighted row adjoint, which SAGE and GCN never launch at
-              the input layer): forward 3e-5, adjoints 3e-4. The wavefront
+3. kernels -- at the shapes the paths give each kernel, holds each kernel
+              against its plain torch version and checks it repeats bit for
+              bit, and times it (CUDA events, median of 30 launches after
+              warm-up) beside the plain version, a library call computing
+              the same function where one exists, and the least time the
+              card could take (``bound_ms``). The gather_segsum kernels at
+              the first papers-s batch's input layer (layer 1 for the
+              unweighted row adjoint, which SAGE and GCN never launch at the
+              input layer): forward 3e-5, adjoints 3e-4. The wavefront
               expansion at the device sampler's largest launch (P*N rows of
               the largest frontier cap, fan-out 15): bitwise. The packed
               segment sum (F=128) and edge softmax (H=4) on the input layer's
               edges, all P splits flattened with dst offset by split: 3e-5.
+              The decode attention at SmolLM-135M's serve shape (B=8, H=9,
+              KV=3, D=64, S=1088) and the other dense configs' heads at B=8,
+              S=4096, f32 (2e-4/2e-5) and bf16 (the f32 result from the
+              same inputs, within the rounding of p and of the output),
+              cache_len 1, mid and S; timed in bf16 with a full cache, cold
+              in L2.
 4. main    -- the trainer's main path at full width: papers-s, SAGE (128 ->
               256 -> 256 -> 16), fan-outs 15,15,15, batch 1024, P=4 splits in
               sim form; one epoch (3 steps). Presampling is cut to 2 epochs.
@@ -40,21 +47,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               its single transfer: it fails if that (prototype) detector
               raises on a sync, and reports that none was raised.
 8. determinism -- two identical 2-step runs each of SAGE and GAT (serial
-              source) and of SAGE on the device source, papers-s, then five
-              calls of the edge softmax alone on each backend, reported as
-              bitwise equal or not (informational: the plain edge softmax
-              sums with ``index_add``, whose float atomics on the card may
-              add in another order; the kernels' own repeatability is
-              enforced in phase 3).
+              source) and of SAGE on the device source, papers-s; five calls
+              of the edge softmax alone on each backend; two identical
+              full-width serve runs (tokens and logits). Each must be bitwise
+              equal. Also times what the torch backend's fixed-order softmax
+              denominator costs against an ``index_add`` one.
+9. serve   -- ``repro_torch.serve``'s path at full width: SmolLM-135M, bf16,
+              8 requests of 1024-token prompts, 64 new tokens, greedy.
+              Prints prefill ms, decode ms per step (median), tokens/s and
+              peak device memory; fails unless the logits are finite and the
+              decode kernel launched 30 layers x 63 decode steps times.
+10. serve parity -- reduced SmolLM (2 layers, f32) from the same weights:
+              prefill and 8 decode steps on the card and on the CPU agree to
+              rtol/atol 1e-4 at every step, with equal greedy tokens.
 
-Launch counts are set to 0 just before each trainer run and read just after;
-a kernel of the run's path that was never launched fails the script. The
-packed segment kernels run on no trainer path (``segment_ops``'s packed
-backend, which the model does not call): their counts come from one call of
-``segment_ops.segment_sum``/``edge_softmax`` with ``backend="packed"``,
-driven with the counts at 0. The last lines are the ``kernels`` JSON, the
-nvidia-smi line and the result line.
+Launch counts are set to 0 just before each trainer run and the serve run
+and read just after; a kernel of the run's path that was never launched
+fails the script. The packed segment kernels run on no trainer path
+(``segment_ops``'s packed backend, which the model does not call): their
+counts come from one call of ``segment_ops.segment_sum``/``edge_softmax``
+with ``backend="packed"``, driven with the counts at 0. The last lines are
+the ``kernels`` JSON, the nvidia-smi line and the result line.
 """
+import contextlib
 import copy
 import json
 import statistics
@@ -69,6 +84,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
 # 32-bit integer ops outside the tensor cores: the fp32 rate counts 128 lanes
 # an SM at 2 ops (a fused multiply-add); Hopper's SM has 64 INT32 lanes
 INT32_OPS = FP32_FLOPS / 4
@@ -89,21 +105,27 @@ KERNELS = {
                            "src/repro/kernels/segsum/kernel.py:44"),
     "edge_softmax_packed": ("edge_softmax_packed.cu",
                             "src/repro/kernels/edge_softmax/kernel.py:61"),
+    "flash_decode": ("flash_decode.cu",
+                     "src/repro/kernels/flash_decode/kernel.py:61"),
 }
 LIBRARIES = ("gather_segsum", "wavefront_expand", "segsum_packed",
-             "edge_softmax_packed")
+             "edge_softmax_packed", "flash_decode")
 FANOUTS = (15, 15, 15)
 
 
 def counters():
     """The wrappers' launch-count modules (each has ``LAUNCHES`` and
     ``reset_launches``)."""
+    # segment_ops first: it imports the packed ops' modules in an order
+    # that resolves their imports of one another
+    from repro_torch.kernels import segment_ops  # noqa: F401
     from repro_torch.kernels.edge_softmax import ops as es_ops
+    from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.gather_segsum import kernel as gss
     from repro_torch.kernels.segsum import ops as ss_ops
     from repro_torch.sampler import kernel as wf
 
-    return (gss, wf, ss_ops, es_ops)
+    return (gss, wf, ss_ops, es_ops, fd)
 
 
 def reset_launches():
@@ -127,8 +149,10 @@ def emit(tag, obj):
     print(json.dumps({tag: obj}), flush=True)
 
 
-def time_ms(fn, iters=30, warmup=5):
-    """Median device time of ``fn`` over ``iters`` launches (CUDA events)."""
+def time_ms(fn, iters=30, warmup=5, flush=None):
+    """Median device time of ``fn`` over ``iters`` launches (CUDA events).
+    ``flush``, a tensor larger than the 50 MB L2, is overwritten before each
+    launch, outside the timed interval, so ``fn`` finds its inputs cold."""
     import torch
 
     for _ in range(warmup):
@@ -136,6 +160,8 @@ def time_ms(fn, iters=30, warmup=5):
     torch.cuda.synchronize()
     events = []
     for _ in range(iters):
+        if flush is not None:
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -144,6 +170,29 @@ def time_ms(fn, iters=30, warmup=5):
         events.append((start, end))
     torch.cuda.synchronize()
     return statistics.median(s.elapsed_time(e) for s, e in events)
+
+
+def device_ms(fn, iters=20, flush=None):
+    """Device time of one ``fn`` call from ``torch.profiler``: the own time
+    of every kernel and copy on the card over ``iters`` calls, per call,
+    less what the ``flush`` alone takes. Unlike ``time_ms`` it leaves out
+    the host's time to launch, which a short kernel can be bound by."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def per_call(body):
+        body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                body()
+            torch.cuda.synchronize()
+        return sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+
+    if flush is None:
+        return per_call(fn)
+    return per_call(lambda: (flush.zero_(), fn())) - per_call(flush.zero_)
 
 
 def bound(nbytes, ops, rate=FP32_FLOPS):
@@ -211,29 +260,42 @@ def layer_pack(lp, P, dev):
 
 
 def record(results, name, out, want, fn, plain, library, nbytes, nops,
-           tol=None, rate=FP32_FLOPS):
-    """Hold a kernel's output against its plain version's (``tol``, or
-    bitwise when None), check that a second launch repeats it bit for bit,
+           tol=None, rate=FP32_FLOPS, shape=None, flush=None, extra=None):
+    """Hold a kernel's output against its plain version's (``tol``: the
+    rtol/atol of ``assert_close``, an elementwise bound tensor, or None for
+    bitwise), check that a second launch repeats it bit for bit,
     time the kernel, its plain version and the library call, and keep the
-    row of the ``kernels`` line."""
+    row of the ``kernels`` line. A row with a ``shape`` label is emitted and
+    not kept: the ``kernels`` line holds each kernel at its main path's
+    shape."""
     import torch
 
     if tol is None:
         check(torch.equal(out, want), f"{name}: differs from its plain version")
         err = 0.0
     else:
-        err = float((out.float() - want.float()).abs().max())
-        torch.testing.assert_close(out, want, **tol)
+        diff = (out.float() - want.float()).abs()
+        err = float(diff.max())
+        if isinstance(tol, torch.Tensor):
+            check(bool((diff <= tol).all()), f"{name}: max error {err} outside the bound")
+        else:
+            torch.testing.assert_close(out, want, **tol)
     check(torch.equal(out, fn()), f"{name}: two launches differ")
     bound_ms, bound_by = bound(nbytes, nops, rate)
     source, replaces = KERNELS[name]
-    results[name] = dict(
+    row = dict(
         name=name, route="cuda", source=CSRC + source, replaces=replaces,
-        launches=0, max_abs_err=err, ms=time_ms(fn), plain_ms=time_ms(plain),
-        bound_ms=bound_ms, bound_by=bound_by,
-        library_ms=time_ms(library) if library is not None else None,
+        launches=0, max_abs_err=err, ms=time_ms(fn, flush=flush),
+        plain_ms=time_ms(plain, flush=flush), bound_ms=bound_ms,
+        bound_by=bound_by,
+        library_ms=time_ms(library, flush=flush) if library is not None else None,
     )
-    emit("kernel", {k: v for k, v in results[name].items() if k != "launches"})
+    line = {k: v for k, v in row.items() if k != "launches"}
+    if shape is None:
+        results[name] = row
+    else:
+        line["shape"] = shape
+    emit("kernel", {**line, **(extra or {})})
 
 
 def kernel_phase(dev, first, results):
@@ -474,6 +536,94 @@ def packed_entry_points(dev, dst, mask, N):
     return launches
 
 
+#: the decode kernel's shapes: SmolLM-135M's serve shape (B=8, a 1024-token
+#: prompt plus 64 new tokens) first, then the other dense configs' heads
+DECODE_SHAPES = {
+    "smollm-135m": dict(B=8, H=9, KV=3, D=64, S=1088, mid=700),
+    "phi3-mini-3.8b": dict(B=8, H=32, KV=32, D=96, S=4096, mid=2051),
+    "gemma-7b": dict(B=8, H=16, KV=16, D=256, S=4096, mid=2051),
+    "granite-20b": dict(B=8, H=48, KV=1, D=128, S=4096, mid=2051),
+}
+#: the SDPA yardstick against the decode kernel in bf16: one bf16 rounding
+#: of the output (at most 2^-7 of it) plus 2e-3 on outputs of about 0.03-0.05
+SDPA_TOL = dict(rtol=1e-2, atol=2e-3)
+SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "smollm-135m", 8, 1024, 64
+
+
+def flash_decode_phase(dev, results):
+    """Phase 3, the decode-attention kernel at each dense config's head
+    shape (B=8; SmolLM at the serve shape S=1088, the others at S=4096), in
+    f32 and bf16, with cache_len 1, mid and S: held against its plain
+    version computed in f32 from the same inputs, within
+    ``ref.decode_attention_bound`` (the f32 tolerance of
+    tests/test_kernels.py, 2e-4/2e-5, plus in bf16 the rounding of p and of
+    the output), and checked to repeat bit for bit. Timed in
+    bf16 with a full cache, cold in L2 (the decode step reads each layer's
+    cache after the other layers' have evicted it), beside the plain
+    version and ``scaled_dot_product_attention`` with ``enable_gqa`` on
+    (B, KV, S, D) tensors transposed beforehand and a cache_len mask (only
+    the call is timed; the port never calls it). Bound: the larger of the
+    bytes (the valid K/V rows, q and the output once) over 3.35 TB/s and
+    the 4*B*H*L*D flops over the bf16 tensor-core rate; ``fma_bound_ms``
+    gives the flops over the fp32 CUDA-core rate the kernel runs them at,
+    and ``device_ms`` the kernel's own device time by the profiler (without
+    the host's time to launch it, which the CUDA events include)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
+    for arch, sh in DECODE_SHAPES.items():
+        B, H, KV, D, S = (sh[k] for k in ("B", "H", "KV", "D", "S"))
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
+            k = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dtype)
+            v = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dtype)
+            errs, of_bound = {}, {}
+            for L in (1, sh["mid"], S):
+                n = torch.tensor([L], dtype=torch.int32, device=dev)
+                out = fd.flash_decode(q, k, v, n)
+                want, tol = ref.decode_attention_bound(q, k, v, n.reshape(()))
+                diff = (out.float() - want).abs()
+                check(bool((diff <= tol).all()),
+                      f"flash_decode {arch} {dtype} L={L}: max error "
+                      f"{float(diff.max())} outside the bound")
+                check(torch.equal(out, fd.flash_decode(q, k, v, n)),
+                      f"flash_decode {arch} {dtype} L={L}: two launches differ")
+                errs[L] = float(diff.max())
+                of_bound[L] = float((diff / tol).max())
+            emit("kernel_check", {"name": f"flash_decode ({arch}: B={B} H={H} "
+                                          f"KV={KV} D={D} S={S}, {dtype})",
+                                  "max_abs_err": errs,
+                                  "max_err_over_bound": of_bound, "repeats": True})
+        # timed in bf16 (the serve dtype) with a full cache
+        n = torch.tensor([S], dtype=torch.int32, device=dev)
+        fn = lambda: fd.flash_decode(q, k, v, n)  # noqa: E731
+        plain = lambda: ref.decode_attention_ref(q, k, v, n.reshape(()))  # noqa: E731
+        q4 = q.reshape(B, H, 1, D)
+        kt, vt = k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+        mask = (torch.arange(S, device=dev) < n)[None, None, None, :]
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q4, kt, vt, attn_mask=mask, enable_gqa=True)
+        out = fn()
+        torch.testing.assert_close(library().reshape(B, H, D).float(), out.float(),
+                                   **SDPA_TOL)
+        want, tol = ref.decode_attention_bound(q, k, v, n.reshape(()))
+        nbytes = 2 * (B * S * KV * 2 * D + 2 * B * H * D)
+        flops = 4 * B * H * S * D
+        record(results, "flash_decode", out, want, fn, plain, library,
+               nbytes, flops, tol, rate=BF16_FLOPS,
+               shape=None if arch == SERVE_ARCH else f"{arch}: B={B} H={H} "
+                                                     f"KV={KV} D={D} S={S}",
+               flush=flush,
+               extra={"fma_bound_ms": 1e3 * flops / FP32_FLOPS, "arch": arch,
+                      "device_ms": device_ms(fn, flush=flush),
+                      "library_device_ms": device_ms(library, flush=flush)})
+
+
 def run_trainer(ds, spec, cfg, dev, steps, name, expect):
     """One trainer run with launch counts set to 0 just before and read just
     after; fails if a kernel the path needs was never launched."""
@@ -603,11 +753,34 @@ def device_source_phase(papers, cfg, dev):
     return launches
 
 
+def _softmax_index_add(logits, dst, mask, num_out):
+    """The torch backend's edge softmax as it was before its denominator was
+    summed in a fixed order: the same body with ``index_add``, which adds
+    with float atomics on the card. A yardstick of what the fixed order
+    costs; the port never calls it."""
+    import torch
+
+    dst = dst.long()
+    neg = torch.finfo(logits.dtype).min / 2
+    masked = torch.where(mask[:, None], logits, torch.full_like(logits, neg))
+    with torch.no_grad():
+        seg_max = torch.full((num_out, logits.shape[1]), neg, dtype=logits.dtype,
+                             device=logits.device)
+        seg_max = seg_max.scatter_reduce(0, dst[:, None].expand_as(masked),
+                                         masked, "amax")
+    ex = torch.where(mask[:, None], torch.exp(masked - seg_max[dst]),
+                     torch.zeros_like(logits))
+    denom = torch.zeros_like(seg_max).index_add(0, dst, ex)
+    return ex / denom[dst].clamp(min=torch.finfo(logits.dtype).tiny)
+
+
 def determinism_phase(papers, cfg, dev, dst, mask, N):
-    """Phase 8: two identical 2-step runs, reported as bitwise equal or not,
-    for SAGE and GAT on the serial source and SAGE on the device source;
-    then GAT's edge softmax alone, both backends, five calls each on the
-    input layer's edges (H=4), reported the same way."""
+    """Phase 8: two identical 2-step runs must be bitwise equal, for SAGE and
+    GAT on the serial source and SAGE on the device source; then GAT's edge
+    softmax alone, both backends, five calls each on the input layer's edges
+    (H=4), must be bitwise equal. What the torch backend's fixed-order
+    denominator costs: forward plus backward of the softmax at the input
+    layer, timed against the same body with an ``index_add`` denominator."""
     from dataclasses import replace
 
     import torch
@@ -632,10 +805,12 @@ def determinism_phase(papers, cfg, dev, dst, mask, N):
         same_params = all(
             torch.equal(x, y) for x, y in zip(runs[0].params, runs[1].params)
         )
+        equal = losses[0] == losses[1] and same_params
         emit("determinism", {"name": name, "same_start": same_start,
                              "losses_a": losses[0],
                              "losses_b": losses[1],
-                             "bitwise_equal": losses[0] == losses[1] and same_params})
+                             "bitwise_equal": equal})
+        check(same_start and equal, f"determinism: two {name} runs differ")
 
     gen = torch.Generator(device=dev).manual_seed(3)
     d = torch.as_tensor(dst, device=dev)
@@ -644,11 +819,224 @@ def determinism_phase(papers, cfg, dev, dst, mask, N):
     for backend in segment_ops.BACKENDS:
         outs = [segment_ops.edge_softmax(logits, d, m, N, backend=backend)
                 for _ in range(5)]
+        equal = all(torch.equal(outs[0], o) for o in outs[1:])
         emit("determinism", {
             "name": f"segment_ops.edge_softmax, backend={backend!r}, input layer",
-            "bitwise_equal": all(torch.equal(outs[0], o) for o in outs[1:]),
+            "bitwise_equal": equal,
             "max_abs_diff": max(float((outs[0] - o).abs().max()) for o in outs[1:]),
         })
+        check(equal, f"determinism: edge_softmax backend={backend!r} differs")
+
+    lg = logits.clone().requires_grad_()
+    cot = torch.randn(logits.shape, device=dev, generator=gen)
+    torch.testing.assert_close(segment_ops.edge_softmax(lg, d, m, N),
+                               _softmax_index_add(lg, d, m, N), **PACKED_TOL)
+
+    def fwd_bwd(fn):
+        return lambda: torch.autograd.grad(fn(lg, d, m, N), lg, cot)
+
+    emit("edge_softmax_cost", {
+        "edges": len(dst), "heads": 4, "num_out": N,
+        "fixed_order_fwd_bwd_ms": time_ms(fwd_bwd(segment_ops.edge_softmax)),
+        "index_add_fwd_bwd_ms": time_ms(fwd_bwd(_softmax_index_add)),
+    })
+
+
+def serve_model(dev, seed=0):
+    """SmolLM-135M at full width (bf16) with seeded random weights on the
+    card, and the serve path's prompts: 8 requests of 1024 tokens."""
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = serve.serve_config(SERVE_ARCH, reduced=False)
+    model = init_params(cfg, torch.Generator(dev).manual_seed(seed))
+    prompts = serve.make_prompts(cfg, SERVE_BATCH, SERVE_PROMPT, seed)
+    return model, torch.as_tensor(prompts, device=dev)
+
+
+def serve_determinism(model, prompts):
+    """Phase 8: two identical full-width serve runs must give bitwise equal
+    tokens and logits."""
+    import torch
+
+    from repro_torch import serve
+
+    a, b = (serve.generate(model, prompts, SERVE_NEW) for _ in range(2))
+    equal = (torch.equal(a["tokens"], b["tokens"])
+             and torch.equal(a["step_logits"], b["step_logits"]))
+    emit("determinism", {"name": f"serve {SERVE_ARCH}, full width",
+                         "bitwise_equal": equal})
+    check(equal, "determinism: two serve runs differ")
+
+
+def serve_phase(model, prompts):
+    """Phase 9: the serve path at full width, counts at 0 just before and
+    read just after. Fails unless the logits are finite and the decode
+    kernel launched once per layer and decode step."""
+    import statistics
+
+    import torch
+
+    from repro_torch import serve
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    out = serve.generate(model, prompts, SERVE_NEW)
+    launches = read_launches()
+    cfg, steps = model.cfg, SERVE_NEW - 1
+    check(tuple(out["tokens"].shape) == (SERVE_BATCH, SERVE_NEW),
+          f"serve: tokens {tuple(out['tokens'].shape)}")
+    check(bool(torch.isfinite(out["step_logits"]).all()), "serve: non-finite logits")
+    check(launches["flash_decode"] == cfg.num_layers * steps,
+          f"serve: {launches['flash_decode']} decode-kernel launches, expected "
+          f"{cfg.num_layers} layers x {steps} steps")
+    emit("serve", {
+        "arch": cfg.name, "dtype": cfg.dtype, "batch": SERVE_BATCH,
+        "prompt_len": SERVE_PROMPT, "new_tokens": SERVE_NEW,
+        "prefill_ms": out["prefill_ms"],
+        "decode_ms_per_step": statistics.median(out["step_ms"]),
+        "step_ms": out["step_ms"],
+        "decode_ms": out["decode_ms"],
+        "tokens_per_s": SERVE_BATCH * steps / (out["decode_ms"] / 1e3),
+        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "launches": launches,
+        "tokens_0": out["tokens"][0, :16].tolist(),
+    })
+    serve_decode_profile(model, prompts)
+    return launches
+
+
+def _host_yardstick_ms() -> float:
+    """The time of a fixed pure-Python loop on this thread: the host CPU's
+    own speed, which no torch call or allocation changes."""
+    t0 = time.perf_counter()
+    sum(i * i for i in range(20000))
+    return 1e3 * (time.perf_counter() - t0)
+
+
+def serve_decode_profile(model, prompts, window=3):
+    """Where a decode step's time goes, and whether it changes within a
+    run. One step runs under ``torch.cuda.set_sync_debug_mode("error")``
+    (fails if that prototype detector raises on a host sync). Then the
+    serve loop's ``SERVE_NEW - 1`` decode steps run against a zero cache of
+    the serve length; each records its host time (the decode call and the
+    argmax, no sync) and, right after, ``_host_yardstick_ms``.
+    ``torch.profiler`` traces the first and the last ``window`` steps: the
+    device time per step by kernel, the decode kernel's share, the device
+    idle share of the traced wall time, the top-level torch calls per step
+    and their mean host time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer.model import init_caches, make_decode_step
+
+    cfg = model.cfg
+    B = prompts.shape[0]
+    steps = SERVE_NEW - 1
+    caches = init_caches(cfg, B, SERVE_PROMPT + SERVE_NEW, prompts.device)
+    decode = make_decode_step(cfg)
+    tok = prompts[:, -1:]
+    pos = torch.tensor(SERVE_PROMPT, device=prompts.device)
+    host_ms, yard_ms, traced = [], [], {}
+    with torch.inference_mode():
+        decode(model, tok, pos, caches)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            decode(model, tok, pos, caches)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        for name, lo, hi in (("first", 0, window), ("middle", window, steps - window),
+                             ("last", steps - window, steps)):
+            tracer = (contextlib.nullcontext() if name == "middle" else
+                      profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]))
+            with tracer as prof:
+                t0 = time.perf_counter()
+                for t in range(lo, hi):
+                    t1 = time.perf_counter()
+                    logits, _ = decode(model, tok, pos + t, caches)
+                    logits[:, -1].argmax(dim=-1)
+                    host_ms.append(1e3 * (time.perf_counter() - t1))
+                    yard_ms.append(_host_yardstick_ms())
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            if prof is not None:
+                traced[name] = _decode_trace(prof, wall, hi - lo)
+    half = steps // 2
+    emit("serve_profile", {
+        "steps": steps, "traced_steps": window,
+        "sync_debug_mode_error": "no sync raised",
+        **{f"{name}_{key}": val for name, d in traced.items() for key, val in d.items()},
+        "host_ms_per_step": host_ms,
+        "yardstick_ms_per_step": yard_ms,
+        "host_ms_median_first_half": statistics.median(host_ms[window:half]),
+        "host_ms_median_second_half": statistics.median(host_ms[half:steps - window]),
+        "yardstick_ms_median_first_half": statistics.median(yard_ms[window:half]),
+        "yardstick_ms_median_second_half": statistics.median(yard_ms[half:steps - window]),
+    })
+
+
+def _decode_trace(prof, wall, steps):
+    """A profiler trace of ``steps`` decode steps in ``wall`` seconds,
+    reduced to per-step numbers."""
+    import torch
+
+    events = prof.key_averages()
+    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_card)
+    by_kernel = sorted(on_card, key=lambda e: -e.self_device_time_total)
+    top = [e for e in prof.events() if e.cpu_parent is None
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    return {
+        "wall_ms_per_step": 1e3 * wall / steps,
+        "device_ms_per_step": dev_us / 1e3 / steps,
+        "device_idle_share": 1.0 - dev_us / 1e6 / wall,
+        "flash_decode_device_ms_per_step": sum(
+            e.self_device_time_total for e in on_card
+            if "flash_decode" in e.key) / 1e3 / steps,
+        "torch_calls_per_step": len(top) / steps,
+        "host_us_per_torch_call": sum(e.cpu_time_total for e in top) / max(len(top), 1),
+        "top_device_ms_per_step": [
+            [e.key[:80], e.self_device_time_total / 1e3 / steps]
+            for e in by_kernel[:8]],
+    }
+
+
+def serve_parity_phase(dev):
+    """Phase 10: reduced SmolLM (2 layers, f32) from the same weights,
+    prefill and 8 decode steps on the card (the kernel) and on the CPU (its
+    plain version): every step's logits agree to rtol/atol 1e-4 and the
+    greedy tokens are equal."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = serve.serve_config(SERVE_ARCH, reduced=True)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    prompts = serve.make_prompts(cfg, 4, 32, 0)
+    reset_launches()
+    card = serve.generate(card_model, torch.as_tensor(prompts, device=dev), 9)
+    launches = read_launches()
+    cpu = serve.generate(cpu_model, torch.as_tensor(prompts), 9)
+    check(launches["flash_decode"] == cfg.num_layers * 8,
+          f"serve parity: {launches['flash_decode']} decode-kernel launches")
+    np.testing.assert_allclose(card["step_logits"].numpy(),
+                               cpu["step_logits"].numpy(), rtol=1e-4, atol=1e-4)
+    check(torch.equal(card["tokens"], cpu["tokens"]),
+          "serve parity: greedy tokens differ between card and CPU")
+    emit("card_vs_cpu", {
+        "model": f"serve {cfg.name} reduced", "steps": 8,
+        "max_abs_logit_diff": float(
+            (card["step_logits"] - cpu["step_logits"]).abs().max()),
+        "tokens_equal": True,
+    })
 
 
 def main():
@@ -690,6 +1078,7 @@ def main():
     kernel_phase(dev, first, results)
     wavefront_phase(dev, first, results)
     dst, mask, N = packed_phase(dev, first, results)
+    flash_decode_phase(dev, results)
     total = {k: 0 for k in KERNELS}
     for k, v in packed_entry_points(dev, dst, mask, N).items():
         total[k] += v
@@ -731,8 +1120,18 @@ def main():
     for k, v in device_source_phase(papers, cfg, dev).items():
         total[k] += v
 
-    # ---- 8. run-to-run determinism (reported) ---------------------------
+    # ---- 8. run-to-run determinism --------------------------------------
     determinism_phase(papers, cfg, dev, dst, mask, N)
+    model, prompts = serve_model(dev)
+    serve_determinism(model, prompts)
+
+    # ---- 9. the serve path at full width --------------------------------
+    for k, v in serve_phase(model, prompts).items():
+        total[k] += v
+    del model, prompts
+
+    # ---- 10. serve, card vs CPU on a reduced model ----------------------
+    serve_parity_phase(dev)
 
     for k, r in results.items():
         r["launches"] = total[k]

@@ -2,7 +2,9 @@
 with its backend dispatch.
 
 ``backend="torch"`` (the counterpart of ``"jnp"``, and what the model calls)
-scatters with ``index_add``. ``backend="packed"`` (the counterpart of
+sums each destination's run in a fixed order (``ordered_segment_sum``): no
+float atomics, so on the card as on the CPU the result repeats bit for bit.
+``backend="packed"`` (the counterpart of
 ``"pallas"``) packs on the host from a concrete ``dst``/``mask`` and runs the
 packed kernels (``kernels.segsum``, ``kernels.edge_softmax``): on a CUDA
 tensor the CUDA kernel, on a CPU tensor its plain version. It takes float32,
@@ -40,6 +42,57 @@ def _pack(dst, mask, num_out, backend):
                       np.asarray(torch.as_tensor(mask).cpu(), bool), num_out)
 
 
+def _run_totals(x, dst, num_out):
+    """Per-destination totals of ``x (E, ...)`` in a fixed order: a stable
+    sort by ``dst``, then an inclusive segmented scan by doubling (step ``d``
+    adds the partial sum ``d`` positions back when it lies in the same run),
+    so each run's last position holds the run's total, summed as a fixed
+    tree. ``ceil(log2 E)`` elementwise steps, none with atomics and none that
+    needs a host sync; the totals are copied to their rows (one writer each,
+    the other positions write a dropped dump row)."""
+    E = x.shape[0]
+    out = x.new_zeros((num_out + 1,) + x.shape[1:])
+    if E == 0:
+        return out[:num_out]
+    key, order = torch.sort(dst.long(), stable=True)
+    run = x.index_select(0, order)
+    bcast = (-1,) + (1,) * (x.dim() - 1)
+    d = 1
+    while d < E:
+        same = (key[d:] == key[:-d]).view(bcast)
+        run[d:] += torch.where(same, run[:-d], torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+        d *= 2
+    last = torch.ones_like(key, dtype=torch.bool)
+    last[:-1] = key[1:] != key[:-1]
+    out.index_copy_(0, torch.where(last, key, num_out), run)
+    return out[:num_out]
+
+
+class _OrderedSegmentSum(torch.autograd.Function):
+    """``_run_totals`` with its adjoint: the cotangent of each edge's row is
+    its destination's cotangent row (a gather, also order-free)."""
+
+    @staticmethod
+    def forward(ctx, x, dst, num_out):
+        ctx.save_for_backward(dst)
+        return _run_totals(x, dst, num_out)
+
+    @staticmethod
+    def backward(ctx, g):
+        (dst,) = ctx.saved_tensors
+        return g.index_select(0, dst.long()), None, None
+
+
+def ordered_segment_sum(x, dst, num_out):
+    """Per-destination sum of ``x (E, ...)`` -> ``(num_out, ...)`` in the
+    input dtype, differentiable in ``x``; rows without edges are exact
+    zeros. The summation order is fixed by a stable sort of ``dst``, so it
+    repeats bit for bit on either device (``index_add`` adds with float
+    atomics on the card, in an order that changes from run to run)."""
+    return _OrderedSegmentSum.apply(x, dst, num_out)
+
+
 def segment_sum(contrib, dst, mask, num_out, backend="torch"):
     """Masked per-destination sum of ``contrib (E, F)`` -> ``(num_out, F)``.
 
@@ -51,8 +104,7 @@ def segment_sum(contrib, dst, mask, num_out, backend="torch"):
     if pack is not None:
         return segment_sum_from_pack(contrib, pack, num_out)
     w = mask.to(contrib.dtype)
-    out = contrib.new_zeros((num_out,) + contrib.shape[1:])
-    return out.index_add(0, dst.long(), contrib * w[:, None])
+    return ordered_segment_sum(contrib * w[:, None], dst, num_out)
 
 
 def segment_mean(contrib, dst, mask, num_out, backend="torch"):
@@ -64,8 +116,7 @@ def segment_mean(contrib, dst, mask, num_out, backend="torch"):
     total = segment_sum(contrib, dst, mask, num_out, backend=backend)
     dst = torch.as_tensor(dst, device=contrib.device).long()
     mask = torch.as_tensor(mask, device=contrib.device)
-    count = torch.zeros(num_out, dtype=torch.float32, device=contrib.device)
-    count = count.index_add(0, dst, mask.to(torch.float32))
+    count = ordered_segment_sum(mask.to(torch.float32), dst, num_out)
     return total / count.clamp(min=1.0).to(total.dtype)[:, None]
 
 
@@ -100,6 +151,6 @@ def edge_softmax(logits, dst, mask, num_out, backend="torch"):
         mask[:, None], torch.exp(masked - seg_max[dst]),
         torch.zeros_like(logits),
     )
-    denom = torch.zeros_like(seg_max).index_add(0, dst, ex)
+    denom = ordered_segment_sum(ex, dst, num_out)
     tiny = torch.finfo(logits.dtype).tiny
     return ex / denom[dst].clamp(min=tiny)

@@ -1,0 +1,210 @@
+"""Transformer building blocks in torch — the counterpart of
+``repro/models/transformer/layers.py`` for the dense family: RMSNorm, RoPE,
+GQA attention (full, chunked-flash, single-token decode) and the MLPs.
+
+The JAX package's casts are kept exactly: norms and RoPE compute in float32
+and cast back to the input dtype; attention scores and softmax are float32,
+the probabilities are cast to the query dtype before the value product; the
+MLP casts its result back to the input dtype. Layouts are the JAX package's:
+activations (B, S, H, D), caches (B, S, KV, D).
+
+``attention_decode`` is where the decode-attention kernel enters the model:
+it calls ``kernels/flash_decode/ops.decode_attention``, which launches the
+hand-written CUDA kernel on a CUDA tensor (or raises) and runs its plain
+version on a CPU tensor.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.flash_decode import ops as flash_decode_ops
+
+#: the masked-score fill of the JAX package (finite: an all-masked row gives
+#: a uniform softmax, never NaN)
+MASK_VALUE = -1e30
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    var = xf.square().mean(dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps)
+    return (y * scale.float()).to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# RoPE
+# --------------------------------------------------------------------------- #
+def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
+    """The inverse frequencies in float64, as the JAX package has them (the
+    reference ``_rope_freqs_on`` is tested against)."""
+    return 1.0 / (theta ** (np.arange(0, head_dim, 2, dtype=np.float64) / head_dim))
+
+
+def _rope_freqs_on(head_dim: int, theta: float, device) -> torch.Tensor:
+    """``rope_freqs`` computed on ``device`` (float64, then float32): a copy
+    of the numpy table from the host would be a pageable upload, which waits
+    for the device on every call."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float64, device=device) / head_dim
+    return (1.0 / theta ** exps).float()
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., S, H, D) with D even; positions: broadcastable to (..., S).
+    Rotates the two halves of D (not interleaved pairs), in float32."""
+    D = x.shape[-1]
+    freqs = _rope_freqs_on(D, theta, x.device)  # (D/2,)
+    angles = positions[..., :, None].float() * freqs  # (..., S, D/2)
+    cos = torch.cos(angles)[..., None, :]  # (..., S, 1, D/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------------- #
+# Attention cores
+# --------------------------------------------------------------------------- #
+def _repeat_kv(k: torch.Tensor, groups: int) -> torch.Tensor:
+    """(B, S, KV, D) -> (B, S, KV*groups, D) for GQA."""
+    if groups == 1:
+        return k
+    return k.repeat_interleave(groups, dim=2)
+
+
+def attention_full(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,  # (B, S, KV, Dv)
+    *,
+    causal: bool = True,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Materialized-scores attention (prefill below ``FLASH_THRESHOLD``)."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    k = _repeat_kv(k, H // KV)
+    v = _repeat_kv(v, H // KV)
+    scores = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * (1.0 / np.sqrt(D))
+    q_pos = torch.arange(Sq, device=q.device)
+    k_pos = torch.arange(k.shape[1], device=q.device)
+    mask = torch.ones((Sq, k.shape[1]), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        mask &= q_pos[:, None] - k_pos[None, :] < window
+    scores = torch.where(mask, scores, MASK_VALUE)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def attention_flash(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,  # (B, S, KV, Dv)
+    *,
+    chunk: int = 1024,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Chunked online-softmax causal attention (prefill at
+    ``FLASH_THRESHOLD`` and above): a plain torch loop over query chunks and,
+    inside, over key chunks with a running (max, denominator, accumulator);
+    peak memory O(S * chunk) instead of O(S^2). Every key chunk is visited,
+    the masked ones included, as the JAX scan does."""
+    B, S, H, D = q.shape
+    KV = k.shape[2]
+    Dv = v.shape[3]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
+    k = _repeat_kv(k, H // KV)
+    v = _repeat_kv(v, H // KV)
+    scale = 1.0 / np.sqrt(D)
+    nq = S // chunk
+    ar = torch.arange(chunk, device=q.device)
+    outs = []
+    for qi in range(nq):
+        q_blk = q[:, qi * chunk:(qi + 1) * chunk]
+        m = torch.full((B, H, chunk), MASK_VALUE, dtype=torch.float32, device=q.device)
+        d = torch.zeros((B, H, chunk), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, chunk, Dv), dtype=torch.float32, device=q.device)
+        for kj in range(nq):
+            k_blk = k[:, kj * chunk:(kj + 1) * chunk]
+            v_blk = v[:, kj * chunk:(kj + 1) * chunk]
+            s = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_blk).float() * scale
+            q_pos = qi * chunk + ar
+            k_pos = kj * chunk + ar
+            msk = q_pos[:, None] >= k_pos[None, :]
+            if window is not None:
+                msk &= q_pos[:, None] - k_pos[None, :] < window
+            s = torch.where(msk, s, MASK_VALUE)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            d = d * corr + p.sum(dim=-1)
+            acc = acc * corr[..., None] + torch.einsum(
+                "bhqk,bkhd->bhqd", p.to(q.dtype), v_blk
+            ).float()
+            m = m_new
+        outs.append((acc / d[..., None].clamp(min=1e-30)).to(q.dtype))
+    out = torch.stack(outs, dim=2)  # (B, H, nq, chunk, Dv)
+    return out.reshape(B, H, S, Dv).transpose(1, 2)
+
+
+def attention_decode(
+    q: torch.Tensor,  # (B, 1, H, D)
+    k_cache: torch.Tensor,  # (B, S, KV, D)
+    v_cache: torch.Tensor,  # (B, S, KV, Dv)
+    cache_len: torch.Tensor,  # () int — number of valid cache rows, on device
+) -> torch.Tensor:
+    """Single-token decode against a (possibly ring-buffered) KV cache ->
+    (B, 1, H, Dv), masking cache rows at or past ``cache_len``.
+
+    This is ``flash_decode.ops.decode_attention``: on a CUDA tensor the
+    hand-written split-K decode kernel (replacing the Pallas
+    ``decode_attention_pallas_bkv``), on a CPU tensor its plain version
+    ``flash_decode.ref.decode_attention_ref`` (the JAX function's body). A
+    ring-buffered cache needs no window mask: it holds only the window.
+    """
+    return flash_decode_ops.decode_attention(
+        q[:, 0], k_cache, v_cache, cache_len)[:, None]
+
+
+# --------------------------------------------------------------------------- #
+# MLPs
+# --------------------------------------------------------------------------- #
+MLP_TYPES = ("swiglu", "geglu", "mlp")
+
+
+def mlp_apply(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
+    if mlp_type == "swiglu":
+        gate = F.silu(x @ params["w_gate"])
+        return ((gate * (x @ params["w_in"])) @ params["w_out"]).to(x.dtype)
+    if mlp_type == "geglu":
+        gate = F.gelu(x @ params["w_gate"], approximate="tanh")
+        return ((gate * (x @ params["w_in"])) @ params["w_out"]).to(x.dtype)
+    if mlp_type == "mlp":
+        return (F.gelu(x @ params["w_in"], approximate="tanh")
+                @ params["w_out"]).to(x.dtype)
+    raise ValueError(mlp_type)
+
+
+def _normal(shape, dtype, fan_in, generator):
+    """``normal * fan_in**-0.5`` in ``dtype``, drawn on the generator's
+    device (the JAX package's ``_dense`` init; not its bits)."""
+    t = torch.randn(shape, dtype=dtype, generator=generator,
+                    device=generator.device)
+    return t * fan_in ** -0.5
+
+
+def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
+             mlp_type: str, dtype) -> dict:
+    if mlp_type not in MLP_TYPES:
+        raise ValueError(mlp_type)
+    p = {
+        "w_in": _normal((d_model, d_ff), dtype, d_model, generator),
+        "w_out": _normal((d_ff, d_model), dtype, d_ff, generator),
+    }
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = _normal((d_model, d_ff), dtype, d_model, generator)
+    return p

@@ -1,0 +1,176 @@
+"""Serve a dense transformer with batched requests: prefill the prompt batch,
+then decode new tokens greedily, step by step, against the KV cache. The
+counterpart of ``examples/serve_transformer.py``, at full width by default.
+
+    python -m repro_torch.serve --arch smollm-135m            # on the card
+    python -m repro_torch.serve --arch smollm-135m --reduced --device cpu \\
+        --batch 2 --prompt-len 16 --new-tokens 8
+
+The prompts are drawn with numpy from ``--seed``, the weights with a
+``torch.Generator`` from the same seed. Decoding writes each new K/V row into
+the cache in place and keeps the position on the device, so the decode loop
+makes no host sync; the tokens come back in one transfer at the end. On the
+card it prints the ``nvidia-smi`` name and power limit, the prefill time, the
+median decode time per step (CUDA events) and tokens per second.
+"""
+from __future__ import annotations
+
+import argparse
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.models.transformer.model import (
+    init_caches,
+    init_params,
+    make_decode_step,
+    make_prefill_step,
+)
+
+
+def device_line() -> str:
+    """The card's name and power limit, as ``nvidia-smi`` gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0]
+
+
+def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
+    """(B, S) int64 prompt ids, as ``examples/serve_transformer.py`` draws
+    them (``default_rng(seed).integers(0, vocab)``)."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int64)
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@torch.inference_mode()
+def generate(model, prompts: torch.Tensor, new_tokens: int) -> dict:
+    """Prefill ``prompts (B, S)`` and decode ``new_tokens`` tokens greedily
+    (the first from the prefill's logits, then ``new_tokens - 1`` decode
+    steps at positions ``S + t``), as the JAX example does.
+
+    Returns, on the host, ``tokens`` (B, new_tokens), ``step_logits``
+    (new_tokens, B, V): the prefill's last position, then each decode
+    step's, as float32, and the last of them as ``logits`` (B, V); and
+    ``prefill_ms`` (host clock, ending in a sync, including the copy of the
+    prefill caches into the decode-length caches), ``step_ms`` (each decode
+    step: CUDA events on the card, the host clock on the CPU) and
+    ``decode_ms`` (the whole decode loop, host clock, ending in a sync).
+    """
+    cfg = model.cfg
+    device = prompts.device
+    B, S = prompts.shape
+    prefill = make_prefill_step(cfg)
+    decode = make_decode_step(cfg)
+    caches = init_caches(cfg, B, S + new_tokens, device)
+    _sync(device)
+    t0 = time.perf_counter()
+    logits, pre = prefill(model, prompts)
+    # the prefill caches go into rows [0, S) of the decode-length caches
+    for c, p in zip(caches, pre, strict=True):
+        for n in ("k", "v"):
+            c[n][:, : p[n].shape[1]].copy_(p[n])
+    _sync(device)
+    prefill_ms = 1e3 * (time.perf_counter() - t0)
+
+    tok = logits[:, -1].argmax(dim=-1).reshape(B, 1)
+    generated, step_logits = [tok], [logits[:, -1]]
+    pos = torch.tensor(S, dtype=torch.int64, device=device)
+    on_card = device.type == "cuda"
+    marks = []
+    t0 = time.perf_counter()
+    for _ in range(new_tokens - 1):
+        if on_card:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        else:
+            start = time.perf_counter()
+        logits, caches = decode(model, tok, pos, caches)
+        tok = logits[:, -1].argmax(dim=-1).reshape(B, 1)
+        generated.append(tok)
+        step_logits.append(logits[:, -1])
+        pos = pos + 1
+        if on_card:
+            end.record()
+            marks.append((start, end))
+        else:
+            marks.append(1e3 * (time.perf_counter() - start))
+    _sync(device)
+    decode_ms = 1e3 * (time.perf_counter() - t0)
+    step_ms = [s.elapsed_time(e) for s, e in marks] if on_card else marks
+    step_logits = torch.stack(step_logits).float().cpu()
+    return {
+        "tokens": torch.cat(generated, dim=1).cpu(),
+        "step_logits": step_logits,
+        "logits": step_logits[-1],
+        "prefill_ms": prefill_ms,
+        "step_ms": step_ms,
+        "decode_ms": decode_ms,
+    }
+
+
+def serve_config(arch: str, reduced: bool):
+    """The architecture at full width, or the example's reduced config."""
+    full = get_arch(arch)
+    if reduced:
+        return full.reduced(attn_window=16 if full.attn_window else None)
+    return full
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--reduced", action="store_true",
+                    help="the example's reduced config (2 layers, f32)")
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=1024)
+    ap.add_argument("--new-tokens", type=int, default=64)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu, which runs the kernels' "
+                         "plain versions")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass --device cpu to run on the CPU")
+    if device.type == "cuda":
+        print(device_line(), flush=True)
+    cfg = serve_config(args.arch, args.reduced)
+    model = init_params(cfg, torch.Generator(device).manual_seed(args.seed))
+    prompts = torch.as_tensor(
+        make_prompts(cfg, args.batch, args.prompt_len, args.seed), device=device)
+    print(f"serving {cfg.name} ({'reduced' if args.reduced else 'full width'}: "
+          f"{cfg.num_layers}L d={cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, {cfg.dtype}) on {device}", flush=True)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    out = generate(model, prompts, args.new_tokens)
+    B, S = prompts.shape
+    steps = args.new_tokens - 1
+    out["decode_ms_per_step"] = statistics.median(out["step_ms"]) if steps else None
+    out["tokens_per_s"] = B * steps / (out["decode_ms"] / 1e3) if steps else None
+    print(f"prefill: {B}x{S} tokens in {out['prefill_ms']:.3f} ms")
+    if steps:
+        print(f"decode: {steps} steps x {B} sequences, median "
+              f"{out['decode_ms_per_step']:.3f} ms per step, "
+              f"{out['tokens_per_s']:.1f} tokens/s")
+    if device.type == "cuda":
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        print(f"peak device memory: {out['max_memory_allocated']} bytes")
+    print("sample output ids:", out["tokens"][0, :16].tolist())
+    if not torch.isfinite(out["logits"]).all():
+        raise RuntimeError("non-finite logits")
+    return out
+
+
+if __name__ == "__main__":
+    main()

@@ -233,3 +233,118 @@ def test_cuda_device_source_trainer_matches_cpu(cuda):
         assert st.pipeline["sampler_batches"] == 3
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
     assert wf_kernel.LAUNCHES["wavefront_expand"] == 3 * 2
+
+
+# the decode kernel: SmolLM-135M's serve shape, then the other dense heads
+DECODE_CASES = [
+    # B, H, KV, D, S
+    (8, 9, 3, 64, 1088),
+    (8, 32, 32, 96, 4096),  # Phi-3-mini
+    (8, 16, 16, 256, 4096),  # Gemma-7B
+    (8, 48, 1, 128, 4096),  # Granite-20B, MQA
+    (3, 4, 2, 32, 77),  # reduced configs' head dim, S not a multiple of 128
+]
+#: tests/test_kernels.py's flash-decode tolerance in f32
+DECODE_TOL = dict(rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,S", DECODE_CASES)
+def test_cuda_flash_decode_matches_plain(cuda, B, H, KV, D, S, dtype):
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(S + H)
+    q = torch.randn(B, H, D, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(B, S, KV, D, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(B, S, KV, D, device=cuda, generator=gen).to(dtype)
+    fd.reset_launches()
+    for L in (1, S // 2 + 3, S):
+        n = torch.tensor([L], dtype=torch.int32, device=cuda)
+        out = fd.flash_decode(q, k, v, n)
+        # the f32 result from the same inputs; in bf16 within the rounding
+        # of p and of the output besides the f32 tolerance
+        want, bound = fd_ref.decode_attention_bound(q, k, v, n.reshape(()),
+                                                    **DECODE_TOL)
+        diff = (out.float() - want).abs()
+        assert bool((diff <= bound).all()), (L, float(diff.max()))
+        assert torch.equal(out, fd.flash_decode(q, k, v, n))
+    assert fd.LAUNCHES["flash_decode"] == 6
+
+
+@pytest.mark.cuda
+def test_cuda_flash_decode_reads_a_cache_view_and_checks_inputs(cuda):
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn(2, 6, 64, device=cuda, generator=gen)
+    big = torch.randn(2, 300, 2, 64, device=cuda, generator=gen)
+    k, v = big[:, :200], big[:, 100:]  # views: batch stride 300*2*64
+    n = torch.tensor([150], dtype=torch.int32, device=cuda)
+    torch.testing.assert_close(fd.flash_decode(q, k, v, n),
+                               fd_ref.decode_attention_ref(q, k, v, 150),
+                               **DECODE_TOL)
+    v = v.contiguous()
+    bad = [
+        (ValueError, (q.cpu(), k, v, n)),  # wrong device
+        (ValueError, (q, k, v, n.cpu())),
+        (TypeError, (q.half(), k.half(), v.half(), n)),  # dtype
+        (ValueError, (q[..., :60].contiguous(), k[..., :60].contiguous(),
+                      v[..., :60].contiguous(), n)),  # D % 8
+        (ValueError, (q, k.transpose(1, 2).contiguous().transpose(1, 2), v,
+                      n)),  # heads not packed in a row
+        (ValueError, (q, torch.randn(2 * 200 * 2 * 64 + 1, device=cuda)[1:]
+                      .view(2, 200, 2, 64), v, n)),  # pointer not 16-byte aligned
+    ]
+    for exc, args in bad:
+        with pytest.raises(exc):
+            fd.flash_decode(*args)
+
+
+@pytest.mark.cuda
+def test_cuda_reduced_decode_matches_cpu(cuda):
+    """A reduced SmolLM's prefill and decode steps on the card (the decode
+    kernel) and on the CPU (its plain version), from the same weights:
+    logits rtol/atol 1e-4 at every step, equal greedy tokens."""
+    from repro_torch import serve
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = serve.serve_config("smollm-135m", reduced=True)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    prompts = serve.make_prompts(cfg, 3, 20, 1)
+    fd.reset_launches()
+    card = serve.generate(card_model, torch.as_tensor(prompts, device=cuda), 6)
+    assert fd.LAUNCHES["flash_decode"] == cfg.num_layers * 5
+    cpu = serve.generate(cpu_model, torch.as_tensor(prompts), 6)
+    torch.testing.assert_close(card["step_logits"], cpu["step_logits"],
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+@pytest.mark.cuda
+def test_cuda_torch_backend_edge_softmax_repeats_bitwise(cuda):
+    """The model's edge softmax (torch backend) sums its denominator in a
+    fixed order: five calls on the card are bitwise equal, and so are their
+    gradients."""
+    from repro_torch.kernels import segment_ops
+
+    rng = np.random.default_rng(0)
+    E, N = 131072, 16384
+    dst = torch.as_tensor(rng.integers(0, N, size=E), device=cuda)
+    mask = torch.as_tensor(rng.random(E) < 0.65, device=cuda)
+    logits = torch.as_tensor(rng.normal(size=(E, 4)) * 3, dtype=torch.float32,
+                             device=cuda).requires_grad_()
+    cot = torch.randn(E, 4, device=cuda)
+    outs, grads = [], []
+    for _ in range(5):
+        out = segment_ops.edge_softmax(logits, dst, mask, N)
+        outs.append(out.detach())
+        grads.append(torch.autograd.grad(out, logits, cot)[0])
+    assert all(torch.equal(outs[0], o) for o in outs[1:])
+    assert all(torch.equal(grads[0], g) for g in grads[1:])
+    want = segment_ops.edge_softmax(logits.detach().cpu(), dst.cpu(), mask.cpu(), N)
+    torch.testing.assert_close(outs[0].cpu(), want, **TOL)
