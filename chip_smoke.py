@@ -21,7 +21,10 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               expansion at the device sampler's largest launch (P*N rows of
               the largest frontier cap, fan-out 15): bitwise. The packed
               segment sum (F=128) and edge softmax (H=4) on the input layer's
-              edges, all P splits flattened with dst offset by split: 3e-5.
+              edges, all P splits flattened with dst offset by split: the
+              sum bitwise against its plain version on a CPU copy in f32
+              (index_add_ sums in index order there, as the kernel does),
+              3e-5 in bf16 and f16; the softmax 3e-5.
               The decode attention at SmolLM-135M's serve shape (B=8, H=9,
               KV=3, D=64, S=1088) and the other dense configs' heads at B=8,
               S=4096, f32 (2e-4/2e-5) and bf16 (the f32 result from the
@@ -195,6 +198,24 @@ def device_ms(fn, iters=20, flush=None):
     return per_call(lambda: (flush.zero_(), fn())) - per_call(flush.zero_)
 
 
+def host_ms(fn, calls=100, repeats=3):
+    """A wrapper's host time per call: a host clock over ``calls`` enqueued
+    calls, no sync inside the loop (after a warm-up call and a sync); the
+    median of ``repeats`` such loops."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return 1e3 * statistics.median(times) / calls
+
+
 def bound(nbytes, ops, rate=FP32_FLOPS):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
@@ -264,7 +285,11 @@ def record(results, name, out, want, fn, plain, library, nbytes, nops,
     """Hold a kernel's output against its plain version's (``tol``: the
     rtol/atol of ``assert_close``, an elementwise bound tensor, or None for
     bitwise), check that a second launch repeats it bit for bit,
-    time the kernel, its plain version and the library call, and keep the
+    time the kernel, its plain version and the library call by CUDA events
+    (``ms``, which include the host's time to launch a short kernel), the
+    kernel and the library call by the profiler's device time
+    (``device_ms``, ``library_device_ms``: the comparison that rule 2
+    reads), the wrapper's host time per call (``host_ms``), and keep the
     row of the ``kernels`` line. A row with a ``shape`` label is emitted and
     not kept: the ``kernels`` line holds each kernel at its main path's
     shape."""
@@ -283,12 +308,17 @@ def record(results, name, out, want, fn, plain, library, nbytes, nops,
     check(torch.equal(out, fn()), f"{name}: two launches differ")
     bound_ms, bound_by = bound(nbytes, nops, rate)
     source, replaces = KERNELS[name]
+    host = host_ms(fn)  # first: no profiler has run on this kernel yet
     row = dict(
         name=name, route="cuda", source=CSRC + source, replaces=replaces,
         launches=0, max_abs_err=err, ms=time_ms(fn, flush=flush),
         plain_ms=time_ms(plain, flush=flush), bound_ms=bound_ms,
         bound_by=bound_by,
         library_ms=time_ms(library, flush=flush) if library is not None else None,
+        device_ms=device_ms(fn, flush=flush),
+        library_device_ms=(device_ms(library, flush=flush)
+                           if library is not None else None),
+        host_ms=host,
     )
     line = {k: v for k, v in row.items() if k != "launches"}
     if shape is None:
@@ -439,10 +469,11 @@ def wavefront_phase(dev, first, results):
 def packed_phase(dev, first, results):
     """Phase 3, the packed segment sum (F=128) and edge softmax (H=4) on the
     input layer's edges, all P splits flattened with dst offset by split,
-    against their plain versions (3e-5), ``index_add_`` over the valid edges
-    and ``torch.sparse.softmax`` over a hybrid COO (num_out, E, H) tensor.
-    Bound: bytes (the valid rows or logits and the indices read once, the
-    output written once)."""
+    against their plain versions (the sum bitwise against a CPU copy's in
+    f32, 3e-5 in bf16 and f16; the softmax 3e-5), ``index_add_`` over the
+    valid edges and ``torch.sparse.softmax`` over a hybrid COO (num_out, E,
+    H) tensor. Bound: bytes (the valid rows or logits and the indices read
+    once, the output written once)."""
     import numpy as np
     import torch
 
@@ -476,9 +507,23 @@ def packed_phase(dev, first, results):
         0, dst_v, contrib_v)
     out = fn()
     torch.testing.assert_close(out[:N], library(), **PACKED_TOL)
-    record(results, "segment_sum_packed", out, plain(), fn, plain, library,
-           4 * F * n_valid + 4 * total + 4 * F * DB * R, n_valid * F,
-           PACKED_TOL)
+    local_cpu = local.cpu()
+    # bitwise against the plain version on a CPU copy (index_add_ there adds
+    # in index order, as the kernel does; on the card it adds with atomics)
+    want = ss_ops.segment_sum_packed_ref(packed.cpu(), local_cpu, R, EB).to(dev)
+    record(results, "segment_sum_packed", out, want, fn, plain, library,
+           4 * F * n_valid + 4 * total + 4 * F * DB * R, n_valid * F)
+    for dtype in (torch.bfloat16, torch.float16):
+        low = packed.to(dtype)
+        got = ss_ops.segment_sum_packed(low, local, R, EB)
+        want = ss_ops.segment_sum_packed_ref(low.cpu(), local_cpu, R, EB)
+        torch.testing.assert_close(got.cpu(), want, **PACKED_TOL)
+        check(torch.equal(got, ss_ops.segment_sum_packed(low, local, R, EB)),
+              f"segment_sum_packed {dtype}: two launches differ")
+        emit("kernel_check", {
+            "name": f"segment_sum_packed ({dtype}, input layer, F={F})",
+            "max_abs_err": float((got.cpu().float() - want.float()).abs().max()),
+            "bitwise_vs_cpu": bool(torch.equal(got.cpu(), want)), "repeats": True})
 
     H = 4
     logits = 3 * torch.randn(P * E, H, device=dev, generator=gen)
@@ -564,16 +609,16 @@ def flash_decode_phase(dev, results):
     (B, KV, S, D) tensors transposed beforehand and a cache_len mask (only
     the call is timed; the port never calls it). Bound: the larger of the
     bytes (the valid K/V rows, q and the output once) over 3.35 TB/s and
-    the 4*B*H*L*D flops over the bf16 tensor-core rate; ``fma_bound_ms``
-    gives the flops over the fp32 CUDA-core rate the kernel runs them at,
-    and ``device_ms`` the kernel's own device time by the profiler (without
-    the host's time to launch it, which the CUDA events include)."""
+    the 4*B*H*L*D flops over the bf16 tensor-core rate. ``path`` says
+    whether the shape took the kernel's tensor-core path."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.kernels.build import typed_library
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.flash_decode import ref
 
+    lib = typed_library("flash_decode", fd._SIGNATURES)
     gen = torch.Generator(device=dev).manual_seed(4)
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for arch, sh in DECODE_SHAPES.items():
@@ -619,9 +664,9 @@ def flash_decode_phase(dev, results):
                shape=None if arch == SERVE_ARCH else f"{arch}: B={B} H={H} "
                                                      f"KV={KV} D={D} S={S}",
                flush=flush,
-               extra={"fma_bound_ms": 1e3 * flops / FP32_FLOPS, "arch": arch,
-                      "device_ms": device_ms(fn, flush=flush),
-                      "library_device_ms": device_ms(library, flush=flush)})
+               extra={"arch": arch, "chunk": fd.decode_chunk(B, KV, S, H // KV),
+                      "path": "mma" if lib.flash_decode_uses_mma(
+                          fd.DTYPES[q.dtype], D, D) else "fma"})
 
 
 def run_trainer(ds, spec, cfg, dev, steps, name, expect):

@@ -18,8 +18,12 @@ def decode_attention(q, k, v, cache_len):
 
     ``cache_len`` is an int or an integer tensor of one element; a tensor
     already on q's device stays there (no host sync), as the decode loop
-    passes it. On a CUDA tensor this launches the CUDA kernel or raises; on
-    a CPU tensor it runs the plain version.
+    passes it, and one that is already int32 is passed on as it is. On a
+    CUDA tensor this launches the CUDA kernel or raises; on a CPU tensor it
+    runs the plain version.
     """
-    n = torch.as_tensor(cache_len, device=q.device).reshape(1).to(torch.int32)
+    n = cache_len
+    if not (isinstance(n, torch.Tensor) and n.dtype == torch.int32
+            and n.device == q.device):
+        n = torch.as_tensor(n, device=q.device).reshape(1).to(torch.int32)
     return flash_decode(q, k, v, n)

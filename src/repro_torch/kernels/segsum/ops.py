@@ -121,10 +121,14 @@ def segment_sum_packed(contrib_packed, local_dst, rows: int, edge_block: int):
     ``segment_sum_packed`` (Pallas, repro/kernels/segsum/kernel.py:44).
 
     contrib_packed (DB*EB, F) f32/bf16/f16; local_dst (DB*EB, 1) int32 in
-    [0, R], R marking padding -> (DB*R, F) in the input dtype, accumulated
-    in f32. Bound by bytes: the valid slots' rows once, the indices and the
-    output once. No float atomics: each output row is summed by one thread
-    per column in packed order, so the result repeats bit for bit.
+    [0, R], R marking padding anywhere in a block -> (DB*R, F) in the input
+    dtype, accumulated in f32. Bound by bytes: the valid slots' rows once,
+    the indices and the output once. Each block of the kernel sorts its
+    pack block's slots by row, stably, and a warp sums each row with
+    several row loads in flight; every output is summed from 0 in packed
+    slot order, as ``index_add_`` sums it on a CPU tensor: the result equals
+    the plain version's there bit for bit and repeats bit for bit (no float
+    atomics).
     """
     check_packed("contrib_packed", contrib_packed, local_dst, rows, edge_block)
     if contrib_packed.device.type == "cpu":

@@ -174,6 +174,56 @@ def test_cuda_packed_kernels_match_plain(cuda, seed, E, W, N, keep, dtype):
     assert not alpha[local[:, 0] == R].any()  # padding slots: exact zeros
 
 
+def _segsum_pack(kind, R, rng):
+    """(local_dst, EB) of a pack whose layout ``pack_edges`` never makes:
+    ``interleaved`` puts padding anywhere in a block (slots permuted within
+    each block); ``skewed`` gives one row of a block most of its 6000 valid
+    slots, over several 2048-slot tiles; ``empty`` has a block with no valid
+    slot."""
+    if kind == "interleaved":
+        DB, EB = 3, 512
+        local = np.where(rng.random((DB, EB)) < 0.4, R,
+                         rng.integers(0, R, size=(DB, EB)))
+    elif kind == "skewed":
+        DB, EB = 2, 8192
+        local = np.full((DB, EB), R)
+        local[0, :5000] = 17
+        local[0, 5000:6000] = rng.integers(0, R, size=1000)
+        local[1, :3000] = rng.integers(0, R, size=3000)
+    else:
+        DB, EB = 3, 256
+        local = np.where(rng.random((DB, EB)) < 0.3, R,
+                         rng.integers(0, R, size=(DB, EB)))
+        local[1] = R
+    local = rng.permuted(local, axis=1)
+    return local.reshape(-1, 1).astype(np.int32), EB
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,F", [(torch.float32, 128), (torch.float32, 37),
+                                     (torch.bfloat16, 13), (torch.float16, 13),
+                                     (torch.bfloat16, 256)])
+@pytest.mark.parametrize("kind,R", [("interleaved", 128), ("interleaved", 64),
+                                    ("skewed", 128), ("empty", 96)])
+def test_cuda_segment_sum_packed_bitwise(cuda, kind, R, dtype, F):
+    """The packed segment sum sums each output in f32 from 0 in packed slot
+    order, as its plain version (``index_add_``) does on a CPU copy: equal
+    bit for bit, also with padding anywhere in a block, a row holding most
+    of a block's slots, an F that is no multiple of the 16-byte piece, and
+    a block with no valid slot; and it repeats bit for bit."""
+    rng = np.random.default_rng([R, F, *map(ord, kind)])
+    local, EB = _segsum_pack(kind, R, rng)
+    contrib = torch.as_tensor(rng.normal(size=(local.shape[0], F)) * 3,
+                              dtype=dtype)
+    want = ss_ops.segment_sum_packed_ref(contrib, torch.as_tensor(local), R, EB)
+    ss_ops.reset_launches()
+    args = (contrib.to(cuda), torch.as_tensor(local, device=cuda), R, EB)
+    out = ss_ops.segment_sum_packed(*args)
+    assert ss_ops.LAUNCHES["segment_sum_packed"] == 1
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(out, ss_ops.segment_sum_packed(*args))
+
+
 def _tiny_device_samplers(cuda):
     from repro_torch.core import partition_graph, presample
     from repro_torch.graph.datasets import make_dataset
@@ -265,6 +315,53 @@ def test_cuda_flash_decode_matches_plain(cuda, B, H, KV, D, S, dtype):
         out = fd.flash_decode(q, k, v, n)
         # the f32 result from the same inputs; in bf16 within the rounding
         # of p and of the output besides the f32 tolerance
+        want, bound = fd_ref.decode_attention_bound(q, k, v, n.reshape(()),
+                                                    **DECODE_TOL)
+        diff = (out.float() - want).abs()
+        assert bool((diff <= bound).all()), (L, float(diff.max()))
+        assert torch.equal(out, fd.flash_decode(q, k, v, n))
+    assert fd.LAUNCHES["flash_decode"] == 6
+
+
+#: query groups of 1, 3, 6, 48 and 20 heads, S no multiple of the chunk:
+#: B, H, KV, D, S
+DECODE_GROUP_CASES = [
+    (2, 4, 4, 64, 300),
+    (3, 9, 3, 64, 1000),
+    (2, 12, 2, 128, 517),
+    (2, 48, 1, 128, 1000),
+    (2, 16, 16, 256, 333),
+    (1, 40, 2, 64, 700),  # 20 heads a group: a partial 16-head tile
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,S", DECODE_GROUP_CASES)
+def test_cuda_flash_decode_groups_lengths_and_strided_views(cuda, B, H, KV, D,
+                                                            S, dtype):
+    """The decode kernel on a cache view with batch and row strides (rows of
+    KV + 1 heads, of a longer cache), at cache_len 1, a partial 16-row step
+    and S: within ``decode_attention_bound`` of the f32 result, repeating
+    bit for bit; bf16 takes the tensor-core path."""
+    from repro_torch.kernels.build import typed_library
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(B * H + S)
+    q = torch.randn(B, H, D, device=cuda, generator=gen).to(dtype)
+    k, v = (torch.randn(B, S + 7, KV + 1, D, device=cuda,
+                        generator=gen).to(dtype)[:, 3:S + 3, 1:]
+            for _ in range(2))
+    assert k.stride(1) != KV * D and v.stride(1) != KV * D
+    assert S % fd.decode_chunk(B, KV, S, H // KV)
+    lib = typed_library("flash_decode", fd._SIGNATURES)
+    assert lib.flash_decode_uses_mma(fd.DTYPES[dtype], D, D) == (
+        dtype == torch.bfloat16)
+    fd.reset_launches()
+    for L in (1, 37, S):
+        n = torch.tensor([L], dtype=torch.int32, device=cuda)
+        out = fd.flash_decode(q, k, v, n)
         want, bound = fd_ref.decode_attention_bound(q, k, v, n.reshape(()),
                                                     **DECODE_TOL)
         diff = (out.float() - want).abs()

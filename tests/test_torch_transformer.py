@@ -181,26 +181,37 @@ def test_decode_ref_any_length_matches_jax_ref(S, L):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **KERNEL_TOL)
 
 
-def _split_k_decode(q, k, v, L, chunk=128, drop_last=False):
-    """The decode kernel's arithmetic in plain torch: f32 scores, each
-    chunk's p = exp(s - chunk max) summed unrounded and rounded to q's dtype
-    before the value product, chunks merged at the global max, the output
-    rounded to q's dtype. ``drop_last`` leaves the last chunk out."""
+def _split_k_decode(q, k, v, L, drop_last=False):
+    """The decode kernel's arithmetic in plain torch: f32 scores, chunks of
+    ``decode_chunk(B, KV, S, G)`` rows, each an online softmax over 16-row
+    steps (running max, p = exp(s - running max) summed unrounded and
+    rounded to q's dtype before the value product, earlier sums rescaled),
+    chunks merged at their max (the kernel folds 16 chunks at a time), the
+    output rounded to q's dtype. ``drop_last`` leaves the last chunk out."""
     B, S, KV, D = k.shape
     G = q.shape[1] // KV
+    chunk = fd_kernel.decode_chunk(B, KV, S, G)
     qf = q.float().reshape(B, KV, G, D)
     kf, vf = k.float()[:, :L], v.float()[:, :L]
     s = torch.einsum("bcgd,bscd->bcgs", qf, kf) / np.sqrt(D)
     n_chunks = -(-L // chunk) - (1 if drop_last else 0)
     ms, ls, os = [], [], []
     for c in range(n_chunks):
-        sc = s[..., c * chunk:(c + 1) * chunk]
-        m = sc.amax(dim=-1, keepdim=True)
-        p = torch.exp(sc - m)
+        m = torch.full(s.shape[:3] + (1,), -1e30)
+        l = torch.zeros_like(m)
+        o = torch.zeros(s.shape[:3] + (v.shape[3],))
+        for r0 in range(c * chunk, min((c + 1) * chunk, L), 16):
+            st = s[..., r0:min(r0 + 16, (c + 1) * chunk, L)]
+            m_new = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+            corr = torch.exp(m - m_new)
+            p = torch.exp(st - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            o = o * corr + torch.einsum("bcgs,bscd->bcgd", p.to(q.dtype).float(),
+                                        vf[:, r0:r0 + st.shape[-1]])
+            m = m_new
         ms.append(m)
-        ls.append(p.sum(dim=-1, keepdim=True))
-        os.append(torch.einsum("bcgs,bscd->bcgd", p.to(q.dtype).float(),
-                               vf[:, c * chunk:(c + 1) * chunk]))
+        ls.append(l)
+        os.append(o)
     M = torch.stack(ms).amax(dim=0)
     w = [torch.exp(m - M) for m in ms]
     num = sum(o * wc for o, wc in zip(os, w, strict=True))
@@ -226,10 +237,33 @@ def test_decode_bound_holds_the_kernel_rounding_and_catches_faults(B, H, KV, D, 
     swapped = torch.cat([v[..., D // 2:], v[..., :D // 2]], dim=-1)
     faults = [torch.cat([_split_k_decode(q, k, swapped, L)[..., :D // 2],
                          _split_k_decode(q, k, v, L)[..., D // 2:]], dim=-1)]
-    if L > 128:
+    if L > fd_kernel.decode_chunk(B, KV, S, H // KV):
         faults.append(_split_k_decode(q, k, v, L, drop_last=True))
     for bad in faults:
         assert ((bad.float() - want).abs() > bound).any()
+
+
+#: the dense configs' decode shapes on the card (B=8; SmolLM at its serve
+#: length, the others at 4096 rows): B, KV, S, G
+DECODE_SHAPES = [(8, 3, 1088, 3), (8, 32, 4096, 1), (8, 16, 4096, 1),
+                 (8, 1, 4096, 48)]
+
+
+@pytest.mark.parametrize("B,KV,S,G", DECODE_SHAPES + [(3, 2, 77, 2), (1, 1, 5, 1),
+                                                      (64, 64, 100000, 4),
+                                                      (1, 1, 4096, 100)])
+def test_decode_chunk_is_a_fixed_split_of_two_waves(B, KV, S, G):
+    """The split-K chunk is a pure function of (B, KV, S, G): at least 16
+    rows and a multiple of 16, its chunks cover S, and at the dense configs'
+    shapes the tensor-core grid (a block per 16-head tile and chunk) makes
+    at least two waves on the card's 132 SMs."""
+    chunk = fd_kernel.decode_chunk(B, KV, S, G)
+    assert chunk == fd_kernel.decode_chunk(B, KV, S, G)
+    assert chunk >= 16 and chunk % 16 == 0
+    n_chunks = -(-S // chunk)
+    assert n_chunks * chunk >= S > (n_chunks - 1) * chunk
+    if (B, KV, S, G) in DECODE_SHAPES:
+        assert B * KV * -(-G // 16) * n_chunks >= 2 * fd_kernel.SMS
 
 
 def test_decode_wrapper_checks_inputs():
