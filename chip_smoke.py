@@ -17,7 +17,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               card could take (``bound_ms``). The gather_segsum kernels at
               the first papers-s batch's input layer (layer 1 for the
               unweighted row adjoint, which SAGE and GCN never launch at the
-              input layer): forward 3e-5, adjoints 3e-4. The wavefront
+              input layer): the forward and the row adjoint, weighted and
+              not, bitwise against their plain versions on a CPU copy (and
+              within 3e-5 / 3e-4 of ``torch.sparse.mm``), the weight adjoint
+              3e-4. The row adjoint's walk (``src_sorted_csr``, three
+              kernels) is held bitwise against its plain version at layer 1
+              and at the input layer and timed by events, device and host;
+              the row adjoint's row also gives the walk's times and the
+              whole adjoint's (build + kernel). ``kernel_detail`` lines name
+              the kernels one call runs (the forward's must hold no
+              ``searchsorted``). The wavefront
               expansion at the device sampler's largest launch (P*N rows of
               the largest frontier cap, fan-out 15): bitwise. The packed
               segment sum (F=128) and edge softmax (H=4) on the input layer's
@@ -66,7 +75,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 
 Launch counts are set to 0 just before each trainer run and the serve run
 and read just after; a kernel of the run's path that was never launched
-fails the script. The packed segment kernels run on no trainer path
+fails the script, and so does a trainer run whose row-adjoint launches
+differ from its walk builds (``src_sorted_csr``, reported as the row
+adjoint's ``csr_builds``). The packed segment kernels run on no trainer path
 (``segment_ops``'s packed backend, which the model does not call): their
 counts come from one call of ``segment_ops.segment_sum``/``edge_softmax``
 with ``backend="packed"``, driven with the counts at 0. The last lines are
@@ -198,6 +209,25 @@ def device_ms(fn, iters=20, flush=None):
     return per_call(lambda: (flush.zero_(), fn())) - per_call(flush.zero_)
 
 
+def device_kernels(fn, calls=5):
+    """What one ``fn`` call runs on the card, by the profiler over ``calls``
+    calls: each kernel and copy's name (cut to 90 characters) and how many
+    times a call it ran. Fails if the profiler saw nothing on the card."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ran = {e.key[:90]: e.count / calls for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA}
+    check(bool(ran), "the profiler saw no kernel on the card")
+    return ran
+
+
 def host_ms(fn, calls=100, repeats=3):
     """A wrapper's host time per call: a host clock over ``calls`` enqueued
     calls, no sync inside the loop (after a warm-up call and a sync); the
@@ -267,11 +297,14 @@ def layer_pack(lp, P, dev):
         torch.stack([flat_dst, flat_src]), torch.ones(n_valid, device=dev),
         (P * num_out, P * M),
     ).coalesce()
+    src_runs = torch.bincount(flat_src, minlength=P * M)
     return SimpleNamespace(
         P=P, M=M, num_out=num_out, DB=DB, EB=EB, pack_src=pack_src,
         pack_dst=pack_dst, valid=valid, n_valid=n_valid,
         slot_key=flat_dst * (P * M) + flat_src,
-        src_rows=int(torch.unique(flat_src).numel()),
+        src_rows=int((src_runs > 0).sum()),
+        longest_src_run=int(src_runs.max()),
+        src_runs_over_32=int((src_runs > 32).sum()),
         dst_rows=int(torch.unique(flat_dst).numel()),
         # pack_dst is read in full, pack_src only at the valid slots
         index_bytes=4 * (P * DB * EB + n_valid),
@@ -334,7 +367,9 @@ def kernel_phase(dev, first, results):
     gradient) is SAGE's and GCN's largest forward; its rows get a gradient
     only under GAT (F=256 = 4 heads x 64), so the unweighted row adjoint is
     held and timed at layer 1 (F=256), the largest shape where SAGE and GCN
-    launch it."""
+    launch it. The forward and the row adjoint sum in the order the plain
+    versions' ``index_add_`` sums on a CPU tensor, so they are held to a CPU
+    copy's result bit for bit."""
     import torch
 
     from repro_torch.kernels.gather_segsum import kernel, ref
@@ -346,17 +381,48 @@ def kernel_phase(dev, first, results):
     emit("kernel_shapes", {
         name: dict(P=P, M=lay.M, num_out=lay.num_out, DB=lay.DB, EB=lay.EB,
                    slots=P * lay.DB * lay.EB, valid_slots=lay.n_valid,
-                   src_rows=lay.src_rows, dst_rows=lay.dst_rows)
+                   src_rows=lay.src_rows, dst_rows=lay.dst_rows,
+                   longest_src_run=lay.longest_src_run,
+                   src_runs_over_32=lay.src_runs_over_32)
         for name, lay in (("input_layer", inp), ("layer_1", hid))
     })
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def csr_for(lay, layer):
-        csr = kernel.src_sorted_csr(lay.pack_src, lay.pack_dst, lay.M, lay.num_out)
-        ms = time_ms(lambda: kernel.src_sorted_csr(
-            lay.pack_src, lay.pack_dst, lay.M, lay.num_out))
-        emit("src_sorted_csr", {"layer": layer, "ms": ms})
-        return csr
+        """The row adjoint's src-ordered walk: built, held bitwise against
+        its plain version on a CPU copy, and timed (events, device, host)
+        with the kernels one build runs."""
+        build = lambda: kernel.src_sorted_csr(  # noqa: E731
+            lay.pack_src, lay.pack_dst, lay.M, lay.num_out)
+        csr = build()
+        want = kernel.src_sorted_csr(lay.pack_src.cpu(), lay.pack_dst.cpu(),
+                                     lay.M, lay.num_out)
+        for name, a, b in zip(("offsets", "sorted_grow", "sorted_slot"), csr, want):
+            check(torch.equal(a.cpu(), b), f"src_sorted_csr layer {layer}: {name} "
+                                           "differs from its plain version")
+        info = {"layer": layer, "host_ms": host_ms(build), "ms": time_ms(build),
+                "device_ms": device_ms(build), "kernels": device_kernels(build),
+                "bitwise_vs_cpu": True}
+        info["launches"] = sum(info["kernels"].values())
+        emit("src_sorted_csr", info)
+        return csr, info
+
+    def on_cpu(fn, *args):
+        """``fn`` (a plain version) on CPU copies of ``args``, back on the
+        card: ``index_add_`` on a CPU tensor adds in index order, the order
+        the kernels sum in, so the kernels are held to it bit for bit."""
+        return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args)).to(dev)
+
+    def weighted_check(name, out, want, tol):
+        """GAT's weighted kernels: bitwise against the plain version on a
+        CPU copy (the kernels round each product as the plain version's
+        elementwise product does), and within ``tol`` besides."""
+        torch.testing.assert_close(out, want, **tol)
+        check(torch.equal(out, want), f"{name}: differs from its plain version "
+                                      "on a CPU copy")
+        emit("kernel_check", {"name": name, "bitwise_vs_cpu": True,
+                              "max_abs_err": 0.0})
 
     # forward at SAGE's input-layer width (F = 128)
     F = 128
@@ -368,43 +434,65 @@ def kernel_phase(dev, first, results):
     library = lambda: torch.sparse.mm(inp.adj_csr, flat_mixed)  # noqa: E731
     out = fwd()
     torch.testing.assert_close(library().reshape(P, inp.num_out, F), out, **FWD_TOL)
-    record(results, "gather_segsum_fwd", out, plain(), fwd, plain, library,
+    record(results, "gather_segsum_fwd", out,
+           on_cpu(ref.gather_segsum_fwd_packed, *args), fwd, plain, library,
            inp.index_bytes + 4 * F * (inp.src_rows + P * inp.num_out),
-           inp.n_valid * F, FWD_TOL)
+           inp.n_valid * F)
+    ran = device_kernels(fwd)
+    emit("kernel_detail", {"name": "gather_segsum_fwd", "kernels": ran,
+                           "bitwise_vs_cpu": True})
+    check(not any("searchsorted" in k.lower() for k in ran),
+          f"gather_segsum_fwd launches a searchsorted: {ran}")
 
     # GAT's weighted forward at the input layer (F = 256 = 4 x 64): checked
     H, Fw = 4, 256
     mixed_w = torch.randn(P, inp.M, Fw, device=dev, generator=gen)
     w = torch.randn(P, inp.DB * inp.EB, H, device=dev, generator=gen)
-    out_w = kernel.gather_segsum_fwd(mixed_w, inp.pack_src, inp.pack_dst, w, inp.num_out)
-    want_w = ref.gather_segsum_fwd_packed(mixed_w, inp.pack_src, inp.pack_dst, w,
-                                          inp.num_out)
-    torch.testing.assert_close(out_w, want_w, **FWD_TOL)
-    emit("kernel_check", {"name": "gather_segsum_fwd (weighted, input layer, H=4, F=256)",
-                          "max_abs_err": float((out_w - want_w).abs().max())})
+    args_w = (mixed_w, inp.pack_src, inp.pack_dst, w, inp.num_out)
+    out_w = kernel.gather_segsum_fwd(*args_w)
+    check(torch.equal(out_w, kernel.gather_segsum_fwd(*args_w)),
+          "gather_segsum_fwd (weighted): two launches differ")
+    weighted_check("gather_segsum_fwd (weighted, input layer, H=4, F=256)", out_w,
+                   on_cpu(ref.gather_segsum_fwd_packed, *args_w), FWD_TOL)
 
-    # adjoint w.r.t. the rows, unweighted, at layer 1 (F = 256): SAGE and GCN
+    # adjoint w.r.t. the rows, unweighted, at layer 1 (F = 256): SAGE and GCN.
+    # The kernel row times the kernel on a prebuilt walk; the walk's build and
+    # the whole (build + kernel, as the backward runs it) are reported beside
     g = torch.randn(P, hid.num_out, Fw, device=dev, generator=gen)
-    csr = csr_for(hid, 1)
+    csr, walk = csr_for(hid, 1)
     args = (g, hid.pack_src, hid.pack_dst, None, hid.M)
     bwd = lambda: kernel.gather_segsum_bwd_mixed(*args, csr)  # noqa: E731
+    whole = lambda: kernel.gather_segsum_bwd_mixed(*args)  # noqa: E731
     plain = lambda: ref.gather_segsum_bwd_mixed_packed(*args)  # noqa: E731
     flat_g = g.reshape(P * hid.num_out, Fw)
     library = lambda: torch.sparse.mm(hid.adj_t_csr, flat_g)  # noqa: E731
     out = bwd()
     torch.testing.assert_close(library().reshape(P, hid.M, Fw), out, **ADJ_TOL)
-    record(results, "gather_segsum_bwd_mixed", out, plain(), bwd, plain, library,
+    check(torch.equal(out, whole()), "gather_segsum_bwd_mixed: the walk built "
+                                     "inside the call gives another result")
+    record(results, "gather_segsum_bwd_mixed", out,
+           on_cpu(ref.gather_segsum_bwd_mixed_packed, *args), bwd, plain, library,
            hid.index_bytes + 4 * Fw * (hid.dst_rows + P * hid.M),
-           hid.n_valid * Fw, ADJ_TOL)
+           hid.n_valid * Fw)
+    detail = {"csr_ms": walk["ms"], "csr_device_ms": walk["device_ms"],
+              "csr_host_ms": walk["host_ms"], "csr_launches": walk["launches"],
+              "whole_host_ms": host_ms(whole), "whole_ms": time_ms(whole),
+              "whole_device_ms": device_ms(whole)}
+    results["gather_segsum_bwd_mixed"].update(detail)
+    emit("kernel_detail", {"name": "gather_segsum_bwd_mixed", **detail,
+                           "kernels": device_kernels(bwd),
+                           "whole_kernels": device_kernels(whole),
+                           "bitwise_vs_cpu": True})
 
     # GAT's weighted row adjoint at the input layer: checked
     g_w = torch.randn(P, inp.num_out, Fw, device=dev, generator=gen)
-    csr_w = csr_for(inp, len(plan.layers) - 1)
-    gm_w = kernel.gather_segsum_bwd_mixed(g_w, inp.pack_src, inp.pack_dst, w, inp.M, csr_w)
-    want = ref.gather_segsum_bwd_mixed_packed(g_w, inp.pack_src, inp.pack_dst, w, inp.M)
-    torch.testing.assert_close(gm_w, want, **ADJ_TOL)
-    emit("kernel_check", {"name": "gather_segsum_bwd_mixed (weighted, input layer, H=4, F=256)",
-                          "max_abs_err": float((gm_w - want).abs().max())})
+    csr_w, _ = csr_for(inp, len(plan.layers) - 1)
+    args_w = (g_w, inp.pack_src, inp.pack_dst, w, inp.M)
+    gm_w = kernel.gather_segsum_bwd_mixed(*args_w, csr_w)
+    check(torch.equal(gm_w, kernel.gather_segsum_bwd_mixed(*args_w)),
+          "gather_segsum_bwd_mixed (weighted): two launches differ")
+    weighted_check("gather_segsum_bwd_mixed (weighted, input layer, H=4, F=256)",
+                   gm_w, on_cpu(ref.gather_segsum_bwd_mixed_packed, *args_w), ADJ_TOL)
 
     # adjoint w.r.t. GAT's per-slot weights at the input layer; the library
     # call is an SDDMM over the plan's (dst, src) pattern, heads as the batch
@@ -690,6 +778,10 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect):
     check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
     for k in expect:
         check(launches[k] > 0, f"{name}: kernel {k} was never launched")
+    # the row adjoint's walk is built by its kernels once per adjoint launch
+    check(launches["src_sorted_csr"] == launches["gather_segsum_bwd_mixed"],
+          f"{name}: {launches['src_sorted_csr']} walk builds for "
+          f"{launches['gather_segsum_bwd_mixed']} row adjoints")
     emit("run", {
         "name": name, "plan_source": cfg.plan_source, "setup_s": t_setup,
         "presample_s": tr.t_presample, "partition_s": tr.t_partition,
@@ -723,7 +815,8 @@ def device_source_phase(papers, cfg, dev):
     dcfg = replace(cfg, plan_source="device")
     launches, tr, st = run_trainer(
         papers, GNNSpec(model="sage"), dcfg, dev, 3, "sage, device source",
-        ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "wavefront_expand"),
+        ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+         "wavefront_expand"),
     )
     stats = st.pipeline
     check(stats["sampler_batches"] - stats["sampler_fallbacks"] >= 1,
@@ -1113,7 +1206,8 @@ def main():
         "wall_s": time.perf_counter() - t0,
         "seconds": {n: build.build_seconds[n] for n in LIBRARIES},
         "ptxas": {n: [line.strip() for line in build.build_log.get(n, "").splitlines()
-                      if "Compiling entry function" in line or "Used" in line]
+                      if "Compiling entry function" in line or "Used" in line
+                      or "spill" in line]
                   for n in LIBRARIES},
     })
 
@@ -1124,7 +1218,7 @@ def main():
     wavefront_phase(dev, first, results)
     dst, mask, N = packed_phase(dev, first, results)
     flash_decode_phase(dev, results)
-    total = {k: 0 for k in KERNELS}
+    total = dict.fromkeys(read_launches(), 0)
     for k, v in packed_entry_points(dev, dst, mask, N).items():
         total[k] += v
 
@@ -1132,7 +1226,7 @@ def main():
     papers = first.ds
     cfg = TrainConfig(num_devices=4, fanouts=FANOUTS, batch_size=1024,
                       presample_epochs=2)
-    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed")
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr")
     launches, _, _ = run_trainer(papers, GNNSpec(model="sage"), cfg, dev, 3,
                                  "sage", both)
     for k in total:
@@ -1180,6 +1274,8 @@ def main():
 
     for k, r in results.items():
         r["launches"] = total[k]
+    # the walk's builds (three kernels each) on the main paths
+    results["gather_segsum_bwd_mixed"]["csr_builds"] = total["src_sorted_csr"]
     check(sorted(results) == sorted(KERNELS), f"kernels held: {sorted(results)}")
     print(json.dumps({"kernels": [results[k] for k in KERNELS]}), flush=True)
     print(smi, flush=True)

@@ -25,21 +25,33 @@ from repro_torch.kernels.gather_segsum import ref
 from repro_torch.kernels.gather_segsum.layout import AGG_ROWS as R
 
 #: kernel launches per wrapper since the last ``reset_launches()``; only a
-#: launch of the CUDA kernel counts, never a plain-version call
+#: launch of the CUDA kernels counts, never a plain-version call
+#: (``src_sorted_csr``: one build of the walk, three kernels)
 LAUNCHES = {
     "gather_segsum_fwd": 0,
     "gather_segsum_bwd_mixed": 0,
     "gather_segsum_bwd_w": 0,
+    "src_sorted_csr": 0,
 }
 
 _SIGNATURES = {
-    # mixed, pack_src, row_off, w, out, P, M, F, DB, EB, num_out, H, dh, R
+    # mixed, pack_src, pack_dst, w, out, P, M, F, DB, EB, num_out, H, dh, R
     "gss_fwd": [_P] * 5 + [_I] * 9 + [_P],
+    # pack_src, pack_dst, ws, offsets, valid_incl, placed, placed_grow,
+    # sorted_grow, sorted_slot, P, M, DB, EB, num_out, R
+    "gss_src_walk": [_P] * 9 + [_I] * 6 + [_P],
     # g, offsets, sorted_grow, sorted_slot, w, dmixed, num_rows, F, H, dh
     "gss_bwd_mixed": [_P] * 6 + [_I] * 4 + [_P],
     # mixed, g, pack_src, pack_dst, dw, P, M, F, DB, EB, num_out, H, dh, R
     "gss_bwd_w": [_P] * 5 + [_I] * 9 + [_P],
 }
+#: the walk's counters, zero between builds, one per (card, stream): the
+#: build's last kernels count them back to zero
+_walk_ws: dict = {}
+
+#: the runs of each row of each pack block, as the forward kernel finds them
+#: in shared memory (plain version, read by the tests)
+block_row_offsets = ref.block_row_offsets
 
 
 def reset_launches() -> None:
@@ -68,32 +80,17 @@ def _check_pack(mixed, pack_src, pack_dst, w):
             raise ValueError("feature dim must split evenly across heads")
 
 
-def block_row_offsets(pack_dst):
-    """(P*DB, R+1) int32: row r of block (p, db) owns the slots
-    ``[off[p*DB+db, r], off[p*DB+db, r+1])``.
-
-    The slots of a block are dst-sorted with the padding (``R``) last, so
-    one batched binary search over ``pack_dst`` finds every row's run on
-    device (no host sync); the last entry is the block's valid-slot count.
-    """
-    P, DB, EB = pack_dst.shape
-    keys = torch.arange(R + 1, dtype=torch.int32, device=pack_dst.device)
-    return torch.searchsorted(
-        pack_dst.reshape(P * DB, EB), keys.expand(P * DB, R + 1).contiguous(),
-        out_int32=True,
-    )
-
-
 def gather_segsum_fwd(mixed, pack_src, pack_dst, w, num_out):
     """Fused forward, replacing ``gather_segsum_fwd`` (Pallas,
     repro/kernels/gather_segsum/kernel.py:190, body ``_fwd_body``).
 
     mixed (P, M, F) f32; pack_src / pack_dst (P, DB, EB) int32 (``pack_dst
-    == R`` marks padding); w (P, DB*EB, H) f32 or None ->
+    >= R`` marks padding); w (P, DB*EB, H) f32 or None ->
     (P, num_out, F) f32. Bound by bytes: indices, each needed row once and
-    the output once. Each warp owns 32 columns of a few output rows
-    and sums each row's run of slots in a register, in packed order; padding
-    slots are never visited.
+    the output once. A block stages a pack block's indices and finds its 32
+    rows' runs in shared memory (no ``searchsorted``); a warp owns a whole
+    row and sums its run from 0 in packed order with 8 row loads in flight
+    (4 when weighted at F > 128). One launch.
     """
     _check("mixed", mixed, torch.float32, 3, mixed.device)
     _check_pack(mixed, pack_src, pack_dst, w)
@@ -105,11 +102,11 @@ def gather_segsum_fwd(mixed, pack_src, pack_dst, w, num_out):
     _, DB, EB = pack_dst.shape
     if DB * R < num_out:
         raise ValueError(f"{DB} dst blocks cannot hold {num_out} rows")
-    row_off = block_row_offsets(pack_dst)
+    _check_int32(P * DB * EB, P * M)
     H = w.shape[-1] if w is not None else 1
     out = torch.empty((P, num_out, F), dtype=torch.float32, device=mixed.device)
     rc = _lib().gss_fwd(
-        _ptr(mixed), _ptr(pack_src), _ptr(row_off), _ptr(w), _ptr(out),
+        _ptr(mixed), _ptr(pack_src), _ptr(pack_dst), _ptr(w), _ptr(out),
         P, M, F, DB, EB, num_out, H, F // H, R, _stream(mixed.device),
     )
     _raise_on(rc, "gss_fwd")
@@ -117,31 +114,58 @@ def gather_segsum_fwd(mixed, pack_src, pack_dst, w, num_out):
     return out
 
 
-def src_sorted_csr(pack_src, pack_dst, mem_rows, num_out):
-    """The src-ordered walk ``gather_segsum_bwd_mixed`` needs, built on device.
+def _check_int32(slots, rows):
+    """The kernels index slots and flat source rows in 32 bits."""
+    if slots >= 2**31 or rows >= 2**31 - 1:
+        raise ValueError(f"{slots} slots / {rows} rows exceed 32-bit indices")
 
-    Returns ``(offsets, sorted_grow, sorted_slot)``: a stable sort of the
-    valid slots by flat source row ``p*M + pack_src`` (padding slots sort
-    last and are never read), CSR offsets over the P*M source rows, and per
-    sorted slot the flat row of the output cotangent it reads and its flat
-    slot index. All int32, no host sync. The stable sort fixes the order of
-    every sum, so the adjoint repeats bit for bit.
+
+def _walk_workspace(device, size):
+    """The walk's zeroed counters for this card and stream, grown to
+    ``size`` entries (a new buffer is zeroed in stream order)."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    ws = _walk_ws.get(key)
+    if ws is None or ws.numel() < size:
+        ws = torch.zeros(size, dtype=torch.int32, device=device)
+        _walk_ws[key] = ws
+    return ws
+
+
+def src_sorted_csr(pack_src, pack_dst, mem_rows, num_out):
+    """The src-ordered walk ``gather_segsum_bwd_mixed`` needs.
+
+    Returns ``(offsets, sorted_grow, sorted_slot)``, all int32: the valid
+    slots sorted stably by flat source row ``p*M + pack_src`` (padding slots
+    last, in slot order, never read), CSR offsets over the P*M source rows,
+    and per sorted slot the flat row of the output cotangent it reads and its
+    flat slot index. The stable order fixes the order of every sum, so the
+    adjoint repeats bit for bit. On the card three hand-written kernels build
+    it (count + scan, place, order; no sort, no host sync) bitwise equal to
+    the plain version (``ref.src_sorted_csr_ref``), which CPU tensors take.
     """
+    if pack_dst.device.type == "cpu":
+        return ref.src_sorted_csr_ref(pack_src, pack_dst, mem_rows, num_out)
+    device = pack_dst.device
+    _check("pack_src", pack_src, torch.int32, 3, device)
+    _check("pack_dst", pack_dst, torch.int32, 3, device)
     P, DB, EB = pack_dst.shape
-    n = P * mem_rows
-    per_split = DB * EB
-    split = torch.arange(P, device=pack_dst.device).repeat_interleave(per_split)
-    dst = pack_dst.reshape(-1).long()
-    key = torch.where(
-        dst < R, split * mem_rows + pack_src.reshape(-1).long(), n
+    S, n = P * DB * EB, P * mem_rows
+    _check_int32(S, n)
+    ws = _walk_workspace(device, 1 + P * DB + n)
+    offsets, grow, slot = torch.empty(
+        n + 1 + 2 * S, dtype=torch.int32, device=device).split([n + 1, S, S])
+    # scratch, freed (in stream order) once the build is enqueued: the placed
+    # slots and their cotangent rows, the pack blocks' inclusive valid counts
+    placed, placed_grow, valid_incl = torch.empty(
+        2 * S + P * DB, dtype=torch.int32, device=device).split([S, S, P * DB])
+    rc = _lib().gss_src_walk(
+        _ptr(pack_src), _ptr(pack_dst), _ptr(ws), _ptr(offsets),
+        _ptr(valid_incl), _ptr(placed), _ptr(placed_grow), _ptr(grow), _ptr(slot),
+        P, mem_rows, DB, EB, num_out, R, _stream(device),
     )
-    sorted_key, order = torch.sort(key, stable=True)
-    offsets = torch.searchsorted(
-        sorted_key, torch.arange(n + 1, device=key.device), out_int32=True
-    )
-    db = (order // EB) % DB
-    grow = (order // per_split) * num_out + db * R + dst[order]
-    return offsets, grow.to(torch.int32), order.to(torch.int32)
+    _raise_on(rc, "gss_src_walk")
+    LAUNCHES["src_sorted_csr"] += 1
+    return offsets, grow, slot
 
 
 def gather_segsum_bwd_mixed(g, pack_src, pack_dst, w, mem_rows, src_csr=None):
@@ -151,9 +175,10 @@ def gather_segsum_bwd_mixed(g, pack_src, pack_dst, w, mem_rows, src_csr=None):
     g (P, num_out, F) f32 -> (P, mem_rows, F) f32. ``src_csr`` is
     ``src_sorted_csr(...)`` (built here when not given; CUDA only). Bound by
     bytes: each needed cotangent row once, the indices and the output once.
-    Instead of a scatter with float atomics, each warp owns 32 columns of a
-    few source rows and sums their slots in the fixed src-sorted order, so
-    every output row is written once and the result is deterministic.
+    Instead of a scatter with float atomics, a warp owns two whole source
+    rows in turn and sums each from 0 in the walk's fixed order, 8
+    cotangent-row loads in flight (4 when weighted at F > 128), so every
+    output row is written once and the result is deterministic.
     """
     _check("g", g, torch.float32, 3, g.device)
     _check_pack(g, pack_src, pack_dst, w)

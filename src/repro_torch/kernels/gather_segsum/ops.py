@@ -17,8 +17,10 @@ Contract (shared by all ops, per split):
   pack_dst   (P, DB, EB) int32 — slot -> dst - db*R; **R marks padding**.
   num_out    int — destination rows; output is (P, num_out, F).
 
-Sums visit slots in packed order, so results match the plain two-op path to
-fp tolerance, not bit for bit.
+The kernels sum every output from 0 in packed slot order, as the packed plain
+versions (``ref.*_packed``) do on a CPU tensor, and equal them bit for bit
+there. The edge-order oracles (``ref.gather_segment_*_ref``) sum in another
+order, so the ops match them to fp tolerance only.
 """
 from __future__ import annotations
 
@@ -46,19 +48,14 @@ def _pack_src(edge_src, pack_perm, pack_dst, mem_rows):
 
 
 class _FusedSum(torch.autograd.Function):
-    """Unweighted fused sum; its adjoint needs the src-sorted walk, built on
-    device in the forward (and only when the rows need a gradient)."""
+    """Unweighted fused sum; its adjoint builds the src-ordered walk on the
+    card beside the kernel that reads it."""
 
     @staticmethod
     def forward(ctx, mixed, pack_src, pack_dst, num_out):
         out = kernel.gather_segsum_fwd(mixed, pack_src, pack_dst, None, num_out)
         ctx.mem_rows = mixed.shape[1]
-        ctx.src_csr = None
         if ctx.needs_input_grad[0]:
-            if mixed.is_cuda:
-                ctx.src_csr = kernel.src_sorted_csr(
-                    pack_src, pack_dst, mixed.shape[1], num_out
-                )
             ctx.save_for_backward(pack_src, pack_dst)
         return out
 
@@ -66,7 +63,7 @@ class _FusedSum(torch.autograd.Function):
     def backward(ctx, g):
         pack_src, pack_dst = ctx.saved_tensors
         gm = kernel.gather_segsum_bwd_mixed(
-            g.contiguous(), pack_src, pack_dst, None, ctx.mem_rows, ctx.src_csr
+            g.contiguous(), pack_src, pack_dst, None, ctx.mem_rows
         )
         return gm, None, None, None
 
@@ -82,11 +79,6 @@ class _FusedWeighted(torch.autograd.Function):
         out = kernel.gather_segsum_fwd(
             mixed, pack_src, pack_dst, w_packed, num_out
         )
-        ctx.src_csr = None
-        if ctx.needs_input_grad[0] and mixed.is_cuda:
-            ctx.src_csr = kernel.src_sorted_csr(
-                pack_src, pack_dst, mixed.shape[1], num_out
-            )
         ctx.save_for_backward(mixed, w_packed, pack_src, pack_dst)
         return out
 
@@ -97,7 +89,7 @@ class _FusedWeighted(torch.autograd.Function):
         gm = gw = None
         if ctx.needs_input_grad[0]:
             gm = kernel.gather_segsum_bwd_mixed(
-                g, pack_src, pack_dst, w_packed, mixed.shape[1], ctx.src_csr
+                g, pack_src, pack_dst, w_packed, mixed.shape[1]
             )
         if ctx.needs_input_grad[1]:
             gw = kernel.gather_segsum_bwd_w(

@@ -79,6 +79,44 @@ def gather_segsum_bwd_w_packed(mixed, g, pack_src, pack_dst, num_heads):
     return out.reshape(P, -1, num_heads)
 
 
+def block_row_offsets(pack_dst):
+    """(P*DB, R+1) int32: row r of block (p, db) owns the slots
+    ``[off[p*DB+db, r], off[p*DB+db, r+1])``.
+
+    The slots of a block are dst-sorted with the padding (``>= R``) last, so
+    one batched binary search over ``pack_dst`` finds every row's run; the
+    last entry is the block's valid-slot count. The forward kernel finds the
+    same runs in shared memory, where ``pack_dst`` changes.
+    """
+    P, DB, EB = pack_dst.shape
+    keys = torch.arange(R + 1, dtype=torch.int32, device=pack_dst.device)
+    return torch.searchsorted(
+        pack_dst.reshape(P * DB, EB), keys.expand(P * DB, R + 1).contiguous(),
+        out_int32=True,
+    )
+
+
+def src_sorted_csr_ref(pack_src, pack_dst, mem_rows, num_out):
+    """``kernel.src_sorted_csr``'s plain version: a stable sort of the flat
+    slots by flat source row ``p*M + pack_src``, padding slots (key ``P*M``)
+    last. Returns ``(offsets (P*M+1,), sorted_grow, sorted_slot)``, int32."""
+    P, DB, EB = pack_dst.shape
+    n = P * mem_rows
+    per_split = DB * EB
+    split = torch.arange(P, device=pack_dst.device).repeat_interleave(per_split)
+    dst = pack_dst.reshape(-1).long()
+    key = torch.where(
+        dst < R, split * mem_rows + pack_src.reshape(-1).long(), n
+    )
+    sorted_key, order = torch.sort(key, stable=True)
+    offsets = torch.searchsorted(
+        sorted_key, torch.arange(n + 1, device=key.device), out_int32=True
+    )
+    db = (order // EB) % DB
+    grow = (order // per_split) * num_out + db * R + dst[order]
+    return offsets, grow.to(torch.int32), order.to(torch.int32)
+
+
 # --------------------------------------------------------------------------- #
 # edge-order oracles (one split), counterparts of repro's ref.py
 # --------------------------------------------------------------------------- #

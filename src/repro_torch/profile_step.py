@@ -10,7 +10,8 @@ epochs) on the chosen plan source (``device``: sampling on the card), takes
 one warm-up step, then profiles ``--steps`` steps with CPU
 and CUDA activities. Prints the top operators by device time, then one JSON
 line: the host wall time of the profiled steps, the device time summed over
-kernels and copies, and the device idle share over the window. Needs a card.
+kernels and copies, the device idle share over the window, and a step's
+top-level torch calls and device operations (kernels, copies, memsets). Needs a card.
 """
 from __future__ import annotations
 
@@ -52,6 +53,12 @@ def main(argv=None) -> int:
         e.self_device_time_total for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
+    # top-level torch calls on the host, and what the card ran: kernels,
+    # copies and memsets
+    calls = sum(1 for e in prof.events() if e.cpu_parent is None
+                and e.device_type == torch.autograd.DeviceType.CPU)
+    device_ops = sum(e.count for e in events
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
     print(json.dumps({"profile": {
         "model": args.model,
         "plan_source": args.plan_source,
@@ -63,6 +70,8 @@ def main(argv=None) -> int:
             i.t_sample + i.t_split + i.t_load for i in stats.iters
         ),
         "compute_ms": 1e3 * sum(i.t_compute for i in stats.iters),
+        "torch_calls_per_step": calls / max(len(stats.iters), 1),
+        "device_ops_per_step": device_ops / max(len(stats.iters), 1),
         "device": torch.cuda.get_device_name(0),
     }}))
     return 0

@@ -3,9 +3,12 @@
 Every test here needs a CUDA card and skips without one (the kernels have no
 CPU mode). The file imports no JAX, so it runs on a machine with a card:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
-Tolerances: forward 3e-5, adjoints 3e-4 (the plain versions scatter with
-``index_add_``, in another order); the packed segment sum and softmax 3e-5;
-the wavefront expansion bitwise. Each kernel must also repeat bit for bit.
+The gather_segsum forward and row adjoint (and the row adjoint's walk) are
+held bitwise against their plain versions on a CPU copy, where
+``index_add_`` adds in index order, the order the kernels sum in; the weight
+adjoint within 3e-4. The packed segment sum bitwise on a CPU copy, the
+packed softmax 3e-5, the wavefront expansion bitwise. Each kernel must also
+repeat bit for bit.
 """
 import copy
 
@@ -33,6 +36,13 @@ CASES = [
     (4, 4, 400, 100, 32, 150, 0.3, True),  # repadded, sentinel-heavy
     (5, 2, 64, 30, 16, 700, 0.05, True),  # nearly empty: empty segments
     (6, 4, 20000, 8192, 128, 4096, 0.35, False),  # papers-s input-layer size
+    # three source rows a split: hubs of about 5000 slots each, over all 32
+    # pack blocks of every split
+    (7, 4, 30000, 3, 16, 4096, 0.5, False),
+    (8, 2, 4000, 500, 64, 1, 0.95, False),  # one dst row fills an EB of 4096
+    (9, 3, 600, 50, 13, 300, 0.7, True),  # F = 13, repadded
+    (10, 2, 50, 20, 130, 100, 0.0, False),  # no valid slot
+    (11, 2, 3000, 30, 8, 500, 0.9, False),  # source runs of about 90 slots
 ]
 
 
@@ -66,28 +76,56 @@ def _pack(seed, P, E, M, F, N, keep, grow, device):
     return pack_src, pd, num_out
 
 
+def _on_cpu(fn, *args):
+    """A plain version on CPU copies of ``args``."""
+    return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+
+
+def _unaligned(t):
+    """A contiguous copy of ``t`` whose data starts 4 bytes past a 16-byte
+    boundary."""
+    v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    return v.view(t.shape).copy_(t)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,P,E,M,F,N,keep,grow", CASES)
 def test_cuda_kernels_match_plain(cuda, seed, P, E, M, F, N, keep, grow):
+    """The forward and the row adjoint, weighted and not, equal their plain
+    versions on a CPU copy bit for bit (also on rows that start off a
+    16-byte boundary), and so do the row adjoint's walk arrays; every kernel
+    repeats bit for bit; the weight adjoint within 3e-4."""
     pack_src, pd, num_out = _pack(seed, P, E, M, F, N, keep, grow, cuda)
     gen = torch.Generator(device=cuda).manual_seed(seed)
     H = 1 if F % 4 else 4
     mixed = torch.randn(P, M, F, device=cuda, generator=gen)
     w = torch.randn(P, pd.shape[1] * pd.shape[2], H, device=cuda, generator=gen)
     g = torch.randn(P, num_out, F, device=cuda, generator=gen)
+    csr = kernel.src_sorted_csr(pack_src, pd, M, num_out)
+    want = _on_cpu(ref.src_sorted_csr_ref, pack_src, pd, M, num_out)
+    for got, exp, again in zip(csr, want,
+                               kernel.src_sorted_csr(pack_src, pd, M, num_out)):
+        assert torch.equal(got.cpu(), exp)
+        assert torch.equal(got, again)
     for weights in (None, w):
         out = kernel.gather_segsum_fwd(mixed, pack_src, pd, weights, num_out)
-        want = ref.gather_segsum_fwd_packed(mixed, pack_src, pd, weights, num_out)
-        torch.testing.assert_close(out, want, **TOL)
+        want = _on_cpu(ref.gather_segsum_fwd_packed, mixed, pack_src, pd,
+                       weights, num_out)
+        assert torch.equal(out.cpu(), want)
         assert torch.equal(
             out, kernel.gather_segsum_fwd(mixed, pack_src, pd, weights, num_out)
         )
+        assert torch.equal(out, kernel.gather_segsum_fwd(
+            _unaligned(mixed), pack_src, pd, weights, num_out))
         gm = kernel.gather_segsum_bwd_mixed(g, pack_src, pd, weights, M)
-        want = ref.gather_segsum_bwd_mixed_packed(g, pack_src, pd, weights, M)
-        torch.testing.assert_close(gm, want, **GRAD_TOL)
+        want = _on_cpu(ref.gather_segsum_bwd_mixed_packed, g, pack_src, pd,
+                       weights, M)
+        assert torch.equal(gm.cpu(), want)
         assert torch.equal(
-            gm, kernel.gather_segsum_bwd_mixed(g, pack_src, pd, weights, M)
+            gm, kernel.gather_segsum_bwd_mixed(g, pack_src, pd, weights, M, csr)
         )
+        assert torch.equal(gm, kernel.gather_segsum_bwd_mixed(
+            _unaligned(g), pack_src, pd, weights, M))
     gw = kernel.gather_segsum_bwd_w(mixed, g, pack_src, pd, H)
     want = ref.gather_segsum_bwd_w_packed(mixed, g, pack_src, pd, H)
     torch.testing.assert_close(gw, want, **GRAD_TOL)
