@@ -19,9 +19,12 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               unweighted row adjoint, which SAGE and GCN never launch at the
               input layer): the forward and the row adjoint, weighted and
               not, bitwise against their plain versions on a CPU copy (and
-              within 3e-5 / 3e-4 of ``torch.sparse.mm``), the weight adjoint
-              3e-4. The row adjoint's walk (``src_sorted_csr``, three
-              kernels) is held bitwise against its plain version at layer 1
+              within 3e-5 / 3e-4 of ``torch.sparse.mm``), and the weight
+              adjoint bitwise against its plain version on a CPU copy (it
+              sums each head in the tree order the plain version states;
+              within 3e-4 of ``torch.sparse.sampled_addmm``). The row
+              adjoint's walk (``src_sorted_csr``, three kernels) is held
+              bitwise against its plain version at layer 1
               and at the input layer and timed by events, device and host;
               the row adjoint's row also gives the walk's times and the
               whole adjoint's (build + kernel). ``kernel_detail`` lines name
@@ -195,14 +198,21 @@ def device_ms(fn, iters=20, flush=None):
     from torch.profiler import ProfilerActivity, profile
 
     def per_call(body):
-        body()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(iters):
-                body()
+        # the profiler now and then drops a window's kernels (none, or 19 of
+        # 20 launches seen): each kernel must show a whole number of
+        # launches a call, or the window is taken again
+        for _ in range(3):
+            body()
             torch.cuda.synchronize()
-        return sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3 / iters
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(iters):
+                    body()
+                torch.cuda.synchronize()
+            ran = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+            if ran and all(e.count % iters == 0 for e in ran):
+                return sum(e.self_device_time_total for e in ran) / 1e3 / iters
+        check(False, "the profiler lost launches in three windows running")
 
     if flush is None:
         return per_call(fn)
@@ -298,6 +308,7 @@ def layer_pack(lp, P, dev):
         (P * num_out, P * M),
     ).coalesce()
     src_runs = torch.bincount(flat_src, minlength=P * M)
+    dst_runs = torch.bincount(flat_dst, minlength=P * num_out)
     return SimpleNamespace(
         P=P, M=M, num_out=num_out, DB=DB, EB=EB, pack_src=pack_src,
         pack_dst=pack_dst, valid=valid, n_valid=n_valid,
@@ -306,6 +317,7 @@ def layer_pack(lp, P, dev):
         longest_src_run=int(src_runs.max()),
         src_runs_over_32=int((src_runs > 32).sum()),
         dst_rows=int(torch.unique(flat_dst).numel()),
+        longest_dst_run=int(dst_runs.max()) if n_valid else 0,
         # pack_dst is read in full, pack_src only at the valid slots
         index_bytes=4 * (P * DB * EB + n_valid),
         adj=adj, adj_csr=adj.to_sparse_csr(),
@@ -494,8 +506,13 @@ def kernel_phase(dev, first, results):
     weighted_check("gather_segsum_bwd_mixed (weighted, input layer, H=4, F=256)",
                    gm_w, on_cpu(ref.gather_segsum_bwd_mixed_packed, *args_w), ADJ_TOL)
 
-    # adjoint w.r.t. GAT's per-slot weights at the input layer; the library
-    # call is an SDDMM over the plan's (dst, src) pattern, heads as the batch
+    # adjoint w.r.t. GAT's per-slot weights at the input layer, bitwise
+    # against its plain version on a CPU copy; the library call is an SDDMM
+    # over the plan's (dst, src) pattern, heads as the batch
+    emit("kernel_shapes", {"gather_segsum_bwd_w": dict(
+        P=P, DB=inp.DB, EB=inp.EB, H=H, F=Fw, slots=P * inp.DB * inp.EB,
+        valid_slots=inp.n_valid, dst_rows=inp.dst_rows,
+        longest_run=inp.longest_dst_run)})
     args = (mixed_w, g_w, inp.pack_src, inp.pack_dst, H)
     bw = lambda: kernel.gather_segsum_bwd_w(*args)  # noqa: E731
     plain = lambda: ref.gather_segsum_bwd_w_packed(*args)  # noqa: E731
@@ -514,9 +531,10 @@ def kernel_phase(dev, first, results):
     out = bw()
     torch.testing.assert_close(library().values()[:, at_slot].T,
                                out.reshape(P, -1, H)[inp.valid], **ADJ_TOL)
-    record(results, "gather_segsum_bwd_w", out, plain(), bw, plain, library,
+    record(results, "gather_segsum_bwd_w", out,
+           on_cpu(ref.gather_segsum_bwd_w_packed, *args), bw, plain, library,
            inp.index_bytes + 4 * Fw * (inp.src_rows + inp.dst_rows)
-           + 4 * P * inp.DB * inp.EB * H, 2 * inp.n_valid * Fw, ADJ_TOL)
+           + 4 * P * inp.DB * inp.EB * H, 2 * inp.n_valid * Fw)
 
 
 def wavefront_phase(dev, first, results):

@@ -29,8 +29,9 @@
 // pays a full L2 or DRAM latency per slot. Every sum starts at 0 and adds in
 // increasing slot order, products rounded by __fmul_rn and sums by
 // __fadd_rn (no contraction into an FMA), as the plain versions'
-// ``index_add_`` adds on a CPU tensor: the results equal theirs bit for bit
-// and repeat bit for bit. No float atomics.
+// ``index_add_`` adds on a CPU tensor; the weight adjoint sums each head in
+// the tree order its plain version states. The results equal the plain
+// versions' bit for bit and repeat bit for bit. No float atomics.
 #include <climits>
 #include <cstdint>
 
@@ -709,41 +710,248 @@ __global__ void __launch_bounds__(kThreads) gss_bwd_mixed_kernel(
 }
 
 // ---- adjoint w.r.t. the per-slot weights -------------------------------------
-// dw[slot, h] = sum_{f in head h} mixed[p, pack_src, f] * g[p, db*R + pack_dst, f]
-// One warp per slot, lanes strided over the head's columns, then a fixed
-// shuffle tree. Padding slots get exact zeros.
-// Grid ceil(P*DB*EB / 8); block (32, 8).
-__global__ void __launch_bounds__(256) gss_bwd_w_kernel(
-    const float* __restrict__ mixed, const float* __restrict__ g,
-    const int* __restrict__ pack_src, const int* __restrict__ pack_dst,
-    float* __restrict__ dw, int P, int M, int F, int DB, int EB, int num_out,
-    int H, int dh, int rows) {
-  const int lane = threadIdx.x;
-  const long long slot = (long long)blockIdx.x * blockDim.y + threadIdx.y;
-  const long long per_split = (long long)DB * EB;
-  if (slot >= P * per_split) return;  // warp-uniform
-  const int p = (int)(slot / per_split);
-  const int db = (int)((slot % per_split) / EB);
-  const int row0 = db * rows;
-  const int row_end = min(rows, num_out - row0);
-  const int d = pack_dst[slot];
-  float* out = dw + slot * H;
-  if (d < 0 || d >= row_end) {
-    for (int h = lane; h < H; h += 32) out[h] = 0.f;
-    return;
+// dw[slot, h] = sum over head h's dh columns f of
+//               mixed[p, pack_src[slot], f] * g[p, db*R + pack_dst[slot], f]
+// in the order ref.gather_segsum_bwd_w_packed states: each product rounded
+// once; a head's columns cut into units of 4 (of 1 when dh % 4 != 0), each
+// unit's products added left to right; the head's n = dh/u unit partials,
+// padded with +0.0 to n2, the next power of two, added by a halving tree
+// (x[i] + x[i + n2/2], repeated). So dw equals the plain version's on a CPU
+// tensor bit for bit, and repeats bit for bit.
+// A block owns kRows destination rows of one pack block (grid (P*DB,
+// R/kRows)), stages the tile's indices and finds each row's run as gss_fwd
+// does, and warp w takes rows w, w + 8, ... . Lane l's unit in a lane group:
+//   n2 <= 32 ("narrow"): a head takes a group of n2 lanes, unit i = l % n2;
+//     32/n2 heads a slice, NQ slices a pass (NQ units a lane). The warp loads
+//     the row's cotangent units of a pass once, then for each kWIn slots of
+//     the run issues their source units' loads before using them. The tree
+//     is a reduce-scatter over the group (offsets n2/2, ..., 1; a lane sends
+//     half of its kWIn*NQ values at each level): at GAT's 64-column heads a
+//     group of 8 slots costs 15 shuffles, and each lane ends with one
+//     (slot, head) result, so the group's 8 slots x 4 heads are one store.
+//   n2 > 32 ("wide"): a head takes the whole warp, lane l its units l + 32k,
+//     k < n2/32. The in-lane halving tree over k is added as a pairwise sum
+//     over k in bit-reversed order (the same tree, streamed over the column
+//     chunks), then the butterfly 16, ..., 1. One slot at a time.
+// In the wide path lane 0 writes each head. Slots of rows at or
+// past num_out get exact zeros, and so does each tile's padding tail
+// (padding comes last in a pack block), in one coalesced fill shared by the
+// pack block's row-group blocks.
+constexpr int kWIn = 8;         // slots a narrow warp loads before using them
+constexpr int kTreeLevels = 20; // in-lane levels of a wide head: n2 <= 2^24
+
+// A lane's unit: 4 columns from ``col`` (kU4) or 1; zeros when ``on`` fails.
+template <bool kU4, bool kAligned>
+__device__ __forceinline__ Piece load_unit(const float* row, int col, bool on) {
+  Piece p;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) p.v[e] = 0.f;
+  if (!on) return p;
+  if (kU4 && kAligned) {
+    *reinterpret_cast<float4*>(&p) = __ldg(reinterpret_cast<const float4*>(row + col));
+  } else {
+#pragma unroll
+    for (int e = 0; e < (kU4 ? 4 : 1); ++e) p.v[e] = __ldg(row + col + e);
   }
-  const float* mrow = mixed + ((long long)p * M + pack_src[slot]) * F;
-  const float* grow = g + ((long long)p * num_out + row0 + d) * F;
-  for (int h = 0; h < H; ++h) {
-    float acc = 0.f;
-    for (int f = h * dh + lane; f < (h + 1) * dh; f += 32)
-      acc += mrow[f] * grow[f];
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(kFull, acc, off);
-    if (lane == 0) out[h] = acc;
+  return p;
+}
+
+// The unit's products added left to right (a zero unit gives +0.0).
+template <bool kU4>
+__device__ __forceinline__ float unit_dot(const Piece& m, const Piece& g) {
+  float s = __fmul_rn(m.v[0], g.v[0]);
+#pragma unroll
+  for (int e = 1; e < (kU4 ? 4 : 1); ++e) s = __fadd_rn(s, __fmul_rn(m.v[e], g.v[e]));
+  return s;
+}
+
+// Level L of the reduce-scatter over a lane group of n2 lanes (offset
+// n2 >> (L + 1)) while L < lg_n2: the lane keeps half of its V >> L values
+// and adds its partner's copy of that half. Every index is a constant.
+template <int V, int L>
+__device__ __forceinline__ void scatter_levels(float (&x)[V], int lane, int n2,
+                                               int lg_n2) {
+  if constexpr ((V >> L) > 1) {
+    if (L < lg_n2) {  // warp-uniform
+      constexpr int half = V >> (L + 1);
+      const int off = n2 >> (L + 1);
+      const bool up = lane & off;
+#pragma unroll
+      for (int i = 0; i < half; ++i) {
+        const float got = __shfl_xor_sync(kFull, up ? x[i] : x[i + half], off);
+        x[i] = __fadd_rn(up ? x[i + half] : x[i], got);
+      }
+      scatter_levels<V, L + 1>(x, lane, n2, lg_n2);
+    }
   }
 }
 
+template <int NQ, bool kU4, bool kAligned, bool kWide>
+__global__ void __launch_bounds__(kThreads) gss_bwd_w_kernel(
+    const float* __restrict__ mixed, const float* __restrict__ g,
+    const int* __restrict__ pack_src, const int* __restrict__ pack_dst,
+    float* __restrict__ dw, int M, int F, int DB, int EB, int num_out, int H,
+    int dh, int R, int lg_n2, bool idx_vec) {
+  __shared__ __align__(16) int s_dst[kTile];
+  __shared__ __align__(16) int s_src[kTile];
+  __shared__ int s_start[kRows];
+  __shared__ int s_end[kRows];
+  __shared__ int s_pad;  // the tile's first padding slot
+  constexpr int u = kU4 ? 4 : 1;
+  const int lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
+  const int blk = blockIdx.x;
+  const int p = blk / DB;
+  const int r_lo = blockIdx.y * kRows;
+  const int row0 = (blk % DB) * R + r_lo;
+  const long long slot0 = (long long)blk * EB;
+  const float* mp = mixed + (long long)p * M * F;
+  const int n = dh / u;        // units a head
+  const int n2 = 1 << lg_n2;   // padded to a power of two
+  for (int t0 = 0; t0 < EB; t0 += kTile) {
+    const int tn = min(kTile, EB - t0);
+    if (idx_vec) {
+      for (int i = threadIdx.x * 4; i < tn; i += kThreads * 4) {
+        cp_async(&s_dst[i], pack_dst + slot0 + t0 + i, 16);
+        cp_async(&s_src[i], pack_src + slot0 + t0 + i, 16);
+      }
+    } else {
+      for (int i = threadIdx.x; i < tn; i += kThreads) {
+        cp_async(&s_dst[i], pack_dst + slot0 + t0 + i, 4);
+        cp_async(&s_src[i], pack_src + slot0 + t0 + i, 4);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+    if (threadIdx.x < kRows) {
+      s_start[threadIdx.x] = 0;
+      s_end[threadIdx.x] = 0;
+    }
+    if (threadIdx.x == 0) s_pad = tn;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+    for (int i = threadIdx.x; i < tn; i += kThreads) {
+      const int d = s_dst[i];
+      const int r = d - r_lo;  // padding (>= R) lands past kRows
+      if (r >= 0 && r < kRows) {
+        if (i == 0 || s_dst[i - 1] != d) s_start[r] = i;
+        if (i == tn - 1 || s_dst[i + 1] != d) s_end[r] = i + 1;
+      }
+      if (d >= R && (i == 0 || s_dst[i - 1] < R)) s_pad = i;  // padding is last
+    }
+    __syncthreads();
+    float* tile_dw = dw + (slot0 + t0) * H;
+    {  // the padding tail's exact zeros, one coalesced share a row group
+      const long long lo = (long long)s_pad * H;
+      const long long part = ((long long)tn * H - lo + gridDim.y - 1) / gridDim.y;
+      const long long e1 = min((long long)tn * H, lo + part * (blockIdx.y + 1));
+      for (long long e = lo + part * blockIdx.y + threadIdx.x; e < e1; e += kThreads) {
+        tile_dw[e] = 0.f;
+      }
+    }
+    for (int r = warp; r < kRows; r += kWarps) {
+      const int a = s_start[r];
+      const int b = s_end[r];
+      if (a == b) continue;  // warp-uniform
+      const int row = row0 + r;
+      if (row >= num_out) {  // no cotangent row: exact zeros
+        for (long long e = (long long)a * H + lane; e < (long long)b * H; e += 32) tile_dw[e] = 0.f;
+        continue;
+      }
+      const float* grow = g + ((long long)p * num_out + row) * F;
+      if (kWide) {
+        const int lg_k = lg_n2 - 5;  // units a lane holds of a head: 2^lg_k
+        for (int j = a; j < b; ++j) {
+          const float* mrow = mp + (long long)s_src[j] * F;
+          for (int hq = 0; hq < H; ++hq) {
+            float st[kTreeLevels];
+            float v = 0.f;
+            for (int t = 0; t < (1 << lg_k); ++t) {
+              const int i = lane + 32 * (int)(__brev((unsigned)t) >> (32 - lg_k));
+              const int col = hq * dh + i * u;
+              v = unit_dot<kU4>(load_unit<kU4, kAligned>(mrow, col, i < n),
+                                load_unit<kU4, kAligned>(grow, col, i < n));
+#pragma unroll
+              for (int lv = 0; lv < kTreeLevels; ++lv) {  // pairwise, in t order
+                if (!((t >> lv) & 1)) {
+                  st[lv] = v;
+                  break;
+                }
+                v = __fadd_rn(st[lv], v);
+              }
+            }
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1) {
+              v = __fadd_rn(v, __shfl_xor_sync(kFull, v, off));
+            }
+            if (lane == 0) tile_dw[(long long)j * H + hq] = v;
+          }
+        }
+        continue;
+      }
+      const int hp = 32 / n2;       // heads a slice
+      const int gi = lane % n2;     // the lane's unit in its head
+      const int gh = lane / n2;     // the lane's head in a slice
+      for (int h0 = 0; h0 < H; h0 += NQ * hp) {
+        int col[NQ];
+        bool on[NQ];
+        Piece gu[NQ];
+#pragma unroll
+        for (int q = 0; q < NQ; ++q) {
+          const int hq = h0 + q * hp + gh;
+          on[q] = hq < H && gi < n;
+          col[q] = hq * dh + gi * u;
+          gu[q] = load_unit<kU4, kAligned>(grow, col[q], on[q]);
+        }
+        for (int j0 = a; j0 < b; j0 += kWIn) {
+          const int cnt = min(kWIn, b - j0);
+          // x[s * NQ + q]: slot s's unit partial in slice q (+0.0 past cnt)
+          constexpr int V = kWIn * NQ;
+          constexpr int lg_v = V == 16 ? 4 : V == 8 ? 3 : 0;
+          static_assert(V == 1 << lg_v, "8 or 16 values a lane");
+          float x[V];
+          {
+            Piece mu[kWIn][NQ];
+#pragma unroll
+            for (int s = 0; s < kWIn; ++s) {
+              const float* mrow = mp + (long long)s_src[j0 + min(s, cnt - 1)] * F;
+#pragma unroll
+              for (int q = 0; q < NQ; ++q) {
+                mu[s][q] = load_unit<kU4, kAligned>(mrow, col[q], on[q] && s < cnt);
+              }
+            }
+#pragma unroll
+            for (int s = 0; s < kWIn; ++s) {
+#pragma unroll
+              for (int q = 0; q < NQ; ++q) x[s * NQ + q] = unit_dot<kU4>(mu[s][q], gu[q]);
+            }
+          }
+          // each head's tree: the reduce-scatter, then plain levels once a
+          // lane holds one value (n2 > V)
+          scatter_levels<V, 0>(x, lane, n2, lg_n2);
+          const int lh = min(lg_n2, lg_v);  // the levels done by halving
+          for (int off = n2 >> (lh + 1); off > 0; off >>= 1) {  // one value left
+            x[0] = __fadd_rn(x[0], __shfl_xor_sync(kFull, x[0], off));
+          }
+          // the lane holds values base .. base + left - 1, each held by dup lanes
+          const int left = V >> lh;
+          const int dup = lg_n2 > lg_v ? n2 >> lg_v : 1;
+          if (gi % dup == 0) {
+            const int base = gi / dup * left;
+#pragma unroll
+            for (int i = 0; i < V; ++i) {
+              const int e = base + i;
+              const int hq = h0 + (e % NQ) * hp + gh;
+              if (i < left && e / NQ < cnt && hq < H) {
+                tile_dw[(long long)(j0 + e / NQ) * H + hq] = x[i];
+              }
+            }
+          }
+        }
+      }
+    }
+    __syncthreads();  // the staged tile is reused
+  }
+}
 
 // Instantiates kernel<NP, kWeighted, kAligned> for the runtime flags and
 // launches it with ``args``.
@@ -847,11 +1055,37 @@ int gss_bwd_w(const float* mixed, const float* g, const int* pack_src,
               const int* pack_dst, float* dw, int P, int M, int F, int DB,
               int EB, int num_out, int H, int dh, int rows,
               cudaStream_t stream) {
-  const dim3 block(32, 8);
-  const long long slots = (long long)P * DB * EB;
-  const unsigned grid = (unsigned)((slots + 7) / 8);
-  gss_bwd_w_kernel<<<grid, block, 0, stream>>>(
-      mixed, g, pack_src, pack_dst, dw, P, M, F, DB, EB, num_out, H, dh, rows);
+  if (P <= 0 || DB <= 0 || EB <= 0 || H <= 0) return 0;
+  if (rows % kRows != 0 || dh <= 0) return (int)cudaErrorInvalidValue;
+  const bool u4 = dh % 4 == 0;
+  const int n = u4 ? dh / 4 : dh;
+  int lg_n2 = 0;
+  while ((1 << lg_n2) < n) ++lg_n2;
+  if (lg_n2 - 5 >= kTreeLevels) return (int)cudaErrorInvalidValue;
+  const bool wide = lg_n2 > 5;
+  const int hp = wide ? 1 : 32 >> lg_n2;
+  const bool two = !wide && H > hp;  // two slices a pass
+  const bool aligned = u4 && aligned16(mixed) && aligned16(g);
+  const bool idx_vec = EB % 4 == 0 && aligned16(pack_src) && aligned16(pack_dst);
+  const dim3 grid(P * DB, rows / kRows);
+#define GSS_BWD_W(nq, u4_, al, wd)                                           \
+  gss_bwd_w_kernel<nq, u4_, al, wd><<<grid, kThreads, 0, stream>>>(          \
+      mixed, g, pack_src, pack_dst, dw, M, F, DB, EB, num_out, H, dh, rows,  \
+      lg_n2, idx_vec)
+  if (wide) {
+    if (!u4) GSS_BWD_W(1, false, false, true);
+    else if (aligned) GSS_BWD_W(1, true, true, true);
+    else GSS_BWD_W(1, true, false, true);
+  } else if (two) {
+    if (!u4) GSS_BWD_W(2, false, false, false);
+    else if (aligned) GSS_BWD_W(2, true, true, false);
+    else GSS_BWD_W(2, true, false, false);
+  } else {
+    if (!u4) GSS_BWD_W(1, false, false, false);
+    else if (aligned) GSS_BWD_W(1, true, true, false);
+    else GSS_BWD_W(1, true, false, false);
+  }
+#undef GSS_BWD_W
   return (int)cudaGetLastError();
 }
 

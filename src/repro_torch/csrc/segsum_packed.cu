@@ -20,12 +20,9 @@
 //      shared memory with cp.async (each of its row groups reads them; the
 //      later reads hit L2).
 //   2. It sorts the valid slots of its 32 rows by row, stably, in shared
-//      memory: warp w takes a contiguous run of 32-slot groups (skipping
-//      groups with no slot of the block's rows), counts each row's slots by
-//      __match_any_sync; one warp scans the (row, warp) counts into offsets;
-//      each warp then places its slots at offset + rank among equal rows.
-//      Integer arithmetic only, no atomics: the list keeps packed order
-//      within each row.
+//      memory (``packed::stage_and_sort``, shared with the packed edge
+//      softmax; integer arithmetic only, no atomics): the list keeps packed
+//      order within each row.
 //   3. Warp w owns rows w, w + 8, ... . For each row it issues the loads of
 //      up to 8 of the row's slots (one 16-byte piece a lane: at F = 128 f32
 //      one warp instruction reads a whole 512-byte row) before adding them,
@@ -48,10 +45,10 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kRows = 32;     // dst rows a block sums (one per lane in the scan)
-constexpr int kTile = 2048;   // local_dst entries staged at a time
+using packed::kRows;
+using packed::kThreads;
+using packed::kTile;
+using packed::kWarps;
 constexpr int kInFlight = 8;  // row loads a warp issues before adding them
 
 // elements of T in one lane's 16-byte piece
@@ -62,18 +59,6 @@ template <typename T>
 struct __align__(16) Piece {
   T v[kVec<T>];
 };
-
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  if (bytes == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-                 "l"(src));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-                 "l"(src));
-  }
-}
 
 // One lane's piece of a row: columns [col, col + VEC), masked past F.
 template <typename T, bool kAligned>
@@ -92,24 +77,6 @@ __device__ __forceinline__ Piece<T> load_piece(const T* __restrict__ row,
   return p;
 }
 
-// The slot key of lane's entry i of the staged tile: its row within the
-// block's 32 rows, or -1 (padding, another row group, or past the tile).
-__device__ __forceinline__ int slot_key(const int* idx, int i, int tn,
-                                        int r_lo) {
-  const int d = i < tn ? idx[i] - r_lo : -1;
-  return d >= 0 && d < kRows ? d : -1;
-}
-
-// dynamic shared memory: staged entries | row-sorted slots | per-(warp, row)
-// counts, then offsets | row offsets | row counts | f32 row sums (kRows, CW)
-struct Sort {
-  int idx[kTile];
-  int sorted[kTile];
-  int cnt[kWarps][kRows];
-  int row_off[kRows];
-  int row_cnt[kRows];
-};
-
 template <typename T, bool kAligned>
 __global__ void __launch_bounds__(kThreads) segsum_packed_kernel(
     const T* __restrict__ contrib, const int* __restrict__ local_dst,
@@ -117,8 +84,8 @@ __global__ void __launch_bounds__(kThreads) segsum_packed_kernel(
   constexpr int VEC = kVec<T>;
   constexpr int CW = 32 * VEC;  // columns a block covers
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  Sort& sm = *reinterpret_cast<Sort*>(smem_raw);
-  float* carry = reinterpret_cast<float*>(smem_raw + sizeof(Sort));
+  packed::Sort& sm = *reinterpret_cast<packed::Sort*>(smem_raw);
+  float* carry = reinterpret_cast<float*>(smem_raw + sizeof(packed::Sort));
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int db = blockIdx.x;
@@ -134,69 +101,8 @@ __global__ void __launch_bounds__(kThreads) segsum_packed_kernel(
 
   for (int t0 = 0; t0 < EB; t0 += kTile) {
     const int tn = min(kTile, EB - t0);
-    // 1. stage the tile's entries
-    if (idx_vec) {  // 16-byte copies: EB % 4 == 0 and local_dst aligned
-      for (int i = threadIdx.x * 4; i < tn; i += kThreads * 4) {
-        cp_async(&sm.idx[i], local_dst + block0 + t0 + i, 16);
-      }
-    } else {
-      for (int i = threadIdx.x; i < tn; i += kThreads) {
-        cp_async(&sm.idx[i], local_dst + block0 + t0 + i, 4);
-      }
-    }
-    asm volatile("cp.async.commit_group;\n" ::);
-    sm.cnt[warp][lane] = 0;
-    asm volatile("cp.async.wait_all;\n" ::: "memory");
-    __syncthreads();
-
-    // 2. stable counting sort of the block's rows' slots
-    const int groups = (tn + 31) / 32;
-    const int per_warp = (groups + kWarps - 1) / kWarps;
-    const int g0 = warp * per_warp;
-    const int g1 = min(groups, g0 + per_warp);
-    for (int g = g0; g < g1; ++g) {
-      const int key = slot_key(sm.idx, g * 32 + lane, tn, r_lo);
-      if (!__ballot_sync(packed::kFull, key >= 0)) continue;
-      const unsigned peers = __match_any_sync(packed::kFull, key);
-      if (key >= 0 && lane == __ffs(peers) - 1) {
-        sm.cnt[warp][key] += __popc(peers);
-      }
-      __syncwarp();
-    }
-    __syncthreads();
-    if (warp == 0) {  // lane = row: per-warp exclusive offsets, then rows
-      int total = 0;
-      for (int w = 0; w < kWarps; ++w) {
-        const int c = sm.cnt[w][lane];
-        sm.cnt[w][lane] = total;
-        total += c;
-      }
-      int incl = total;
-      for (int off = 1; off < 32; off <<= 1) {
-        const int up = __shfl_up_sync(packed::kFull, incl, off);
-        if (lane >= off) incl += up;
-      }
-      const int base = incl - total;
-      sm.row_off[lane] = base;
-      sm.row_cnt[lane] = total;
-      for (int w = 0; w < kWarps; ++w) sm.cnt[w][lane] += base;
-    }
-    __syncthreads();
-    const unsigned below = (1u << lane) - 1u;
-    for (int g = g0; g < g1; ++g) {
-      const int key = slot_key(sm.idx, g * 32 + lane, tn, r_lo);
-      if (!__ballot_sync(packed::kFull, key >= 0)) continue;
-      const unsigned peers = __match_any_sync(packed::kFull, key);
-      if (key >= 0) {
-        sm.sorted[sm.cnt[warp][key] + __popc(peers & below)] = g * 32 + lane;
-      }
-      __syncwarp();
-      if (key >= 0 && lane == __ffs(peers) - 1) {
-        sm.cnt[warp][key] += __popc(peers);
-      }
-      __syncwarp();
-    }
-    __syncthreads();
+    // 1-2. stage the tile's entries and sort the block's rows' slots
+    packed::stage_and_sort(sm, local_dst + block0 + t0, tn, r_lo, idx_vec);
 
     // 3. each warp sums its rows, kInFlight loads in flight
     if (active) {
@@ -252,7 +158,7 @@ __global__ void __launch_bounds__(kThreads) segsum_packed_kernel(
 
 template <typename T>
 size_t smem_bytes() {
-  return sizeof(Sort) + sizeof(float) * kRows * 32 * kVec<T>;
+  return sizeof(packed::Sort) + sizeof(float) * kRows * 32 * kVec<T>;
 }
 
 template <typename T, bool kAligned>

@@ -66,9 +66,11 @@ def edge_softmax_packed(logits_packed, local_dst, rows: int, edge_block: int):
     logits_packed (DB*EB, H) f32/bf16/f16; local_dst (DB*EB, 1) int32, R
     marking padding -> (DB*EB, H) in the input dtype, f32 math, the Pallas
     kernel's clamps. Bound by bytes: the valid logits and the indices once,
-    the output once. No atomics: each (row, head) max and sum is kept by one
-    thread, which walks the block's slots in packed order, so the result
-    repeats bit for bit.
+    the output once. A block sorts its 32 rows' slots of a pack block in
+    shared memory; a warp spreads a row's (slot, head) pairs over its lanes
+    and sums the exponentials in slot order and a fixed tree (no atomics),
+    so the result repeats bit for bit. Within 3e-5 of the plain version (the
+    card's ``expf`` is not the CPU's).
     """
     check_packed("logits_packed", logits_packed, local_dst, rows, edge_block)
     if logits_packed.device.type == "cpu":

@@ -210,9 +210,12 @@ def gather_segsum_bwd_w(mixed, g, pack_src, pack_dst, num_heads):
     (Pallas, repro/kernels/gather_segsum/kernel.py:293, ``_bwd_w_body``).
 
     mixed (P, M, F), g (P, num_out, F) -> (P, DB*EB, H) f32; padding slots
-    are exact zeros. Bound by bytes: one mixed row and one cotangent row per
-    valid slot. One warp per slot reduces each head's columns with a fixed
-    shuffle tree (deterministic by construction).
+    are exact zeros. Bound by bytes: one mixed row per valid slot, each
+    needed cotangent row once. A block stages a pack block's indices and
+    finds its 32 rows' runs as the forward does; a warp loads a row's
+    cotangent once and, 8 source rows in flight, adds each head in the
+    order ``ref.head_tree_sum`` states (a lane group's xor butterfly), so
+    the result equals the plain version's on a CPU tensor bit for bit.
     """
     _check("mixed", mixed, torch.float32, 3, mixed.device)
     _check("g", g, torch.float32, 3, mixed.device)

@@ -64,18 +64,50 @@ def gather_segsum_bwd_mixed_packed(g, pack_src, pack_dst, w, mem_rows):
     return out.index_add_(0, src, contrib).reshape(P, mem_rows, F)
 
 
+def head_tree_sum(prod, num_heads):
+    """(S, F) f32 products -> (S, H): each head's sum in one stated order.
+
+    1. A head's dh columns are cut into units of u = 4 columns (u = 1 when
+       dh % 4 != 0); a unit's products are added left to right.
+    2. The head's n = dh/u unit partials, padded with +0.0 to n2, the next
+       power of two, are added by a halving tree: x[i] + x[i + n2/2] for
+       i < n2/2, repeated until one value remains.
+
+    Each add is one rounded f32 add on its own (no ``.sum``, whose order is
+    the library's), so the result does not depend on the device or the
+    vector width; the CUDA kernel adds in the same order (a lane group's xor
+    butterfly is this tree) and its result equals this one bit for bit.
+    """
+    S, F = prod.shape
+    dh = F // num_heads
+    u = 4 if dh % 4 == 0 else 1
+    n = dh // u
+    x = prod.reshape(S, num_heads, n, u)
+    part = x[..., 0]
+    for e in range(1, u):
+        part = part + x[..., e]
+    n2 = 1 << (n - 1).bit_length()
+    if n2 > n:
+        part = torch.cat([part, part.new_zeros((S, num_heads, n2 - n))], dim=2)
+    while part.shape[2] > 1:
+        half = part.shape[2] // 2
+        part = part[:, :, :half] + part[:, :, half:]
+    return part[:, :, 0]
+
+
 def gather_segsum_bwd_w_packed(mixed, g, pack_src, pack_dst, num_heads):
     """dw[p, slot, h] = sum over head h's columns of mixed[p, pack_src] *
-    g[p, db*R + pack_dst]; padding slots are exact zeros: -> (P, DB*EB, H)."""
+    g[p, db*R + pack_dst], each product rounded once and the products added
+    in ``head_tree_sum``'s order; padding slots are exact zeros:
+    -> (P, DB*EB, H)."""
     P, M, F = mixed.shape
     num_out = g.shape[1]
     flat, p, db = _valid_slots(pack_dst)
     src = pack_src.reshape(-1)[flat].long() + p * M
     dst = pack_dst.reshape(-1)[flat].long() + db * R + p * num_out
     prod = mixed.reshape(P * M, F)[src] * g.reshape(P * num_out, F)[dst]
-    dw = prod.reshape(-1, num_heads, F // num_heads).sum(-1)
     out = mixed.new_zeros((pack_dst.numel(), num_heads))
-    out[flat] = dw
+    out[flat] = head_tree_sum(prod, num_heads)
     return out.reshape(P, -1, num_heads)
 
 

@@ -8,7 +8,9 @@ batch 1024, presample cut to 2 epochs), then times with ``torch.profiler``
 the forward at the input layer (F=128), the row adjoint's walk at layer 1
 and at the input layer, the row adjoint on a prebuilt walk at layer 1
 (F=256, unweighted) and at the input layer (F=256, GAT's four heads), and
-the weight adjoint at the input layer. Prints one JSON line per call: each
+the weight adjoint at the input layer, and beside it the packed segment
+sum (F=128) and edge softmax (H=4) on the input layer's edges, all P splits
+flattened as phase 3 packs them. Prints one JSON line per call: each
 kernel's name, its launches a call and its device ms a call. Needs a card.
 """
 from __future__ import annotations
@@ -16,13 +18,16 @@ from __future__ import annotations
 import argparse
 import json
 
+import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import build_split_plan, partition_graph, presample, repad_plan
 from repro_torch.graph.datasets import make_dataset
 from repro_torch.graph.sampling import NeighborSampler
+from repro_torch.kernels.edge_softmax import ops as es_ops
 from repro_torch.kernels.gather_segsum import kernel, ops
+from repro_torch.kernels.segsum import ops as ss_ops
 
 FANOUTS = [15, 15, 15]
 
@@ -48,6 +53,21 @@ def layer_pack(lp, P, dev):
     pack_src = ops._pack_src(torch.as_tensor(lp.edge_src, device=dev),
                              torch.as_tensor(lp.pack_perm, device=dev), pack_dst, M)
     return pack_src, pack_dst, M, num_out
+
+
+def packed_args(lp, P, dev, gen, width):
+    """(rows in packed order, local_dst, R, EB) of the input layer's edges,
+    all P splits flattened with dst offset by split (``chip_smoke.py``'s
+    ``packed_phase``), ``width`` random columns an edge."""
+    E = lp.edge_dst.shape[1]
+    num_out = lp.self_pos.shape[1]
+    dst = (np.arange(P)[:, None] * num_out + lp.edge_dst).reshape(-1)
+    pack = ss_ops.pack_edges(dst.astype(np.int32), lp.edge_mask.reshape(-1),
+                             P * num_out)
+    x = 3 * torch.randn(P * E, width, device=dev, generator=gen)
+    packed = ss_ops.gather_packed(x, pack["perm"]).contiguous()
+    return (packed, torch.as_tensor(pack["local_dst"], device=dev),
+            pack["rows"], pack["edge_block"])
 
 
 def per_kernel(fn, iters):
@@ -82,6 +102,8 @@ def main(argv=None) -> int:
     g_inp = torch.randn(P, inp[3], 256, device=dev, generator=gen)
     w = torch.randn(P, inp[1].shape[1] * inp[1].shape[2], 4, device=dev,
                     generator=gen)
+    summed = packed_args(plan.layers[-1], P, dev, gen, 128)
+    soft = packed_args(plan.layers[-1], P, dev, gen, 4)
     walk_hid = kernel.src_sorted_csr(hid[0], hid[1], hid[2], hid[3])
     walk_inp = kernel.src_sorted_csr(inp[0], inp[1], inp[2], inp[3])
     calls = {
@@ -97,6 +119,10 @@ def main(argv=None) -> int:
             g_inp, inp[0], inp[1], w, inp[2], walk_inp),
         "bwd_w, input layer, F=256, H=4": lambda: kernel.gather_segsum_bwd_w(
             mixed_w, g_inp, inp[0], inp[1], 4),
+        "segment_sum_packed, input layer, F=128": lambda: ss_ops.segment_sum_packed(
+            *summed),
+        "edge_softmax_packed, input layer, H=4": lambda: es_ops.edge_softmax_packed(
+            *soft),
     }
     for name, fn in calls.items():
         print(json.dumps({"call": name, "kernels": per_kernel(fn, args.iters)}),

@@ -5,10 +5,11 @@ CPU mode). The file imports no JAX, so it runs on a machine with a card:
 ``PYTHONPATH=src python -m pytest -m cuda tests/test_torch_cuda.py``.
 The gather_segsum forward and row adjoint (and the row adjoint's walk) are
 held bitwise against their plain versions on a CPU copy, where
-``index_add_`` adds in index order, the order the kernels sum in; the weight
-adjoint within 3e-4. The packed segment sum bitwise on a CPU copy, the
-packed softmax 3e-5, the wavefront expansion bitwise. Each kernel must also
-repeat bit for bit.
+``index_add_`` adds in index order, the order the kernels sum in; so is the
+weight adjoint, which sums each head in the tree order its plain version
+states. The packed segment sum bitwise on a CPU copy, the packed softmax
+3e-5, the wavefront expansion bitwise. Each kernel must also repeat bit for
+bit.
 """
 import copy
 
@@ -24,7 +25,6 @@ from repro_torch.sampler import kernel as wf_kernel
 from repro_torch.sampler import ref as wf_ref
 
 TOL = dict(rtol=3e-5, atol=3e-5)
-GRAD_TOL = dict(rtol=3e-4, atol=3e-4)
 R = layout.AGG_ROWS
 
 CASES = [
@@ -43,7 +43,15 @@ CASES = [
     (9, 3, 600, 50, 13, 300, 0.7, True),  # F = 13, repadded
     (10, 2, 50, 20, 130, 100, 0.0, False),  # no valid slot
     (11, 2, 3000, 30, 8, 500, 0.9, False),  # source runs of about 90 slots
+    (12, 2, 2000, 300, 512, 600, 0.8, False),  # two column chunks; 2 heads
 ]
+
+
+def _heads(F):
+    """GAT's heads for a case: 4 (one for an F that 4 does not divide), and
+    2 above 256 columns, whose 256-column heads take the weight adjoint's
+    wide path."""
+    return 1 if F % 4 else 2 if F > 256 else 4
 
 
 @pytest.fixture
@@ -91,13 +99,13 @@ def _unaligned(t):
 @pytest.mark.cuda
 @pytest.mark.parametrize("seed,P,E,M,F,N,keep,grow", CASES)
 def test_cuda_kernels_match_plain(cuda, seed, P, E, M, F, N, keep, grow):
-    """The forward and the row adjoint, weighted and not, equal their plain
-    versions on a CPU copy bit for bit (also on rows that start off a
-    16-byte boundary), and so do the row adjoint's walk arrays; every kernel
-    repeats bit for bit; the weight adjoint within 3e-4."""
+    """The forward, the row adjoint (weighted and not) and the weight
+    adjoint equal their plain versions on a CPU copy bit for bit (also on
+    rows that start off a 16-byte boundary), and so do the row adjoint's
+    walk arrays; every kernel repeats bit for bit."""
     pack_src, pd, num_out = _pack(seed, P, E, M, F, N, keep, grow, cuda)
     gen = torch.Generator(device=cuda).manual_seed(seed)
-    H = 1 if F % 4 else 4
+    H = _heads(F)
     mixed = torch.randn(P, M, F, device=cuda, generator=gen)
     w = torch.randn(P, pd.shape[1] * pd.shape[2], H, device=cuda, generator=gen)
     g = torch.randn(P, num_out, F, device=cuda, generator=gen)
@@ -127,9 +135,11 @@ def test_cuda_kernels_match_plain(cuda, seed, P, E, M, F, N, keep, grow):
         assert torch.equal(gm, kernel.gather_segsum_bwd_mixed(
             _unaligned(g), pack_src, pd, weights, M))
     gw = kernel.gather_segsum_bwd_w(mixed, g, pack_src, pd, H)
-    want = ref.gather_segsum_bwd_w_packed(mixed, g, pack_src, pd, H)
-    torch.testing.assert_close(gw, want, **GRAD_TOL)
+    want = _on_cpu(ref.gather_segsum_bwd_w_packed, mixed, g, pack_src, pd, H)
+    assert torch.equal(gw.cpu(), want)
     assert torch.equal(gw, kernel.gather_segsum_bwd_w(mixed, g, pack_src, pd, H))
+    assert torch.equal(gw, kernel.gather_segsum_bwd_w(
+        _unaligned(mixed), _unaligned(g), pack_src, pd, H))
 
 
 @pytest.mark.cuda
@@ -185,6 +195,10 @@ PACKED_CASES = [
     (2, 5, 8, 513, 0.9),  # many empty blocks
     (3, 4096, 4, 700, 0.5),  # GAT's 4 heads
     (4, 82000, 128, 16384, 0.8),  # papers-s input-layer size
+    (5, 3000, 1, 900, 0.8),  # one head: 32 slots a step
+    (6, 3000, 33, 900, 0.8),  # 33 heads: a second head chunk of one
+    (7, 6000, 4, 2, 0.9),  # rows of about 2700 slots, EB = 8192: four tiles
+    (8, 500, 4, 300, 0.0),  # no valid slot
 ]
 
 
@@ -260,6 +274,30 @@ def test_cuda_segment_sum_packed_bitwise(cuda, kind, R, dtype, F):
     assert ss_ops.LAUNCHES["segment_sum_packed"] == 1
     assert torch.equal(out.cpu(), want)
     assert torch.equal(out, ss_ops.segment_sum_packed(*args))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H", [4, 33])
+@pytest.mark.parametrize("kind,R", [("interleaved", 128), ("skewed", 128),
+                                    ("empty", 96)])
+def test_cuda_edge_softmax_packed_odd_packs(cuda, kind, R, H):
+    """The packed softmax on packs ``pack_edges`` never makes: padding
+    anywhere in a block, a row of 5000 slots over several 2048-slot tiles
+    (its max and sum carried across tiles), a block with no valid slot:
+    within 3e-5 of its plain version, padding slots exact zeros, and it
+    repeats bit for bit."""
+    rng = np.random.default_rng([R, H, *map(ord, kind)])
+    local, EB = _segsum_pack(kind, R, rng)
+    logits = torch.as_tensor(rng.normal(size=(local.shape[0], H)) * 3,
+                             dtype=torch.float32)
+    want = es_ops.edge_softmax_packed_ref(logits, torch.as_tensor(local), R, EB)
+    es_ops.reset_launches()
+    args = (logits.to(cuda), torch.as_tensor(local, device=cuda), R, EB)
+    alpha = es_ops.edge_softmax_packed(*args)
+    assert es_ops.LAUNCHES["edge_softmax_packed"] == 1
+    torch.testing.assert_close(alpha.cpu(), want, **TOL)
+    assert not alpha.cpu()[torch.as_tensor(local[:, 0] == R)].any()
+    assert torch.equal(alpha, es_ops.edge_softmax_packed(*args))
 
 
 def _tiny_device_samplers(cuda):

@@ -185,6 +185,79 @@ def test_fused_weighted_matches_jax_with_grads(grow):
         np.testing.assert_allclose(rt.numpy(), np.asarray(r), **TOL)
 
 
+def _lanes_head_sum(m, g, dh):
+    """One head's dot, added as the CUDA kernel's lanes add it, in float32
+    scalars: unit partials (4 columns left to right, or 1 column when
+    dh % 4 != 0); for n2 <= 32 padded units a group of n2 lanes, lane u
+    added to lane u + off at offsets n2/2, ..., 1 (the kernel's
+    reduce-scatter pairs them so); beyond, each of 32 lanes streams its
+    units l + 32k in bit-reversed k order through a pairwise stack, then the
+    same pairing over the 32 lanes."""
+    f32 = np.float32
+    u = 4 if dh % 4 == 0 else 1
+    n = dh // u
+    n2 = 1 << (n - 1).bit_length()
+
+    def unit(i):
+        if i >= n:
+            return f32(0.0)
+        s = f32(m[i * u] * g[i * u])
+        for e in range(1, u):
+            s = f32(s + f32(m[i * u + e] * g[i * u + e]))
+        return s
+
+    def butterfly(lanes):
+        off = len(lanes) // 2
+        while off:
+            lanes = [f32(lanes[l] + lanes[l ^ off]) for l in range(len(lanes))]
+            off //= 2
+        return lanes[0]
+
+    if n2 <= 32:
+        return butterfly([unit(i) for i in range(n2)])
+    lg_k = (n2 // 32).bit_length() - 1
+    lanes = []
+    for lane in range(32):
+        stack = {}
+        for t in range(1 << lg_k):
+            k = int(format(t, f"0{lg_k}b")[::-1], 2)
+            v, lv = unit(lane + 32 * k), 0
+            while (t >> lv) & 1:
+                v = f32(stack[lv] + v)
+                lv += 1
+            stack[lv] = v
+        lanes.append(v)
+    return butterfly(lanes)
+
+
+@pytest.mark.parametrize("dh", [1, 3, 8, 16, 64, 96, 130, 256])
+def test_bwd_w_plain_version_sums_in_the_stated_order(dh):
+    """The weight adjoint's plain version adds each head in one stated order
+    (``ref.head_tree_sum``): bitwise equal to a slot-by-slot evaluation as
+    the kernel's lanes add it, within 1e-6 of a float64 dot (relative to the
+    sum of the products' magnitudes), and padding slots exact zeros."""
+    H = 2
+    c = _case(dh, 2, 60, 20, H * dh, 40, 0.7)
+    g = c["rng"].normal(size=(2, c["num_out"], H * dh)).astype(np.float32)
+    pd = _t(c["pd"])
+    pack_src = ops._pack_src(_t(c["src"]), _t(c["pp"]), pd, 20)
+    dw = kernel.gather_segsum_bwd_w(_t(c["mixed"]), _t(g), pack_src, pd, H)
+    dw = dw.numpy().reshape(-1, H)
+    P, DB, EB = c["pd"].shape
+    flat_dst, flat_src = c["pd"].reshape(-1), pack_src.numpy().reshape(-1)
+    valid = flat_dst < R
+    assert valid.any() and not dw[~valid].any()
+    for s in np.flatnonzero(valid):
+        p, db = s // (DB * EB), (s // EB) % DB
+        m_row = c["mixed"][p, flat_src[s]]
+        g_row = g[p, db * R + flat_dst[s]]
+        for h in range(H):
+            cols = slice(h * dh, (h + 1) * dh)
+            prod = m_row[cols].astype(np.float64) * g_row[cols]
+            assert dw[s, h] == _lanes_head_sum(m_row[cols], g_row[cols], dh)
+            assert abs(dw[s, h] - prod.sum()) <= 1e-6 * np.abs(prod).sum()
+
+
 def test_repadded_plan_matches_jax():
     """On a real plan repadded to larger high-water marks (edge_src rebased,
     every pack axis grown), the port's fused mean equals the JAX fused mean
