@@ -31,7 +31,15 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               the kernels one call runs (the forward's must hold no
               ``searchsorted``). The wavefront
               expansion at the device sampler's largest launch (P*N rows of
-              the largest frontier cap, fan-out 15): bitwise. The packed
+              the largest frontier cap, fan-out 15): bitwise, beside an
+              empty kernel on the same grid (the launch floor). The
+              shuffle adjoint at layer 1 of the first papers-s batch (the
+              widest shuffle a gradient flows through) at the hidden width
+              (F=256): bitwise against its plain version on a CPU copy,
+              beside torch's own adjoint (``index_put_`` with accumulate);
+              its ``kernel_detail`` must name no
+              ``indexing_backward_kernel``. The same kernel as the self
+              rows' adjoint at layer 1 (one group), bitwise. The packed
               segment sum (F=128) and edge softmax (H=4) on the input layer's
               edges, all P splits flattened with dst offset by split: the
               sum bitwise against its plain version on a CPU copy in f32
@@ -80,7 +88,8 @@ Launch counts are set to 0 just before each trainer run and the serve run
 and read just after; a kernel of the run's path that was never launched
 fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
-adjoint's ``csr_builds``). The packed segment kernels run on no trainer path
+adjoint's ``csr_builds``) or whose shuffle-adjoint launches differ from its
+steps times the gathers a step differentiates (``SHUFFLE_BWD_PER_STEP``). The packed segment kernels run on no trainer path
 (``segment_ops``'s packed backend, which the model does not call): their
 counts come from one call of ``segment_ops.segment_sum``/``edge_softmax``
 with ``backend="packed"``, driven with the counts at 0. The last lines are
@@ -124,10 +133,19 @@ KERNELS = {
                             "src/repro/kernels/edge_softmax/kernel.py:61"),
     "flash_decode": ("flash_decode.cu",
                      "src/repro/kernels/flash_decode/kernel.py:61"),
+    # no Pallas kernel: the JAX package leaves this adjoint to XLA
+    "shuffle_bwd": ("shuffle_bwd.cu",
+                    "none: XLA's scatter-add, the adjoint of the gather at "
+                    "src/repro/core/shuffle.py:160"),
 }
 LIBRARIES = ("gather_segsum", "wavefront_expand", "segsum_packed",
-             "edge_softmax_packed", "flash_decode")
+             "edge_softmax_packed", "flash_decode", "shuffle_bwd")
 FANOUTS = (15, 15, 15)
+#: ``shuffle_bwd`` launches a training step makes: the shuffle's, one a
+#: layer but the input layer's (its rows take no gradient), and the self
+#: rows' (SAGE: likewise; GAT: every layer, whose weighted rows take one)
+SHUFFLE_BWD_PER_STEP = {"sage": 2 * (len(FANOUTS) - 1), "gcn": len(FANOUTS) - 1,
+                        "gat": 2 * len(FANOUTS) - 1}
 
 
 def counters():
@@ -140,9 +158,10 @@ def counters():
     from repro_torch.kernels.flash_decode import kernel as fd
     from repro_torch.kernels.gather_segsum import kernel as gss
     from repro_torch.kernels.segsum import ops as ss_ops
+    from repro_torch.kernels.shuffle import kernel as sh
     from repro_torch.sampler import kernel as wf
 
-    return (gss, wf, ss_ops, es_ops, fd)
+    return (gss, wf, ss_ops, es_ops, fd, sh)
 
 
 def reset_launches():
@@ -200,10 +219,14 @@ def device_ms(fn, iters=20, flush=None):
     def per_call(body):
         # the profiler now and then drops a window's kernels (none, or 19 of
         # 20 launches seen): each kernel must show a whole number of
-        # launches a call, or the window is taken again
-        for _ in range(3):
+        # launches a call, or the window is taken again. An empty window
+        # first takes in any records that arrive late from the one before.
+        seen = []
+        for _ in range(5):
             body()
             torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+                torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
                 for _ in range(iters):
                     body()
@@ -212,7 +235,8 @@ def device_ms(fn, iters=20, flush=None):
                    if e.device_type == torch.autograd.DeviceType.CUDA]
             if ran and all(e.count % iters == 0 for e in ran):
                 return sum(e.self_device_time_total for e in ran) / 1e3 / iters
-        check(False, "the profiler lost launches in three windows running")
+            seen.append({e.key[:60]: e.count for e in ran})
+        check(False, f"the profiler lost launches in five windows running: {seen}")
 
     if flush is None:
         return per_call(fn)
@@ -570,6 +594,79 @@ def wavefront_phase(dev, first, results):
     ops = valid_rows * fanout * (28 + (fanout - 1) / 2)
     record(results, "wavefront_expand", fn(), plain(), fn, plain, None,
            8 * rows + 16 + 4 * fanout * rows, ops, rate=INT32_OPS)
+    # the launch floor: an empty kernel on the same grid, timed the same ways
+    floor = lambda: wf.launch_floor(rows, fanout, dev)  # noqa: E731
+    detail = {"floor_ms": time_ms(floor), "floor_device_ms": device_ms(floor),
+              "floor_host_ms": host_ms(floor)}
+    results["wavefront_expand"].update(detail)
+    emit("kernel_detail", {"name": "wavefront_expand", **detail,
+                           "kernels": device_kernels(fn)})
+
+
+def shuffle_phase(dev, first, results):
+    """Phase 3, the shuffle adjoint at layer 1 of the first papers-s batch,
+    the widest shuffle a gradient flows through (the input layer's rows take
+    none), at the hidden width (F=256, GAT's four heads of 64 and SAGE's
+    hidden layer alike). The cotangent is zero at the padding slots, as on
+    the path. Bitwise against its plain version on a CPU copy; the library
+    call is torch's own adjoint of the gather (``index_put_`` with
+    accumulate, every padding slot walked), within 1e-6. Bound: bytes (the
+    output written once, the valid cotangent rows and their indices read
+    once)."""
+    import torch
+
+    from repro_torch.kernels.shuffle import kernel as sh
+    from repro_torch.kernels.shuffle import ref
+
+    lp = first.plan.layers[1]
+    P, _, S = lp.send_idx.shape
+    N, F = lp.n_local, 256
+    idx = torch.as_tensor(lp.send_idx, device=dev)
+    count = torch.as_tensor(lp.send_count, device=dev)
+    n_valid = int(lp.send_count.sum())
+    emit("kernel_shapes", {"shuffle_bwd": dict(
+        layer=1, P=P, N=N, S=S, F=F, slots=P * P * S, valid_slots=n_valid,
+        row0_padding_slots=[int(P * S - lp.send_count[q].sum()) for q in range(P)])})
+    gen = torch.Generator(device=dev).manual_seed(5)
+    valid = torch.arange(S, device=dev)[None, None, :] < count[:, :, None]
+    g = torch.randn(P, P, S, F, device=dev, generator=gen) * valid[..., None]
+    fn = lambda: sh.shuffle_bwd(g, idx, count, N)  # noqa: E731
+    plain = lambda: ref.shuffle_bwd(g, idx, count, N)  # noqa: E731
+    owner = torch.arange(P, device=dev)[:, None, None].expand(P, P, S)
+    rows = idx.long()
+    library = lambda: torch.zeros(P, N, F, device=dev).index_put_(  # noqa: E731
+        (owner, rows), g, accumulate=True)
+    out = fn()
+    torch.testing.assert_close(library(), out, rtol=1e-6, atol=1e-6)
+    record(results, "shuffle_bwd", out,
+           ref.shuffle_bwd(g.cpu(), idx.cpu(), count.cpu(), N).to(dev), fn, plain,
+           library, 4 * P * N * F + 4 * n_valid * (F + 1) + 4 * P * P, n_valid * F)
+    ran, lib_ran = device_kernels(fn), device_kernels(library)
+    emit("kernel_detail", {"name": "shuffle_bwd", "kernels": ran,
+                           "library_kernels": lib_ran, "bitwise_vs_cpu": True})
+    check(not any("indexing_backward" in k for k in ran),
+          f"shuffle_bwd runs torch's indexing adjoint: {ran}")
+
+    # the self rows' adjoint at layer 1: one group, the split's destinations
+    M = N + P * S
+    self_pos = torch.as_tensor(lp.self_pos, device=dev)[:, None, :].contiguous()
+    dst_count = torch.as_tensor(first.plan.node_count[1], device=dev)[:, None].contiguous()
+    n_dst = self_pos.shape[2]
+    live = torch.arange(n_dst, device=dev)[None, None, :] < dst_count[:, :, None]
+    g1 = torch.randn(P, 1, n_dst, F, device=dev, generator=gen) * live[..., None]
+    fn = lambda: sh.shuffle_bwd(g1, self_pos, dst_count, M)  # noqa: E731
+    plain = lambda: ref.shuffle_bwd(g1, self_pos, dst_count, M)  # noqa: E731
+    owner1 = torch.arange(P, device=dev)[:, None, None].expand_as(self_pos)
+    rows1 = self_pos.long()
+    library = lambda: torch.zeros(P, M, F, device=dev).index_put_(  # noqa: E731
+        (owner1, rows1), g1, accumulate=True)
+    out = fn()
+    torch.testing.assert_close(library(), out, rtol=1e-6, atol=1e-6)
+    n_live = int(first.plan.node_count[1].sum())
+    record(results, "shuffle_bwd", out,
+           ref.shuffle_bwd(g1.cpu(), self_pos.cpu(), dst_count.cpu(), M).to(dev),
+           fn, plain, library, 4 * P * M * F + 4 * n_live * (F + 1) + 4 * P,
+           n_live * F, shape=f"self rows, layer 1: P={P} M={M} N={n_dst} F={F}")
 
 
 def packed_phase(dev, first, results):
@@ -800,6 +897,9 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect):
     check(launches["src_sorted_csr"] == launches["gather_segsum_bwd_mixed"],
           f"{name}: {launches['src_sorted_csr']} walk builds for "
           f"{launches['gather_segsum_bwd_mixed']} row adjoints")
+    want = steps * SHUFFLE_BWD_PER_STEP[spec.model]
+    check(launches["shuffle_bwd"] == want,
+          f"{name}: {launches['shuffle_bwd']} shuffle_bwd launches, expected {want}")
     emit("run", {
         "name": name, "plan_source": cfg.plan_source, "setup_s": t_setup,
         "presample_s": tr.t_presample, "partition_s": tr.t_partition,
@@ -834,7 +934,7 @@ def device_source_phase(papers, cfg, dev):
     launches, tr, st = run_trainer(
         papers, GNNSpec(model="sage"), dcfg, dev, 3, "sage, device source",
         ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
-         "wavefront_expand"),
+         "shuffle_bwd", "wavefront_expand"),
     )
     stats = st.pipeline
     check(stats["sampler_batches"] - stats["sampler_fallbacks"] >= 1,
@@ -1234,6 +1334,7 @@ def main():
     results = {}
     kernel_phase(dev, first, results)
     wavefront_phase(dev, first, results)
+    shuffle_phase(dev, first, results)
     dst, mask, N = packed_phase(dev, first, results)
     flash_decode_phase(dev, results)
     total = dict.fromkeys(read_launches(), 0)
@@ -1244,7 +1345,8 @@ def main():
     papers = first.ds
     cfg = TrainConfig(num_devices=4, fanouts=FANOUTS, batch_size=1024,
                       presample_epochs=2)
-    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr")
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+            "shuffle_bwd")
     launches, _, _ = run_trainer(papers, GNNSpec(model="sage"), cfg, dev, 3,
                                  "sage", both)
     for k in total:

@@ -5,11 +5,15 @@ All P splits live on one device as a leading axis ``P``; the all-to-all is a
 transpose of the (owner, needer) axes. The mixed-frontier buffer is
 ``concat([local rows, recv rows])``; padding recv rows are never addressed by
 ``edge_src``, so their values are irrelevant (and receive zero cotangent).
+The send gather's adjoint is ``kernels/shuffle``'s (the CUDA kernel on the
+card), which reads only the valid slots of each (owner, needer) pair.
 The multi-GPU form (``all_to_all_single`` over NCCL) comes with a later slice.
 """
 from __future__ import annotations
 
 import torch
+
+from repro_torch.kernels.shuffle import send_gather
 
 #: dtypes a shuffled row may travel in. Rows are down-cast immediately
 #: before the all-to-all and up-cast to the compute dtype immediately after,
@@ -43,20 +47,24 @@ def sim_alltoall(send: torch.Tensor, wire_dtype: str | None = None) -> torch.Ten
 
 
 def sim_shuffle(
-    h: torch.Tensor, send_idx: torch.Tensor, wire_dtype: str | None = None
+    h: torch.Tensor,
+    send_idx: torch.Tensor,
+    wire_dtype: str | None = None,
+    *,
+    send_count: torch.Tensor,
 ) -> torch.Tensor:
     """Simulated all-to-all shuffle.
 
-    h        -- (P, N, F) local row blocks at the source depth
-    send_idx -- (P, P, S) int32 gather rows: [owner q, needer p, slot]
-    returns  -- (P, N + P*S, F) mixed buffers per device
+    h          -- (P, N, F) local row blocks at the source depth
+    send_idx   -- (P, P, S) int32 gather rows: [owner q, needer p, slot]
+    send_count -- (P, P) int32 true (unpadded) pair sizes: the send gather's
+                  adjoint (``kernels/shuffle``) reads only the valid slots
+    returns    -- (P, N + P*S, F) mixed buffers per device
     """
     P, N, F = h.shape
     S = send_idx.shape[-1]
     if S == 0:
         return h
-    # send[q, p, s, :] = h[q, send_idx[q, p, s], :]
-    owner = torch.arange(P, device=h.device)[:, None, None]
-    send = h[owner, send_idx.long()]  # (P, P, S, F)
+    send = send_gather(h, send_idx, send_count)  # (P, P, S, F)
     recv = sim_alltoall(send, wire_dtype)
     return torch.cat([h, recv.reshape(P, P * S, F)], dim=1)

@@ -21,6 +21,7 @@ from torch import nn
 from repro_torch.core.shuffle import sim_shuffle
 from repro_torch.kernels import segment_ops
 from repro_torch.kernels.gather_segsum import ops as gather_ops
+from repro_torch.kernels.shuffle import self_gather
 
 AGG_BACKENDS = ("fused", "torch")
 
@@ -174,10 +175,12 @@ def gnn_layer_apply(spec, layer_params, mixed, lp, num_out, is_last):
     """
     P = mixed.shape[0]
     split = torch.arange(P, device=mixed.device)[:, None]
-    self_pos = lp["self_pos"].long()
+    # the self rows, mixed[split, self_pos]: their adjoint reads only the
+    # valid destinations (kernels/shuffle)
+    self_pos, dst_count = lp["self_pos"], lp["dst_count"]
     if spec.model == "sage":
         agg = _agg_mean(spec, mixed, lp, num_out)
-        h_self = mixed[split, self_pos]
+        h_self = self_gather(mixed, self_pos, dst_count)
         out = h_self @ layer_params["w_self"] + agg @ layer_params["w_neigh"]
         out = out + layer_params["b"]
     elif spec.model == "gcn":
@@ -190,9 +193,9 @@ def gnn_layer_apply(spec, layer_params, mixed, lp, num_out, is_last):
         s_src = torch.einsum("pmhd,hd->pmh", wh, layer_params["a_src"])
         # dst scores from the N_i local destination rows only (self_pos), as
         # in the reference: one (N_i, H) table and a single (E, H) gather
-        s_dst_n = torch.einsum(
-            "pnhd,hd->pnh", wh[split, self_pos], layer_params["a_dst"]
-        )
+        wh_self = self_gather(wh.reshape(P, wh.shape[1], H * dh), self_pos,
+                              dst_count).reshape(P, num_out, H, dh)
+        s_dst_n = torch.einsum("pnhd,hd->pnh", wh_self, layer_params["a_dst"])
         logits = F.leaky_relu(
             s_src[split, lp["edge_src"].long()]
             + s_dst_n[split, lp["edge_dst"].long()],
@@ -231,7 +234,8 @@ def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle):
     for li in range(L - 1, -1, -1):
         lp = plan_arrays["layers"][li]
         num_out = lp["self_pos"].shape[-1]  # N_i
-        mixed = shuffle_fn(h, lp["send_idx"], spec.wire_dtype)  # (P, M, F)
+        mixed = shuffle_fn(h, lp["send_idx"], spec.wire_dtype,
+                           send_count=lp["send_count"])  # (P, M, F)
         h = gnn_layer_apply(
             spec, params[L - 1 - li], mixed, lp, num_out, is_last=(li == 0)
         )

@@ -10,8 +10,12 @@ and at the input layer, the row adjoint on a prebuilt walk at layer 1
 (F=256, unweighted) and at the input layer (F=256, GAT's four heads), and
 the weight adjoint at the input layer, and beside it the packed segment
 sum (F=128) and edge softmax (H=4) on the input layer's edges, all P splits
-flattened as phase 3 packs them. Prints one JSON line per call: each
-kernel's name, its launches a call and its device ms a call. Needs a card.
+flattened as phase 3 packs them, the device sampler's wavefront expansion at
+its largest launch (phase 3's shape), and the shuffle's forward and adjoint
+at layer 1 (F=256; the tree's own ``sim_shuffle`` under autograd, so a tree
+from before the shuffle kernel times torch's indexing adjoint). Prints one
+JSON line per call: each kernel's name, its launches a call and its device
+ms a call. Needs a card.
 """
 from __future__ import annotations
 
@@ -23,18 +27,23 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.core import build_split_plan, partition_graph, presample, repad_plan
+from repro_torch.core.shuffle import sim_shuffle
 from repro_torch.graph.datasets import make_dataset
 from repro_torch.graph.sampling import NeighborSampler
 from repro_torch.kernels.edge_softmax import ops as es_ops
 from repro_torch.kernels.gather_segsum import kernel, ops
 from repro_torch.kernels.segsum import ops as ss_ops
+from repro_torch.sampler import DeviceSampler
+from repro_torch.sampler import kernel as wf
+from repro_torch.sampler.engine import _sample_device, frontier_degrees
 
 FANOUTS = [15, 15, 15]
 
 
 def first_plan(seed=0):
     """The first papers-s batch's repadded split plan (``chip_smoke.py``'s
-    ``papers_first_batch``)."""
+    ``papers_first_batch``), and the wavefront expansion's inputs at its
+    largest launch (``chip_smoke.py``'s ``wavefront_phase``)."""
     ds = make_dataset("papers-s")
     w = presample(ds.graph, ds.train_ids, FANOUTS, 1024, num_epochs=2, seed=seed + 1)
     part = partition_graph(ds.graph, 4, method="gsplit", weights=w, seed=seed)
@@ -42,7 +51,16 @@ def first_plan(seed=0):
     targets = sampler.epoch_targets(0)[0]
     plan = build_split_plan(sampler.sample_batch(targets, 0, 0),
                             part.assignment, 4, pad_multiple=-1)
-    return repad_plan(plan, {})
+    eng = DeviceSampler(ds.graph, part.assignment, 4, tuple(FANOUTS), 0,
+                        host_sampler=sampler, device="cuda")
+    t_dev, keys = eng.device_inputs(targets, 0, 0)
+    fronts, counts, _, _ = _sample_device(eng._dev, t_dev, len(targets), keys,
+                                          caps=eng.caps_tuple(), fanouts=tuple(FANOUTS))
+    layer = max(range(len(FANOUTS)), key=lambda l: fronts[l].numel())
+    _, _, deg = frontier_degrees(eng._dev, fronts[layer], counts[layer])
+    expand = (fronts[layer].reshape(-1), deg.reshape(-1), keys[layer],
+              FANOUTS[layer])
+    return repad_plan(plan, {}), expand
 
 
 def layer_pack(lp, P, dev):
@@ -91,7 +109,7 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         raise SystemExit("profile_gather: needs a CUDA card")
     dev = torch.device("cuda:0")
-    plan = first_plan()
+    plan, expand = first_plan()
     P = plan.num_devices
     inp = layer_pack(plan.layers[-1], P, dev)
     hid = layer_pack(plan.layers[1], P, dev)
@@ -104,6 +122,23 @@ def main(argv=None) -> int:
                     generator=gen)
     summed = packed_args(plan.layers[-1], P, dev, gen, 128)
     soft = packed_args(plan.layers[-1], P, dev, gen, 4)
+    lp1 = plan.layers[1]
+    send_idx = torch.as_tensor(lp1.send_idx, device=dev)
+    send_count = torch.as_tensor(lp1.send_count, device=dev)
+    h1 = torch.randn(P, lp1.n_local, 256, device=dev, generator=gen,
+                     requires_grad=True)
+    cot1 = torch.randn(P, hid[2], 256, device=dev, generator=gen)
+    cot1[:, lp1.n_local:] *= (  # zero at the padding receive rows, as on the path
+        torch.arange(send_idx.shape[2], device=dev)[None, None, :]
+        < send_count.T[:, :, None]).reshape(P, -1, 1)
+
+    def shuffle_fwd_bwd():
+        try:
+            mixed = sim_shuffle(h1, send_idx, send_count=send_count)
+        except TypeError:  # a tree from before the shuffle kernel
+            mixed = sim_shuffle(h1, send_idx)
+        return torch.autograd.grad(mixed, h1, cot1)
+
     walk_hid = kernel.src_sorted_csr(hid[0], hid[1], hid[2], hid[3])
     walk_inp = kernel.src_sorted_csr(inp[0], inp[1], inp[2], inp[3])
     calls = {
@@ -123,6 +158,8 @@ def main(argv=None) -> int:
             *summed),
         "edge_softmax_packed, input layer, H=4": lambda: es_ops.edge_softmax_packed(
             *soft),
+        "wavefront_expand, largest launch": lambda: wf.wavefront_expand(*expand),
+        "shuffle fwd + bwd, layer 1, F=256": shuffle_fwd_bwd,
     }
     for name, fn in calls.items():
         print(json.dumps({"call": name, "kernels": per_kernel(fn, args.iters)}),

@@ -2,7 +2,7 @@
 steady steps of the main path.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--model sage] [--steps 2]
-        [--plan-source serial|device]
+        [--plan-source serial|device] [--shapes]
 
 Builds the papers-s trainer of ``chip_smoke.py``'s main path (SAGE 128 ->
 256 -> 256 -> 16, fan-outs 15,15,15, batch 1024, P=4, presample cut to 2
@@ -11,7 +11,12 @@ one warm-up step, then profiles ``--steps`` steps with CPU
 and CUDA activities. Prints the top operators by device time, then one JSON
 line: the host wall time of the profiled steps, the device time summed over
 kernels and copies, the device idle share over the window, and a step's
-top-level torch calls and device operations (kernels, copies, memsets). Needs a card.
+top-level torch calls and device operations (kernels, copies, memsets), and
+the device time of torch's indexing adjoint (``indexing_backward_kernel``) and
+of the port's shuffle adjoint (``shuffle_bwd``). ``--shapes`` records input
+shapes (at some host cost) and splits the indexing adjoints' device time by
+the shapes of their ``index_put`` calls, which tells the shuffle's (values
+(P, P, S, F)) from the other gathers'. Needs a card.
 """
 from __future__ import annotations
 
@@ -27,11 +32,32 @@ from repro_torch.models.gnn import GNNSpec
 from repro_torch.train.trainer import TrainConfig, Trainer
 
 
+def index_put_by_shape(prof) -> list:
+    """[input shapes, calls, device ms] of the outermost ``index_put`` calls
+    (the adjoint of an advanced-index gather), grouped by input shapes,
+    largest device time first."""
+    groups: dict = {}
+    for e in prof.events():
+        if "index_put" not in e.name:
+            continue
+        parent = e.cpu_parent
+        while parent is not None and "index_put" not in parent.name:
+            parent = parent.cpu_parent
+        if parent is not None:
+            continue
+        key = f"{e.name} {e.input_shapes}"
+        calls, us = groups.get(key, (0, 0.0))
+        groups[key] = (calls + 1, us + e.device_time_total)
+    return sorted(([k, c, us / 1e3] for k, (c, us) in groups.items()),
+                  key=lambda row: -row[2])
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="sage", choices=("sage", "gcn", "gat"))
     ap.add_argument("--steps", type=int, default=2)
     ap.add_argument("--plan-source", default="serial", choices=("serial", "device"))
+    ap.add_argument("--shapes", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
@@ -40,7 +66,8 @@ def main(argv=None) -> int:
     tr = Trainer(make_dataset("papers-s"), GNNSpec(model=args.model), cfg)
     tr.train_epoch(max_iters=1)  # warm-up: library init, allocator growth
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=args.shapes) as prof:
         t0 = time.perf_counter()
         stats = tr.train_epoch(max_iters=args.steps)
         torch.cuda.synchronize()
@@ -59,6 +86,11 @@ def main(argv=None) -> int:
                 and e.device_type == torch.autograd.DeviceType.CPU)
     device_ops = sum(e.count for e in events
                      if e.device_type == torch.autograd.DeviceType.CUDA)
+
+    def kernel_ms(part):
+        return sum(e.self_device_time_total for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and part in e.key) / 1e3
     print(json.dumps({"profile": {
         "model": args.model,
         "plan_source": args.plan_source,
@@ -72,8 +104,12 @@ def main(argv=None) -> int:
         "compute_ms": 1e3 * sum(i.t_compute for i in stats.iters),
         "torch_calls_per_step": calls / max(len(stats.iters), 1),
         "device_ops_per_step": device_ops / max(len(stats.iters), 1),
+        "indexing_backward_ms": kernel_ms("indexing_backward"),
+        "shuffle_bwd_ms": kernel_ms("shuffle_bwd"),
         "device": torch.cuda.get_device_name(0),
     }}))
+    if args.shapes:
+        print(json.dumps({"index_put_by_shape": index_put_by_shape(prof)}))
     return 0
 
 

@@ -6,8 +6,9 @@ For a CUDA tensor it launches the kernel or raises; for a CPU tensor it runs
 the plain version (``ref.expand_codes``), the only reason it ever does.
 Launches are counted in ``LAUNCHES``. Bound on the card: bytes (8 read and
 ``4 * fanout`` written a row), with the integer work (about 28 ops a slot
-of a valid row, plus the dedup compares) close behind; no row-block
-padding is needed.
+of a valid row, plus the dedup compare) close behind; no row-block
+padding is needed. ``launch_floor`` launches an empty kernel on the same
+grid, the floor the kernel's time is read against.
 """
 from __future__ import annotations
 
@@ -21,8 +22,12 @@ from repro_torch.sampler import ref
 #: CUDA kernel counts, never a plain-version call
 LAUNCHES = {"wavefront_expand": 0}
 
-# vid, deg, key, out, B, fanout, stream
-_SIGNATURES = {"wavefront_expand": [PTR] * 4 + [INT] * 2 + [PTR]}
+_SIGNATURES = {
+    # vid, deg, key, out, B, fanout, stream
+    "wavefront_expand": [PTR] * 4 + [INT] * 2 + [PTR],
+    # B, fanout, stream
+    "wavefront_expand_floor": [INT] * 2 + [PTR],
+}
 
 
 def reset_launches() -> None:
@@ -56,3 +61,11 @@ def wavefront_expand(vid, deg, key, fanout: int) -> torch.Tensor:
     raise_on(rc, "wavefront_expand")
     LAUNCHES["wavefront_expand"] += 1
     return out
+
+
+def launch_floor(B: int, fanout: int, device) -> None:
+    """Launch an empty kernel on the grid ``wavefront_expand`` launches for
+    (B, fanout): a measurement of the launch floor (not counted)."""
+    rc = typed_library("wavefront_expand", _SIGNATURES).wavefront_expand_floor(
+        B, fanout, stream(torch.device(device)))
+    raise_on(rc, "wavefront_expand_floor")

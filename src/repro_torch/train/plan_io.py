@@ -19,15 +19,20 @@ def _mask(a: np.ndarray, device) -> torch.Tensor:
 def plan_to_device(plan: SplitPlan, device) -> dict:
     """A SplitPlan as a dict of device tensors (indices int32), with the JAX
     package's keys: ``layers`` (one dict per layer, by dst depth),
-    ``target_mask`` and ``input_mask``."""
+    ``target_mask`` and ``input_mask``. Each layer also carries the true
+    sizes its gathers' adjoints read: ``send_count`` (P, P) and
+    ``dst_count`` (P,)."""
     layers = []
-    for lp in plan.layers:
+    for i, lp in enumerate(plan.layers):
         layers.append({
             "edge_src": _idx(lp.edge_src, device),
             "edge_dst": _idx(lp.edge_dst, device),
             "edge_mask": _mask(lp.edge_mask, device),
             "send_idx": _idx(lp.send_idx, device),
+            "send_count": _idx(lp.send_count, device),
             "self_pos": _idx(lp.self_pos, device),
+            # valid destination rows per split (depth i): the self rows
+            "dst_count": _idx(plan.node_count[i], device),
             # dst-sorted layout for the fused aggregation kernels
             "pack_perm": _idx(lp.pack_perm, device),
             "pack_dst": _idx(lp.pack_dst, device),

@@ -8,8 +8,8 @@ held bitwise against their plain versions on a CPU copy, where
 ``index_add_`` adds in index order, the order the kernels sum in; so is the
 weight adjoint, which sums each head in the tree order its plain version
 states. The packed segment sum bitwise on a CPU copy, the packed softmax
-3e-5, the wavefront expansion bitwise. Each kernel must also repeat bit for
-bit.
+3e-5, the wavefront expansion bitwise, the shuffle adjoint bitwise on a CPU
+copy. Each kernel must also repeat bit for bit.
 """
 import copy
 
@@ -21,6 +21,9 @@ from repro_torch.core.splitting import pad_axis_fill
 from repro_torch.kernels.edge_softmax import ops as es_ops
 from repro_torch.kernels.gather_segsum import kernel, layout, ops, ref
 from repro_torch.kernels.segsum import ops as ss_ops
+from repro_torch.kernels.shuffle import kernel as sh_kernel
+from repro_torch.kernels.shuffle import send_gather
+from repro_torch.kernels.shuffle import ref as sh_ref
 from repro_torch.sampler import kernel as wf_kernel
 from repro_torch.sampler import ref as wf_ref
 
@@ -162,15 +165,20 @@ def test_cuda_trainer_matches_cpu(cuda, model):
     for dev in ("cpu", cuda):
         tr = Trainer(ds, spec, cfg, device=dev, model=copy.deepcopy(model0))
         kernel.reset_launches()
+        sh_kernel.reset_launches()
         losses[str(dev)] = [s.loss for s in tr.train_epoch(max_iters=3).iters]
     np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    # a step's shuffle_bwd launches: the shuffle's (one: the input layer's
+    # rows take no gradient) and the self rows' (SAGE: one; GAT: both
+    # layers, whose weighted rows take a gradient)
+    assert sh_kernel.LAUNCHES["shuffle_bwd"] == 3 * {"sage": 2, "gcn": 1, "gat": 3}[model]
     assert kernel.LAUNCHES["gather_segsum_fwd"] > 0
     assert kernel.LAUNCHES["gather_segsum_bwd_mixed"] > 0
     assert (kernel.LAUNCHES["gather_segsum_bwd_w"] > 0) == (model == "gat")
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("fanout", [1, 4, 15, 32, 33, 70])
+@pytest.mark.parametrize("fanout", [1, 4, 15, 16, 17, 31, 32, 33, 64, 70])
 def test_cuda_wavefront_expand_bitwise(cuda, fanout):
     rng = np.random.default_rng(fanout)
     B = 1000  # not a multiple of 128: the kernel needs no row padding
@@ -186,6 +194,90 @@ def test_cuda_wavefront_expand_bitwise(cuda, fanout):
     assert torch.equal(out, want)
     assert torch.equal(out, wf_kernel.wavefront_expand(vid, deg, key, fanout))
     assert wf_kernel.LAUNCHES["wavefront_expand"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 37, 4133, "wrap"])
+@pytest.mark.parametrize("fanout", [1, 4, 15, 16, 17, 31, 32, 33, 64])
+def test_cuda_wavefront_expand_degree_edges(cuda, fanout, B):
+    """Degrees at every branch of the expansion (invalid row, self-loop, one
+    neighbour, take-all at the fan-out, sampling just above it and at the
+    largest int32), B not a multiple of a block's rows (16 times the rows a
+    warp takes, 32 // fanout; 8 rows above fan-out 32), and ("wrap") a few
+    rows more than the persistent grid (8 blocks an SM) covers in one pass,
+    so its grid-stride loop comes round."""
+    if B == "wrap":
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        B = sms * 8 * (16 * (32 // fanout) if fanout <= 32 else 8) + 5
+    rng = np.random.default_rng(1000 * fanout + B)
+    degs = np.array([-1, 0, 1, fanout, fanout + 1, 2**31 - 1], dtype=np.int64)
+    deg = torch.as_tensor(rng.choice(degs, B).astype(np.int32), device=cuda)
+    vid = torch.as_tensor(rng.integers(0, 2**31 - 1, B).astype(np.int32),
+                          device=cuda)
+    key = torch.as_tensor(rng.integers(0, 2**32, 2), dtype=torch.int64,
+                          device=cuda)
+    out = wf_kernel.wavefront_expand(vid, deg, key, fanout)
+    assert torch.equal(out, wf_ref.expand_codes(vid, deg, key[0], key[1], fanout))
+    assert torch.equal(out, wf_kernel.wavefront_expand(vid, deg, key, fanout))
+
+
+SHUFFLE_CASES = [
+    # seed, P, Q, N, S, F, padding (Q = P: the shuffle; Q = 1: self rows)
+    (0, 4, 4, 4096, 1024, 256, "zero"),  # papers-s layer 1 at the hidden width
+    (1, 4, 4, 1024, 256, 256, "random"),  # padding slots hold random rows
+    (2, 4, 4, 1000, 300, 13, "zero"),  # F not a multiple of 4; N not of 32
+    (14, 2, 2, 37, 5, 4, "random"),
+    (4, 8, 8, 513, 64, 64, "zero"),  # 8 splits
+    (5, 1, 1, 100, 20, 8, "zero"),  # one split: nothing is ever sent
+    (6, 3, 3, 70, 0, 16, "zero"),  # S = 0
+    (7, 4, 4, 64, 64, 130, "zero"),  # every row sent to every needer
+    (8, 4, 1, 8192, 1024, 256, "zero"),  # self rows, papers-s layer 1
+    (9, 3, 1, 300, 200, 16, "random"),  # self rows, GAT's last width
+    (10, 2, 32, 100, 10, 8, "zero"),  # the most groups an owner may have
+]
+
+
+def _shuffle_case(seed, P, Q, N, S, F, padding, device):
+    """(g, send_idx, send_count): each pair's valid slots hold distinct rows
+    in ascending order; the diagonal and some other pairs send nothing;
+    padding slots hold row 0 or random rows, and random cotangents."""
+    rng = np.random.default_rng(seed)
+    count = rng.integers(0, min(S, N) + 1, size=(P, Q)).astype(np.int32)
+    count[rng.random((P, Q)) < 0.2] = 0
+    if seed == 7:
+        count[:] = S
+    if Q == P:
+        count[np.arange(P), np.arange(P)] = 0
+    idx = (rng.integers(0, N, size=(P, Q, S)) if padding == "random"
+           else np.zeros((P, Q, S))).astype(np.int32)
+    for q in range(P):
+        for p in range(Q):
+            c = count[q, p]
+            idx[q, p, :c] = np.sort(rng.choice(N, size=c, replace=False))
+    g = rng.normal(size=(P, Q, S, F)).astype(np.float32)
+    return (torch.as_tensor(g, device=device), torch.as_tensor(idx, device=device),
+            torch.as_tensor(count, device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,P,Q,N,S,F,padding", SHUFFLE_CASES)
+def test_cuda_shuffle_bwd_bitwise(cuda, seed, P, Q, N, S, F, padding):
+    """The shuffle adjoint bitwise against its plain version on a CPU copy,
+    repeating, and through the differentiable send gather."""
+    g, idx, count = _shuffle_case(seed, P, Q, N, S, F, padding, cuda)
+    sh_kernel.reset_launches()
+    out = sh_kernel.shuffle_bwd(g, idx, count, N)
+    want = sh_ref.shuffle_bwd(g.cpu(), idx.cpu(), count.cpu(), N)
+    assert torch.equal(out.cpu(), want)
+    assert torch.equal(out, sh_kernel.shuffle_bwd(g, idx, count, N))
+    assert sh_kernel.LAUNCHES["shuffle_bwd"] == 2
+    # unaligned rows take the kernel's scalar path
+    g_off = torch.empty(g.numel() + 1, device=cuda)[1:].view(g.shape).copy_(g)
+    assert torch.equal(out, sh_kernel.shuffle_bwd(g_off, idx, count, N))
+    h = torch.randn(P, N, F, device=cuda, requires_grad=True)
+    send = send_gather(h, idx, count)
+    (gh,) = torch.autograd.grad(send, h, g)
+    assert torch.equal(gh, out)
 
 
 PACKED_CASES = [

@@ -132,6 +132,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "src/repro_torch/kernels/segsum/ops.py",
         "src/repro_torch/kernels/edge_softmax/ops.py",
         "src/repro_torch/kernels/flash_decode/kernel.py",
+        "src/repro_torch/kernels/shuffle/kernel.py",
+        "src/repro_torch/kernels/shuffle/ops.py",
+        "src/repro_torch/kernels/shuffle/ref.py",
         "src/repro_torch/models/transformer/model.py",
         "src/repro_torch/configs/smollm_135m.py",
         "src/repro_torch/serve.py",
