@@ -53,17 +53,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               in L2.
 4. main    -- the trainer's main path at full width: papers-s, SAGE (128 ->
               256 -> 256 -> 16), fan-outs 15,15,15, batch 1024, P=4 splits in
-              sim form; one epoch (3 steps). Presampling is cut to 2 epochs.
+              sim form; 3 epochs of 3 steps on the serial plan source and on
+              the pipelined one (2 producer threads), whose losses must be
+              bitwise equal. Each run emits every step's wait, staging and
+              sync ms, each epoch's wall and its source's stats (queue
+              occupancy, signature hit rate). Presampling is cut to 2 epochs.
+4b. staging -- ``python -m repro_torch.profile_step --plan-source
+              pipelined`` in a process of its own: one ``torch.profiler``
+              window of two steady pipelined SAGE steps. Fails if a pageable
+              host-to-device copy (``Memcpy HtoD (Pageable -> Device)``)
+              falls in it or if a step makes other than two pinned ones;
+              emits the pinned copies' count and device ms a step, and the
+              window's device idle share.
 5. models  -- GCN and GAT (4 heads) take 2 steps each at the same widths.
 6. parity  -- tiny graph, 2 layers, hidden 64: 3 steps on the card (kernels)
               and on the CPU (plain versions) from the same weights agree to
               rtol 1e-4, for all three models.
-7. device source -- the main path's SAGE run with ``plan_source="device"``:
-              sampling on the card (the cooperative sampler and its
-              wavefront kernel), one epoch (3 steps). Fails unless a batch was
-              sampled on the card without a fallback, and unless the
-              wavefront launches equal the layers times the device sampling
-              runs. The card's ``sample_batch(targets, 0, 0)`` is held
+7. device source -- the main path's SAGE run with ``plan_source="device"``
+              and ``"device_pipelined"`` (producer threads sampling on streams
+              of their own): sampling on the card (the cooperative sampler and
+              its wavefront kernel), 3 epochs of 3 steps each, bitwise equal
+              losses. Fails unless a batch was sampled on the card without a
+              fallback, and unless the wavefront launches equal the layers
+              times the device sampling runs, for both sources. The card's ``sample_batch(targets, 0, 0)`` is held
               bitwise against a ``DeviceSampler`` on the CPU (plain versions)
               with the same shards and caps, and one ``_sample_device`` call
               runs under ``torch.cuda.set_sync_debug_mode("error")``, before
@@ -83,6 +95,16 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 10. serve parity -- reduced SmolLM (2 layers, f32) from the same weights:
               prefill and 8 decode steps on the card and on the CPU agree to
               rtol/atol 1e-4 at every step, with equal greedy tokens.
+11. faults -- SAGE on ``device_pipelined`` with ``plan_retries=2``: a
+              transient fault (twice) and a producer crash must leave the
+              losses bitwise equal to phase 7's clean run; a build delayed
+              past ``stall_timeout_s`` must raise ``PipelineStallError``
+              naming its index; with ``skip_nonfinite`` a poisoned batch must
+              leave params and optimizer state bitwise as they were, with
+              ``nonfinite_skips == 1``.
+12. tracing -- phase 4's pipelined run again with ``obs_trace`` and
+              ``obs_path`` under ``build/``: bitwise equal losses, a trace
+              that ``validate_trace`` passes, and its stall-class summary.
 
 Launch counts are set to 0 just before each trainer run and the serve run
 and read just after; a kernel of the run's path that was never launched
@@ -98,6 +120,7 @@ the ``kernels`` JSON, the nvidia-smi line and the result line.
 import contextlib
 import copy
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -872,9 +895,11 @@ def flash_decode_phase(dev, results):
                           fd.DTYPES[q.dtype], D, D) else "fma"})
 
 
-def run_trainer(ds, spec, cfg, dev, steps, name, expect):
-    """One trainer run with launch counts set to 0 just before and read just
-    after; fails if a kernel the path needs was never launched."""
+def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
+    """One trainer run of ``epochs`` epochs of ``steps`` steps, with launch
+    counts set to 0 just before and read just after; fails if a kernel the
+    path needs was never launched. Returns the launches, the trainer, the
+    last epoch's stats and every step's loss."""
     import numpy as np
     import torch
 
@@ -886,10 +911,13 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    st = tr.train_epoch(max_iters=steps)
+    epoch_stats = [tr.train_epoch(max_iters=steps) for _ in range(epochs)]
     launches = read_launches()
-    losses = [it.loss for it in st.iters]
-    check(len(losses) == steps, f"{name}: {len(losses)} steps, expected {steps}")
+    st = epoch_stats[-1]
+    iters = [it for e in epoch_stats for it in e.iters]
+    losses = [it.loss for it in iters]
+    check(len(losses) == steps * epochs,
+          f"{name}: {len(losses)} steps, expected {steps * epochs}")
     check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
     for k in expect:
         check(launches[k] > 0, f"{name}: kernel {k} was never launched")
@@ -897,30 +925,39 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect):
     check(launches["src_sorted_csr"] == launches["gather_segsum_bwd_mixed"],
           f"{name}: {launches['src_sorted_csr']} walk builds for "
           f"{launches['gather_segsum_bwd_mixed']} row adjoints")
-    want = steps * SHUFFLE_BWD_PER_STEP[spec.model]
+    want = len(iters) * SHUFFLE_BWD_PER_STEP[spec.model]
     check(launches["shuffle_bwd"] == want,
           f"{name}: {launches['shuffle_bwd']} shuffle_bwd launches, expected {want}")
     emit("run", {
         "name": name, "plan_source": cfg.plan_source, "setup_s": t_setup,
         "presample_s": tr.t_presample, "partition_s": tr.t_partition,
         "losses": losses,
+        "epochs": epochs, "steps_per_epoch": steps,
+        # a step's host stages, on the producer thread when pipelined
         "step_ms": [1e3 * (it.t_sample + it.t_split + it.t_load + it.t_compute)
-                    for it in st.iters],
-        "compute_ms": [1e3 * it.t_compute for it in st.iters],
-        "sample_ms": [1e3 * it.t_sample for it in st.iters],
-        "split_ms": [1e3 * it.t_split for it in st.iters],
-        "load_ms": [1e3 * it.t_load for it in st.iters],
+                    for it in iters],
+        "compute_ms": [1e3 * it.t_compute for it in iters],
+        "sample_ms": [1e3 * it.t_sample for it in iters],
+        "split_ms": [1e3 * it.t_split for it in iters],
+        "load_ms": [1e3 * it.t_load for it in iters],
+        # the consumer's side: blocked on the source, staging + enqueue, sync
+        "wait_ms": [1e3 * it.t_wait for it in iters],
+        "stage_ms": [1e3 * it.t_stage for it in iters],
+        "device_ms": [1e3 * it.t_device for it in iters],
+        "epoch_wall_ms": [1e3 * e.t_wall for e in epoch_stats],
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches,
-        "source_stats": st.pipeline,
+        "source_stats": [e.pipeline for e in epoch_stats],
     })
-    return launches, tr, st
+    return launches, tr, st, losses
 
 
 def device_source_phase(papers, cfg, dev):
-    """Phase 7: the main path's SAGE run on the device plan source, then the
-    card's sample of the first batch against the CPU's, and one sampling
-    call under the sync guard."""
+    """Phase 7: the main path's SAGE run on the device plan source and on the
+    pipelined device source, 3 epochs each, bitwise equal; then the card's
+    sample of the first batch against the CPU's, and one sampling call under
+    the sync guard. Returns the launches of both runs and the pipelined
+    run's losses."""
     from dataclasses import replace
 
     import numpy as np
@@ -930,20 +967,30 @@ def device_source_phase(papers, cfg, dev):
     from repro_torch.sampler import DeviceSampler
     from repro_torch.sampler.engine import _sample_device, to_host
 
+    total, losses, trainers, sampler_stats = {}, {}, {}, {}
+    for source in ("device", "device_pipelined"):
+        launches, trainers[source], st, losses[source] = run_trainer(
+            papers, GNNSpec(model="sage"), replace(cfg, plan_source=source),
+            dev, 3, f"sage, {source} source",
+            ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+             "shuffle_bwd", "wavefront_expand"), epochs=3,
+        )
+        stats = sampler_stats[source] = st.pipeline
+        check(stats["sampler_batches"] - stats["sampler_fallbacks"] >= 1,
+              f"{source}: no batch sampled on the card without a fallback {stats}")
+        # every device sampling run launches the kernel once per layer, also
+        # when it overflows and the batch falls back to the host sampler
+        check(launches["wavefront_expand"] == len(FANOUTS) * stats["sampler_batches"],
+              f"{source}: {launches['wavefront_expand']} wavefront launches "
+              f"for {stats['sampler_batches']} sampled batches")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    check(losses["device"] == losses["device_pipelined"],
+          f"device source: serial and pipelined losses differ {losses}")
+    emit("pipeline_parity", {"sources": ["device", "device_pipelined"],
+                             "bitwise_equal": True, "steps": len(losses["device"])})
     dcfg = replace(cfg, plan_source="device")
-    launches, tr, st = run_trainer(
-        papers, GNNSpec(model="sage"), dcfg, dev, 3, "sage, device source",
-        ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
-         "shuffle_bwd", "wavefront_expand"),
-    )
-    stats = st.pipeline
-    check(stats["sampler_batches"] - stats["sampler_fallbacks"] >= 1,
-          f"device source: no batch sampled on the card without a fallback {stats}")
-    # every device sampling run launches the kernel once per layer, also when
-    # it overflows and the batch falls back to the host sampler
-    check(launches["wavefront_expand"] == len(FANOUTS) * stats["sampler_batches"],
-          f"device source: {launches['wavefront_expand']} wavefront launches "
-          f"for {stats['sampler_batches']} sampled batches")
+    tr = trainers["device"]
 
     card = tr.device_sampler
     card.refresh_caps()  # the epoch boundary: any flagged cap has grown
@@ -990,7 +1037,7 @@ def device_source_phase(papers, cfg, dev):
                        caps=card.caps_tuple(), fanouts=FANOUTS)
     n_calls = sum(1 for e in prof.events() if e.cpu_parent is None)
     emit("device_source", {
-        "sampler": stats,
+        "sampler": sampler_stats,
         "card_vs_cpu_sample": "bitwise equal",
         "sync_debug_mode_error": "no sync raised",
         "sample_breakdown_ms": {
@@ -1006,7 +1053,7 @@ def device_source_phase(papers, cfg, dev):
         "frontier_sizes": [int(c.sum()) for c in counts],
         "overflow": sorted(k for k, f in flags.items() if f),
     })
-    return launches
+    return total, losses["device_pipelined"]
 
 
 def _softmax_index_add(logits, dst, mask, num_out):
@@ -1295,6 +1342,140 @@ def serve_parity_phase(dev):
     })
 
 
+def staging_phase():
+    """Phase 4b: ``profile_step --plan-source pipelined`` in a process of its
+    own: one profiler window of two steady pipelined SAGE steps, which must
+    hold no pageable host-to-device copy and two pinned ones a step (the
+    packed plan with its labels, and the feature block). In this script's
+    own process the profiler recorded the copies of one step of the two
+    (three runs, also with the window taken again), where a fresh process
+    records all four."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.profile_step", "--plan-source",
+         "pipelined"],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+    )
+    check(proc.returncode == 0,
+          f"staging: profile_step failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])["profile"]
+    copies, steps = prof["h2d_copies"], prof["steps"]
+    check("pageable" not in copies,
+          f"staging: pageable host-to-device copies in the steps: {copies}")
+    pinned = copies.get("pinned", {"count": 0, "device_ms": 0.0})
+    check(pinned["count"] == 2 * steps,
+          f"staging: {pinned['count']} pinned copies for {steps} steps")
+    emit("staging", {
+        "plan_source": "pipelined", "steps": steps, "h2d_copies": copies,
+        "pinned_copies_per_step": pinned["count"] / steps,
+        "pinned_device_ms_per_step": pinned["device_ms"] / steps,
+        "window_wall_ms": prof["wall_ms"], "window_device_ms": prof["device_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "wait_ms": prof["wait_ms"], "stage_ms": prof["stage_ms"],
+        "device_sync_ms": prof["device_sync_ms"],
+    })
+
+
+def faults_phase(papers, cfg, dev, clean):
+    """Phase 11: SAGE on ``device_pipelined`` under faults. A transient fault
+    (twice) and a producer crash must give ``clean``'s first epoch bit for
+    bit; a build delayed past ``stall_timeout_s`` must raise
+    ``PipelineStallError`` naming its index; a poisoned batch under
+    ``skip_nonfinite`` must leave params and optimizer state bitwise as the
+    step before left them."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.faults import FaultAction, FaultInjector, PipelineStallError
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.trainer import Trainer
+
+    fcfg = replace(cfg, plan_source="device_pipelined", plan_retries=2,
+                   plan_retry_backoff_s=0.01)
+    spec = GNNSpec(model="sage")
+    inj = FaultInjector([FaultAction("transient", batch=1, times=2),
+                         FaultAction("crash", batch=2)])
+    st = Trainer(papers, spec, fcfg, device=dev, injector=inj).train_epoch(max_iters=3)
+    losses = [it.loss for it in st.iters]
+    check(losses == clean[:3], f"faults: recovered losses {losses} != clean {clean[:3]}")
+    recovery = {k: st.pipeline[k] for k in ("retries", "worker_crashes", "respawns")}
+    check(recovery == {"retries": 2, "worker_crashes": 1, "respawns": 1},
+          f"faults: recovery counters {recovery}")
+
+    stall_s = 1.5
+    inj = FaultInjector([FaultAction("delay", batch=1, delay_s=3 * stall_s)])
+    tr = Trainer(papers, spec, replace(fcfg, stall_timeout_s=stall_s), device=dev,
+                 injector=inj)
+    t0 = time.perf_counter()
+    try:
+        tr.train_epoch(max_iters=3)
+    except PipelineStallError as e:
+        stall, raised_after = e, time.perf_counter() - t0
+    else:
+        raise RuntimeError("faults: a delay past stall_timeout_s did not raise")
+    check(stall.index == 1 and "index 1" in str(stall),
+          f"faults: the watchdog named {stall.index}: {stall}")
+
+    # epoch 0 takes one clean step; epoch 1's first batch is poisoned
+    inj = FaultInjector([FaultAction("poison", epoch=1, batch=0)])
+    tr = Trainer(papers, spec, replace(fcfg, skip_nonfinite=True), device=dev,
+                 injector=inj)
+    tr.train_epoch(max_iters=1)
+    before = [t.clone() for t in tr._opt_tensors()]
+    step_before = tr.opt_state.step
+    st = tr.train_epoch(max_iters=1)
+    frozen = all(torch.equal(a, b) for a, b in zip(before, tr._opt_tensors(),
+                                                   strict=True))
+    check(frozen and tr.opt_state.step == step_before,
+          "faults: the poisoned step changed params or optimizer state")
+    check(tr.nonfinite_skips == 1 and not np.isfinite(st.iters[0].loss),
+          f"faults: nonfinite_skips {tr.nonfinite_skips}, loss {st.iters[0].loss}")
+    emit("faults", {
+        "plan_source": "device_pipelined", "recovered_losses": losses,
+        "bitwise_equal_to_clean": True, "recovery": recovery,
+        "stall": {"index": stall.index, "waited_s": stall.waited_s,
+                  "stall_timeout_s": stall_s,
+                  # the epoch's raise, after close() joined the delayed worker
+                  "raised_after_s": raised_after},
+        "poisoned_step": {"params_bitwise_unchanged": frozen,
+                          "nonfinite_skips": tr.nonfinite_skips,
+                          "reported_loss": repr(st.iters[0].loss)},
+    })
+
+
+def tracing_phase(papers, cfg, dev, plain):
+    """Phase 12: phase 4's pipelined SAGE run again with tracing on: losses
+    bitwise equal to ``plain``, a valid trace, its stall classes."""
+    from dataclasses import replace
+
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.obs.report import load_trace, summarize, validate_trace
+    from repro_torch.train.trainer import Trainer
+
+    path = ROOT / "build" / "obs" / "chip_smoke_trace.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    tcfg = replace(cfg, plan_source="pipelined", obs_trace=True, obs_path=str(path))
+    tr = Trainer(papers, GNNSpec(model="sage"), tcfg, device=dev)
+    losses = [it.loss for _ in range(3) for it in tr.train_epoch(max_iters=3).iters]
+    check(losses == plain, f"tracing: traced losses {losses} != untraced {plain}")
+    trace = load_trace(path)
+    errors = validate_trace(trace)
+    check(errors == [], f"tracing: invalid trace {errors}")
+    summary = summarize(trace)
+    check(summary["steps"] == len(losses), f"tracing: {summary['steps']} step spans")
+    emit("tracing", {
+        "trace": str(path.relative_to(ROOT)), "bitwise_equal": True,
+        "validate_trace": errors, "steps": summary["steps"],
+        "stall_classes": summary["stall_classes"],
+        "stages_ms": {k: {"count": v["count"], "p50": v["p50_ms"], "max": v["max_ms"]}
+                      for k, v in summary["stages"].items()},
+        "metrics": {k: v for k, v in summary["metrics"].items()
+                    if k.startswith(("sig/", "fault/", "hwm/", "source/"))},
+    })
+
+
 def main():
     import torch
 
@@ -1302,6 +1483,8 @@ def main():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
     import numpy as np
+
+    from dataclasses import replace
 
     from repro_torch.graph.datasets import make_dataset
     from repro_torch.kernels import build
@@ -1343,19 +1526,31 @@ def main():
 
     # ---- 4. main path at full width ------------------------------------
     papers = first.ds
+    # a pipelined source that hangs fails the run instead of stalling it
     cfg = TrainConfig(num_devices=4, fanouts=FANOUTS, batch_size=1024,
-                      presample_epochs=2)
+                      presample_epochs=2, stall_timeout_s=120.0)
     both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
             "shuffle_bwd")
-    launches, _, _ = run_trainer(papers, GNNSpec(model="sage"), cfg, dev, 3,
-                                 "sage", both)
-    for k in total:
-        total[k] += launches[k]
+    main_losses = {}
+    for source in ("serial", "pipelined"):
+        launches, _, _, main_losses[source] = run_trainer(
+            papers, GNNSpec(model="sage"), replace(cfg, plan_source=source),
+            dev, 3, f"sage, {source} source", both, epochs=3)
+        for k in total:
+            total[k] += launches[k]
+    check(main_losses["serial"] == main_losses["pipelined"],
+          f"main: serial and pipelined losses differ {main_losses}")
+    emit("pipeline_parity", {"sources": ["serial", "pipelined"],
+                             "bitwise_equal": True,
+                             "steps": len(main_losses["serial"])})
+
+    # ---- 4b. staging from pinned memory ----------------------------------
+    staging_phase()
 
     # ---- 5. the other models -------------------------------------------
     for model, expect in (("gcn", both), ("gat", both + ("gather_segsum_bwd_w",))):
-        launches, _, _ = run_trainer(papers, GNNSpec(model=model, num_heads=4), cfg,
-                                     dev, 2, model, expect)
+        launches, _, _, _ = run_trainer(papers, GNNSpec(model=model, num_heads=4),
+                                        cfg, dev, 2, model, expect)
         for k in total:
             total[k] += launches[k]
 
@@ -1375,8 +1570,9 @@ def main():
         emit("card_vs_cpu", {"model": model, "cuda": losses[str(dev)],
                              "cpu": losses["cpu"]})
 
-    # ---- 7. the device plan source --------------------------------------
-    for k, v in device_source_phase(papers, cfg, dev).items():
+    # ---- 7. the device plan sources -------------------------------------
+    launches, device_pipelined_losses = device_source_phase(papers, cfg, dev)
+    for k, v in launches.items():
         total[k] += v
 
     # ---- 8. run-to-run determinism --------------------------------------
@@ -1391,6 +1587,12 @@ def main():
 
     # ---- 10. serve, card vs CPU on a reduced model ----------------------
     serve_parity_phase(dev)
+
+    # ---- 11. faults on the pipelined device source -----------------------
+    faults_phase(papers, cfg, dev, device_pipelined_losses)
+
+    # ---- 12. tracing ------------------------------------------------------
+    tracing_phase(papers, cfg, dev, main_losses["pipelined"])
 
     for k, r in results.items():
         r["launches"] = total[k]

@@ -2,18 +2,22 @@
 steady steps of the main path.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--model sage] [--steps 2]
-        [--plan-source serial|device] [--shapes]
+        [--plan-source serial|pipelined|device|device_pipelined] [--shapes]
 
 Builds the papers-s trainer of ``chip_smoke.py``'s main path (SAGE 128 ->
 256 -> 256 -> 16, fan-outs 15,15,15, batch 1024, P=4, presample cut to 2
-epochs) on the chosen plan source (``device``: sampling on the card), takes
-one warm-up step, then profiles ``--steps`` steps with CPU
-and CUDA activities. Prints the top operators by device time, then one JSON
-line: the host wall time of the profiled steps, the device time summed over
-kernels and copies, the device idle share over the window, and a step's
-top-level torch calls and device operations (kernels, copies, memsets), and
-the device time of torch's indexing adjoint (``indexing_backward_kernel``) and
-of the port's shuffle adjoint (``shuffle_bwd``). ``--shapes`` records input
+epochs) on the chosen plan source (``device*``: sampling on the card;
+``*pipelined``: producer threads build ahead), takes one warm-up epoch of one
+step, then profiles an epoch of ``--steps`` steps with CPU and CUDA
+activities (a pipelined epoch starts with its pipeline filling). Prints the
+top operators by device time, then one JSON line: the host wall time of the
+profiled steps, the device time summed over kernels and copies, the device
+idle share over the window, a step's top-level torch calls and device
+operations (kernels, copies, memsets), the device time of torch's indexing
+adjoint (``indexing_backward_kernel``) and of the port's shuffle adjoint
+(``shuffle_bwd``), the host-to-device copies of the window by kind
+(``pageable`` or ``pinned``: count and device ms), and the steps' wait,
+staging and sync times. ``--shapes`` records input
 shapes (at some host cost) and splits the indexing adjoints' device time by
 the shapes of their ``index_put`` calls, which tells the shuffle's (values
 (P, P, S, F)) from the other gathers'. Needs a card.
@@ -52,11 +56,30 @@ def index_put_by_shape(prof) -> list:
                   key=lambda row: -row[2])
 
 
+def h2d_copies(events) -> dict:
+    """Host-to-device copies in ``key_averages()`` rows, by the kind of host
+    memory: ``{kind: {"count", "device_ms"}}`` (kinds ``pageable`` and
+    ``pinned``, from the profiler's ``Memcpy HtoD (... -> Device)`` names)."""
+    out = {}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        if not e.key.startswith("Memcpy HtoD"):
+            continue
+        kind = ("pinned" if "Pinned" in e.key
+                else "pageable" if "Pageable" in e.key else e.key)
+        row = out.setdefault(kind, {"count": 0, "device_ms": 0.0})
+        row["count"] += e.count
+        row["device_ms"] += e.self_device_time_total / 1e3
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="sage", choices=("sage", "gcn", "gat"))
     ap.add_argument("--steps", type=int, default=2)
-    ap.add_argument("--plan-source", default="serial", choices=("serial", "device"))
+    ap.add_argument("--plan-source", default="serial",
+                    choices=("serial", "pipelined", "device", "device_pipelined"))
     ap.add_argument("--shapes", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -106,6 +129,10 @@ def main(argv=None) -> int:
         "device_ops_per_step": device_ops / max(len(stats.iters), 1),
         "indexing_backward_ms": kernel_ms("indexing_backward"),
         "shuffle_bwd_ms": kernel_ms("shuffle_bwd"),
+        "h2d_copies": h2d_copies(events),
+        "wait_ms": [1e3 * i.t_wait for i in stats.iters],
+        "stage_ms": [1e3 * i.t_stage for i in stats.iters],
+        "device_sync_ms": [1e3 * i.t_device for i in stats.iters],
         "device": torch.cuda.get_device_name(0),
     }}))
     if args.shapes:

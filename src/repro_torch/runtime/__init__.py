@@ -1,2 +1,3 @@
-"""Plan sources feeding the trainer (serial source; the pipelined one comes
-with a later slice)."""
+"""The pipelined runtime (paper §5, cooperative pipelining): plan sources
+(``plan_source``), the supervised ordered prefetcher (``prefetch``) and
+plan signatures (``signature``)."""

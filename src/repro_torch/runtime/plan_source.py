@@ -1,55 +1,77 @@
 """Plan sources: who builds the per-iteration ``SplitPlan`` and when — the
-serial and device parts of ``repro/runtime/plan_source.py``.
+counterpart of ``repro/runtime/plan_source.py`` (split mode, no cache
+serving, no mesh).
 
-``SerialPlanSource`` builds each batch inline on the consumer thread.
-``DevicePlanSource`` delivers the same way with the sampling stage on the
-device (``repro_torch.sampler``): the producer hands the targets to its
-``DeviceSampler`` and builds the standard ``SplitPlan`` from the returned
-sample, so repadding and the trainer are untouched. Its capacity growth is
-applied when iteration starts (the epoch boundary), never mid-epoch. Every
-batch's draws are keyed by ``(seed, epoch, index)``, and padding to the
-running high-water marks (``repad_plan``) is applied at delivery
-(``finalize``), on the ordered side. The pipelined sources, which build ahead
-on producer threads with the same keys and the same delivery step, come with
-a later slice.
+GSplit's cooperative pipeline (paper §5) overlaps the host stages of
+mini-batch ``k+1`` (sampling, online splitting, feature loading) with the
+device step of mini-batch ``k``:
+
+  * ``SerialPlanSource``     -- builds each batch inline on the consumer
+    thread; the reference for determinism tests.
+  * ``PipelinedPlanSource``  -- a pool of producer threads builds batches
+    ahead of the consumer through ``OrderedPrefetcher``; a bounded reorder
+    queue keeps delivery in epoch order.
+  * ``DevicePlanSource`` / ``DevicePipelinedPlanSource`` -- the same two
+    disciplines with the sampling stage on the device
+    (``repro_torch.sampler``): the producer hands the targets to its
+    ``DeviceSampler`` and builds the standard ``SplitPlan`` from the
+    returned sample. Capacity growth is applied when iteration starts (the
+    epoch boundary), never mid-epoch. On a card, each producer thread of the
+    pipelined one launches its sampling on a CUDA stream of its own.
+
+Every batch's draws are keyed by ``(seed, epoch, index)``, so a batch does
+not depend on which thread builds it, and padding to the running high-water
+marks (``repad_plan``) is applied at *delivery* (``finalize``), on the
+ordered side of the queue: padded shapes, signatures and float trajectories
+are bit-for-bit the same from all four sources of one sampling kind.
 """
 from __future__ import annotations
 
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Iterator
 
 import numpy as np
+import torch
 
-from repro_torch.core.splitting import (
-    SplitPlan,
-    build_split_plan,
-    pad_axis,
-    repad_plan,
-)
+from repro_torch.core.splitting import SplitPlan, build_split_plan, pad_axis, repad_plan
+from repro_torch.faults.retry import RetryPolicy
 from repro_torch.graph.sampling import NeighborSampler
-from repro_torch.train.plan_io import load_features, load_labels
+from repro_torch.obs import NULL_OBS, Obs, note_hwm_growth
+from repro_torch.runtime.prefetch import OrderedPrefetcher
+from repro_torch.runtime.signature import SignatureCache, plan_signature
+from repro_torch.train.plan_io import gather_features, host_tensor, load_labels
 
 
 @dataclass
 class PlanBatch:
-    """One fully-staged mini-batch: plan + host feature/label blocks."""
+    """One fully-loaded mini-batch: plan + host feature/label blocks.
+
+    ``feats`` keeps the height the producer gathered; ``plan_io.stage_batch``
+    pads it to the repadded plan's input height on the device.
+    """
 
     index: int
     epoch: int
     plan: SplitPlan
-    feats: np.ndarray  # (P, N_L, F) float32
+    feats: torch.Tensor  # (P, N_L, F) float32 host tensor, pinned for a card
     labels: np.ndarray  # (P, N_0) int32, padding zeroed
     t_sample: float
     t_split: float
     t_load: float
+    signature: tuple = ()
+    sig_hit: bool = False
+    # producer-side completion time (perf_counter): delivery minus this is
+    # the prefetch-queue dwell, exported as the ``plan/queue_dwell`` span
+    t_built: float = 0.0
 
 
 class PlanProducer:
     """Builds one ``PlanBatch``: sample -> online split -> feature load
     (split mode). Sampling runs on ``device_sampler`` when one is given,
     else on the host sampler. Holds only read-only references, so any thread
-    may build any batch; repadding is left to ``finalize``."""
+    may build any batch; repadding is left to ``finalize``. With ``pin`` the
+    feature block is gathered into pinned memory, for staging to a card."""
 
     def __init__(
         self,
@@ -60,6 +82,9 @@ class PlanProducer:
         pad_multiple: int,
         assignment: np.ndarray,
         device_sampler=None,  # repro_torch.sampler.DeviceSampler | None
+        pin: bool = False,
+        obs: Obs = NULL_OBS,
+        injector=None,  # repro_torch.faults.FaultInjector | None
     ):
         self.sampler = sampler
         self.features = features
@@ -68,59 +93,186 @@ class PlanProducer:
         self.pad_multiple = pad_multiple
         self.assignment = assignment
         self.device_sampler = device_sampler
+        self.pin = pin
+        self.obs = obs
+        self.injector = injector
 
     def build(self, epoch: int, index: int, targets: np.ndarray) -> PlanBatch:
-        t0 = time.perf_counter()
-        # both samplers are pure functions of (seed, epoch, index); the
-        # device one falls back to the host's keyed API on cap overflow
-        sampler = self.device_sampler or self.sampler
-        sample = sampler.sample_batch(targets, epoch, index)
-        t1 = time.perf_counter()
-        plan = build_split_plan(
-            sample, self.assignment, self.num_devices,
-            pad_multiple=self.pad_multiple,
-        )
-        t2 = time.perf_counter()
-        feats = load_features(plan, self.features)
-        labels = load_labels(plan, self.labels)
-        t3 = time.perf_counter()
+        if self.injector is not None:
+            # deterministic fault hook: raises or sleeps what is scheduled
+            self.injector.fire("build", epoch, index)
+        obs = self.obs
+        with obs.span("plan/build", {"epoch": epoch, "batch": index}):
+            with obs.span("plan/sample") as sp_sample:
+                # both samplers are pure functions of (seed, epoch, index);
+                # the device one falls back to the host's keyed API on cap
+                # overflow
+                sampler = self.device_sampler or self.sampler
+                sample = sampler.sample_batch(targets, epoch, index)
+            with obs.span("plan/split") as sp_split:
+                plan = build_split_plan(
+                    sample, self.assignment, self.num_devices,
+                    pad_multiple=self.pad_multiple,
+                )
+            with obs.span("plan/load") as sp_load:
+                feats = gather_features(plan, self.features, self.pin)
+                labels = load_labels(plan, self.labels)
+            if self.injector is not None:
+                rows = feats.numpy()
+                poisoned = self.injector.maybe_poison("build", epoch, index, rows)
+                if poisoned is not rows:
+                    feats = host_tensor(poisoned, self.pin)
+            # the producer end of the flow arrow that lands on the consumer
+            # step training on this plan
+            obs.flow_start(("plan", epoch, index))
+        obs.observe("plan/sample_s", sp_sample.duration)
+        obs.observe("plan/split_s", sp_split.duration)
+        obs.observe("plan/load_s", sp_load.duration)
         return PlanBatch(
             index=index, epoch=epoch, plan=plan, feats=feats, labels=labels,
-            t_sample=t1 - t0, t_split=t2 - t1, t_load=t3 - t2,
+            t_sample=sp_sample.duration, t_split=sp_split.duration,
+            t_load=sp_load.duration, t_built=time.perf_counter(),
         )
 
 
-def finalize(batch: PlanBatch, hwm: dict) -> PlanBatch:
-    """Order-sensitive delivery step: repad the plan to the high-water marks
-    and pad the staged feature/label blocks to match."""
-    t0 = time.perf_counter()
-    repad_plan(batch.plan, hwm)
-    batch.feats = pad_axis(batch.feats, 1, batch.plan.front_ids[-1].shape[1])
-    batch.labels = pad_axis(batch.labels, 1, batch.plan.front_ids[0].shape[1])
-    batch.t_split += time.perf_counter() - t0
+def finalize(
+    batch: PlanBatch,
+    hwm: dict,
+    sig_cache: SignatureCache | None = None,
+    sig_extra: tuple = (),
+    obs: Obs = NULL_OBS,
+) -> PlanBatch:
+    """Order-sensitive delivery step: repad the plan to the high-water marks,
+    pad the labels to match, and record the signature. Observability rides
+    the delivery point: the queue-dwell span (producer completion -> here),
+    the repad span, any high-water-mark growth, and the signature counters.
+    The feature block is padded on the device (``plan_io.stage_batch``)."""
+    if batch.t_built:
+        obs.record("plan/queue_dwell", batch.t_built, time.perf_counter(),
+                   {"epoch": batch.epoch, "batch": batch.index})
+    before = dict(hwm)
+    with obs.span("plan/repad", {"epoch": batch.epoch, "batch": batch.index}) as sp:
+        repad_plan(batch.plan, hwm)
+        batch.labels = pad_axis(batch.labels, 1, batch.plan.front_ids[0].shape[1])
+    note_hwm_growth(obs, before, hwm, f"epoch{batch.epoch}/batch{batch.index}")
+    batch.t_split += sp.duration
+    obs.observe("plan/repad_s", sp.duration)
+    batch.signature = plan_signature(batch.plan, extra=sig_extra)
+    if sig_cache is not None:
+        batch.sig_hit = sig_cache.record(batch.signature)
+        obs.count("sig/hit" if batch.sig_hit else "sig/miss")
     return batch
 
 
+class PlanSource:
+    """Iterable of ``PlanBatch`` for one epoch. Subclasses choose *where*
+    the producer work runs; delivery order and contents are identical."""
+
+    def __iter__(self) -> Iterator[PlanBatch]:
+        raise NotImplementedError
+
+    def close(self) -> None:
+        pass
+
+    def stats(self) -> dict:
+        return {}
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
 @dataclass
-class SerialPlanSource:
+class SerialPlanSource(PlanSource):
     """Inline plan construction on the consumer thread."""
 
     producer: PlanProducer
     epoch: int
     batches: list
     hwm: dict
+    sig_cache: SignatureCache | None = None
+    # static program-structure key folded into every delivered signature
+    sig_extra: tuple = ()
+    obs: Obs = NULL_OBS
+    # first batch's *global* index in the epoch: a resumed epoch slices
+    # ``batches`` to the tail but keys each build by its original
+    # (epoch, index), so the keyed draws match an uninterrupted run
+    start: int = 0
 
     def __iter__(self) -> Iterator[PlanBatch]:
         for idx, targets in enumerate(self.batches):
-            yield finalize(self.producer.build(self.epoch, idx, targets), self.hwm)
+            yield finalize(
+                self.producer.build(self.epoch, idx + self.start, targets),
+                self.hwm, self.sig_cache, self.sig_extra, self.obs,
+            )
 
     def stats(self) -> dict:
-        return {}
+        return dict(self.sig_cache.as_dict()) if self.sig_cache else {}
 
 
 @dataclass
-class DevicePlanSource(SerialPlanSource):
-    """Inline delivery; sampling runs on the producer's ``DeviceSampler``."""
+class PipelinedPlanSource(PlanSource):
+    """Multi-worker lookahead plan construction behind a bounded queue."""
+
+    producer: PlanProducer
+    epoch: int
+    batches: list
+    hwm: dict
+    sig_cache: SignatureCache | None = None
+    sig_extra: tuple = ()
+    obs: Obs = NULL_OBS
+    start: int = 0  # global index of batches[0] (see SerialPlanSource)
+    depth: int = 4
+    workers: int = 2
+    # producer supervision, forwarded to OrderedPrefetcher: the transient
+    # build retry budget and the consumer-side stall watchdog
+    retry: RetryPolicy | None = None
+    stall_timeout_s: float | None = None
+    _prefetcher: OrderedPrefetcher | None = field(
+        default=None, repr=False, compare=False
+    )
+
+    def _build(self, idx: int, targets: np.ndarray) -> PlanBatch:
+        return self.producer.build(self.epoch, idx + self.start, targets)
+
+    def __iter__(self) -> Iterator[PlanBatch]:
+        batches = list(self.batches)
+        self._prefetcher = OrderedPrefetcher(
+            lambda idx: self._build(idx, batches[idx]),
+            len(batches),
+            depth=self.depth,
+            workers=self.workers,
+            retry=self.retry,
+            stall_timeout_s=self.stall_timeout_s,
+            obs=self.obs,
+        )
+        try:
+            for batch in self._prefetcher:
+                yield finalize(
+                    batch, self.hwm, self.sig_cache, self.sig_extra, self.obs
+                )
+        finally:
+            self.close()
+
+    def close(self) -> None:
+        if self._prefetcher is not None:
+            self._prefetcher.close()
+
+    def stats(self) -> dict:
+        out = {}
+        if self._prefetcher is not None:
+            out.update(self._prefetcher.stats.as_dict())
+        if self.sig_cache is not None:
+            out.update(self.sig_cache.as_dict())
+        return out
+
+
+class _DeviceSourceMixin:
+    """Shared device-sampling discipline for both delivery flavours: the
+    capacity table is frozen for the epoch, so which batches overflow (and
+    fall back to the host sampler) does not depend on delivery order."""
 
     def _device_sampler(self):
         eng = self.producer.device_sampler
@@ -130,23 +282,71 @@ class DevicePlanSource(SerialPlanSource):
             )
         return eng
 
+    def stats(self) -> dict:
+        out = super().stats()
+        out.update(self._device_sampler().stats())
+        return out
+
+
+@dataclass
+class DevicePlanSource(_DeviceSourceMixin, SerialPlanSource):
+    """Inline delivery; sampling runs on the producer's ``DeviceSampler``."""
+
     def __iter__(self) -> Iterator[PlanBatch]:
         self._device_sampler().refresh_caps()
         yield from SerialPlanSource.__iter__(self)
 
-    def stats(self) -> dict:
-        return self._device_sampler().stats()
+
+@dataclass
+class DevicePipelinedPlanSource(_DeviceSourceMixin, PipelinedPlanSource):
+    """Pipelined delivery; the producer threads share the ``DeviceSampler``.
+
+    On a card each producer thread samples on a CUDA stream of its own
+    (``DeviceSampler.producer_stream``). The sampler returns host arrays,
+    so no device tensor crosses streams.
+    """
+
+    def _build(self, idx: int, targets: np.ndarray) -> PlanBatch:
+        eng = self._device_sampler()
+        if eng.device.type != "cuda":
+            return super()._build(idx, targets)
+        with torch.cuda.stream(eng.producer_stream()):
+            return super()._build(idx, targets)
+
+    def __iter__(self) -> Iterator[PlanBatch]:
+        self._device_sampler().refresh_caps()
+        yield from PipelinedPlanSource.__iter__(self)
 
 
-#: the plan sources this slice runs
-PLAN_SOURCES = {"serial": SerialPlanSource, "device": DevicePlanSource}
+#: the four plan sources, by ``TrainConfig.plan_source``
+PLAN_SOURCES = {
+    "serial": SerialPlanSource,
+    "pipelined": PipelinedPlanSource,
+    "device": DevicePlanSource,
+    "device_pipelined": DevicePipelinedPlanSource,
+}
 
 
-def make_plan_source(kind: str, producer: PlanProducer, epoch: int,
-                     batches: list, hwm: dict) -> SerialPlanSource:
+def make_plan_source(
+    kind: str,
+    producer: PlanProducer,
+    epoch: int,
+    batches: list,
+    hwm: dict,
+    sig_cache: SignatureCache | None = None,
+    depth: int = 4,
+    workers: int = 2,
+    sig_extra: tuple = (),
+    obs: Obs = NULL_OBS,
+    start: int = 0,
+    retry: RetryPolicy | None = None,
+    stall_timeout_s: float | None = None,
+) -> PlanSource:
     if kind not in PLAN_SOURCES:
         raise ValueError(
-            f"unknown plan source {kind!r} ({' | '.join(PLAN_SOURCES)}; the "
-            "pipelined sources come with a later slice)"
+            f"unknown plan source {kind!r} ({' | '.join(PLAN_SOURCES)})"
         )
-    return PLAN_SOURCES[kind](producer, epoch, batches, hwm)
+    args = (producer, epoch, batches, hwm, sig_cache, sig_extra, obs, start)
+    if kind in ("serial", "device"):
+        return PLAN_SOURCES[kind](*args)
+    return PLAN_SOURCES[kind](*args, depth, workers, retry, stall_timeout_s)

@@ -1,0 +1,76 @@
+"""Plan shape signatures — the counterpart of ``repro/runtime/signature.py``
+(``mesh_signature`` comes with the mesh slice).
+
+Every delivered plan is keyed by its padded-shape tuple, and the cache
+records whether that key was seen before. The high-water-mark repad makes
+the padded shapes converge after a few batches, so the steady-state hit rate
+approaches 1.0. The port compiles nothing yet: the key rides each delivered
+batch and ``EpochStats.pipeline`` as in the reference, ready for a cache of
+captured CUDA graphs to key on.
+"""
+from __future__ import annotations
+
+from repro_torch.core.splitting import SplitPlan
+
+
+def plan_signature(plan: SplitPlan, cache_plan=None, extra: tuple = ()) -> tuple:
+    """The padded-shape key of a plan, equal to the JAX package's
+    ``plan_signature`` of the same plan.
+
+    ``cache_plan`` (cache serving: a later slice) must be None. ``extra``
+    carries static program-structure knobs that change no array shape: the
+    trainer passes ``(wire_dtype, shuffle_chunks, shuffle_overlap)``.
+    """
+    if cache_plan is not None:
+        raise ValueError("cache serving is not ported yet (a later slice)")
+    fronts = tuple(ids.shape for ids in plan.front_ids)
+    # the reference's per-layer key, with its replicated-block height (0:
+    # replication is a later slice) and no edge-half widths (the blocking
+    # path builds no halves)
+    layers = tuple(
+        (
+            lp.edge_src.shape,
+            lp.send_idx.shape,
+            lp.self_pos.shape,
+            lp.pack_perm.shape,
+            0,
+        )
+        for lp in plan.layers
+    )
+    return (plan.num_devices, plan.num_layers, fronts, layers, (), extra)
+
+
+class SignatureCache:
+    """Counts signature reuse across delivered plans."""
+
+    def __init__(self):
+        self._seen: dict[tuple, int] = {}
+        self.hits = 0
+        self.misses = 0
+
+    def record(self, sig: tuple) -> bool:
+        """Record one delivery; returns True on a hit (signature known)."""
+        hit = sig in self._seen
+        self._seen[sig] = self._seen.get(sig, 0) + 1
+        if hit:
+            self.hits += 1
+        else:
+            self.misses += 1
+        return hit
+
+    @property
+    def num_signatures(self) -> int:
+        return len(self._seen)
+
+    @property
+    def hit_rate(self) -> float:
+        total = self.hits + self.misses
+        return self.hits / total if total else 0.0
+
+    def as_dict(self) -> dict:
+        return {
+            "signatures": self.num_signatures,
+            "hits": self.hits,
+            "misses": self.misses,
+            "hit_rate": self.hit_rate,
+        }

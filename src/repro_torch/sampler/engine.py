@@ -41,6 +41,7 @@ from repro_torch.graph.sampling import (
     sample_minibatch,
 )
 from repro_torch.kernels.gather_segsum.layout import pow2_at_least
+from repro_torch.obs import NULL_OBS
 from repro_torch.sampler.frontier import (
     bucket_by_owner,
     sorted_unique_capped,
@@ -205,6 +206,9 @@ class DeviceSampler:
         self.hwm: dict[str, int] = {}
         self._pending: dict[str, int] = {}
         self._caps = self._calibrate()
+        self._streams: dict[str, torch.cuda.Stream] = {}
+        # tracing/metrics sink; the trainer re-points this at its own Obs
+        self.obs = NULL_OBS
 
     @property
     def num_devices(self) -> int:
@@ -253,6 +257,19 @@ class DeviceSampler:
             caps[f"C{l}"] = self._cap(c_max * HEADROOM)
             caps[f"X{l}"] = self._cap(x_max * HEADROOM)
         return caps
+
+    def producer_stream(self) -> torch.cuda.Stream:
+        """The CUDA stream the calling producer thread samples on: one a
+        thread name, kept for the sampler's life, so a worker slot reuses
+        its stream (and the blocks the allocator caches for it) from epoch
+        to epoch. On the consumer's stream a producer's one transfer back
+        would wait behind the training step."""
+        name = threading.current_thread().name
+        with self._lock:
+            stream = self._streams.get(name)
+            if stream is None:
+                stream = self._streams[name] = torch.cuda.Stream(self.device)
+        return stream
 
     # ------------------------------------------------------------------ #
     def caps_tuple(self) -> tuple:
@@ -312,6 +329,13 @@ class DeviceSampler:
                         self._pending.get(k, 0), 2 * dict(caps)[k]
                     )
         if overflowed:
+            # benign (the identical keyed draw on the host) but never silent:
+            # the caps were undersized and the batch paid for host sampling
+            self.obs.count("fault/sampler_fallback", 1)
+            self.obs.instant(
+                "fault/sampler_fallback",
+                {"epoch": epoch, "batch": batch, "caps": overflowed},
+            )
             return self.host.sample_batch(targets, epoch, batch)
         return self._assemble(targets, fronts, counts, layers)
 

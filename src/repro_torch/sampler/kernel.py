@@ -12,6 +12,8 @@ grid, the floor the kernel's time is read against.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from repro_torch.kernels.build import INT, PTR, check_tensor, ptr, raise_on
@@ -21,6 +23,8 @@ from repro_torch.sampler import ref
 #: kernel launches since the last ``reset_launches()``; only a launch of the
 #: CUDA kernel counts, never a plain-version call
 LAUNCHES = {"wavefront_expand": 0}
+# the pipelined device source launches from several producer threads
+_LAUNCHES_LOCK = threading.Lock()
 
 _SIGNATURES = {
     # vid, deg, key, out, B, fanout, stream
@@ -59,7 +63,8 @@ def wavefront_expand(vid, deg, key, fanout: int) -> torch.Tensor:
         stream(device),
     )
     raise_on(rc, "wavefront_expand")
-    LAUNCHES["wavefront_expand"] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES["wavefront_expand"] += 1
     return out
 
 

@@ -1,15 +1,20 @@
 """Training runtime for the split-parallel main path — the counterpart of
-``repro/train/trainer.py`` restricted to ``mode="split"`` with the serial or
-device plan source and the blocking per-layer shuffle.
+``repro/train/trainer.py`` restricted to ``mode="split"`` with the blocking
+per-layer shuffle, on any of the four plan sources.
 
 The P splits run in sim form, as a leading axis on one device. One step:
-stage a plan to device tensors; per layer, shuffle (``sim_shuffle``) and
-aggregate (the fused CUDA kernels by default); masked cross-entropy; backward;
-the repo's own Adam. The loss/accuracy transfer at the end of the step is its
-one sync point.
+stage a delivered plan to device tensors (``plan_io.stage_batch``: pinned,
+``non_blocking`` copies on a card); per layer, shuffle (``sim_shuffle``) and
+aggregate (the fused CUDA kernels by default); masked cross-entropy;
+backward; the repo's own Adam. The loss/accuracy transfer at the end of the
+step is its one sync point. ``train_epoch`` records the spans of the JAX
+package's loop (``step/wait``, ``step/stage``, ``step/device``) through
+``repro_torch.obs`` when ``obs_trace`` is on, and the pipelined sources run
+under the supervision of ``repro_torch.faults``.
 """
 from __future__ import annotations
 
+import logging
 import time
 from dataclasses import dataclass, field, replace
 
@@ -20,20 +25,26 @@ from repro_torch.core.partition import partition_graph
 from repro_torch.core.presample import presample
 from repro_torch.core.shuffle import WIRE_DTYPES, sim_shuffle
 from repro_torch.core.splitting import build_split_plan, repad_plan
+from repro_torch.faults.retry import RetryPolicy
 from repro_torch.graph.datasets import GraphDataset
 from repro_torch.graph.sampling import NeighborSampler
 from repro_torch.models.gnn.layers import GNN, GNNSpec, gnn_forward
+from repro_torch.obs import NULL_OBS, Obs, note_hwm_growth
 from repro_torch.runtime.plan_source import PlanProducer, make_plan_source
+from repro_torch.runtime.signature import SignatureCache
 from repro_torch.sampler import DeviceSampler
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loss import masked_accuracy, masked_softmax_xent
-from repro_torch.train.plan_io import load_features, load_labels, plan_to_device
+from repro_torch.train.plan_io import gather_features, load_labels, stage_batch
+
+log = logging.getLogger("repro_torch.trainer")
 
 
 @dataclass
 class TrainConfig:
-    """The JAX package's ``TrainConfig`` fields that this slice runs. The
-    fields naming later slices accept only their off value."""
+    """The JAX package's ``TrainConfig`` fields that the port runs, with the
+    reference's defaults. The fields naming later slices accept only their
+    off value."""
 
     mode: str = "split"  # dp | pushpull: later slice
     num_devices: int = 4
@@ -45,32 +56,65 @@ class TrainConfig:
     presample_epochs: int = 10
     pad_multiple: int = -1  # -1 = pow2 bucketing
     cache_mode: str = "none"  # distributed | partitioned: later slice
-    plan_source: str = "serial"  # serial | device; pipelined: later slice
+    # serial | pipelined | device | device_pipelined: the device kinds sample
+    # on the card (repro_torch.sampler); train_iter always samples on host
+    plan_source: str = "serial"
+    pipeline_depth: int = 4  # max in-flight batches (pipelined sources)
+    plan_workers: int = 2  # producer threads (pipelined sources)
     shuffle_overlap: bool = False  # overlap schedule: later slice
+    shuffle_chunks: int = 1  # feature-axis shuffle tiles: later slice
     wire_dtype: str = "float32"  # float32 | bfloat16 | float16
     replication_budget: float = 0.0  # hot-vertex replication: later slice
+    record_telemetry: bool = False  # edge telemetry: later slice
+    # Tracing + metrics (repro_torch.obs): spans for every host stage,
+    # flow-linked per (epoch, batch), and the metrics registry. Off by
+    # default; off, the same code records nothing and adds no sync.
+    obs_trace: bool = False
+    # with obs_trace, train_epoch rewrites this path with the cumulative
+    # Chrome trace (metrics snapshot included) at every epoch end
+    obs_path: str | None = None
     num_replicas: int = 0  # 2-D (replica, split) mesh: later slice
+    ckpt_dir: str | None = None  # checkpointing: later slice
+    ckpt_every: int = 0  # checkpointing: later slice
+    # Supervised producers (pipelined sources): a transient build failure
+    # (faults.RetryableError) retries in place up to plan_retries times with
+    # exponential backoff; a delivery blocked longer than stall_timeout_s
+    # raises faults.PipelineStallError naming the stuck index. None = no
+    # watchdog.
+    plan_retries: int = 0
+    plan_retry_backoff_s: float = 0.05
+    stall_timeout_s: float | None = None
+    # Non-finite guard: a NaN/Inf loss or gradient (one isfinite reduction
+    # on the device, read in the step's one transfer) keeps the step's
+    # params and optimizer state, counting fault/nonfinite_skips. The
+    # skipped step reports its non-finite loss.
+    skip_nonfinite: bool = False
     seed: int = 0
 
 
-#: config values this slice runs, and the slice each other value waits for
+#: config values the port runs, and the slice each other value waits for
 _SLICE = {
     "mode": (("split",), "the dp and pushpull modes"),
     "partition_method": (("gsplit",), "the partitioner ablation arms"),
-    "plan_source": (("serial", "device"), "the pipelined plan sources"),
+    "plan_source": (("serial", "pipelined", "device", "device_pipelined"),
+                    "the plan sources"),
     "cache_mode": (("none",), "cache serving"),
     "shuffle_overlap": ((False,), "the overlap schedule"),
+    "shuffle_chunks": ((1,), "the overlap schedule"),
     "replication_budget": ((0.0,), "hot-vertex replication"),
+    "record_telemetry": ((False,), "hot-vertex replication and telemetry"),
     "num_replicas": ((0,), "the 2-D (replica, split) mesh"),
+    "ckpt_dir": ((None,), "checkpoint and resume"),
+    "ckpt_every": ((0,), "checkpoint and resume"),
 }
 
 def check_config(cfg: TrainConfig) -> None:
-    """Raise ``ValueError`` for a value this slice of the port does not run."""
+    """Raise ``ValueError`` for a value the port does not run yet."""
     for name, (values, what) in _SLICE.items():
         if getattr(cfg, name) not in values:
             raise ValueError(
                 f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                f"({what}: a later slice of the port; this slice runs "
+                f"({what}: a later slice of the port; the port runs "
                 f"{name} in {values!r})"
             )
     if cfg.wire_dtype not in WIRE_DTYPES:
@@ -98,10 +142,13 @@ class IterStats:
     t_sample: float
     t_split: float
     t_load: float
-    t_compute: float  # staging + device step, ending in the loss sync
+    t_compute: float  # t_stage + t_device
     loaded_rows: int
     computed_edges: int
     shuffle_rows: int
+    t_wait: float = 0.0  # blocked on the plan source (the step's wait_s)
+    t_stage: float = 0.0  # staging + enqueueing the step (stage_s)
+    t_device: float = 0.0  # the step's one sync (device_s)
 
 
 @dataclass
@@ -128,9 +175,10 @@ class Trainer:
 
     ``device=None`` is the card. ``model`` (a ``GNN``, e.g. from
     ``params_from_jax``) replaces the trainer's own initialization, which
-    draws from a ``torch.Generator`` seeded with ``cfg.seed``. With
-    ``cfg.plan_source="device"`` the batches are sampled on that device by
-    ``self.device_sampler``, whose shards live there.
+    draws from a ``torch.Generator`` seeded with ``cfg.seed``. With a
+    ``device*`` plan source the batches are sampled on that device by
+    ``self.device_sampler``, whose shards live there. ``injector`` (a
+    ``faults.FaultInjector``) fires its schedule in the producers' builds.
     """
 
     def __init__(
@@ -140,10 +188,14 @@ class Trainer:
         cfg: TrainConfig,
         device=None,
         model: GNN | None = None,
+        injector=None,
     ):
         check_config(cfg)
         self.device = resolve_device(device)
         self.ds = dataset
+        # one obs sink per trainer when tracing, the shared disabled one
+        # otherwise (one code path)
+        self.obs = Obs(enabled=True) if cfg.obs_trace else NULL_OBS
         # the config's execution knobs are authoritative over the spec's
         self.spec = spec = replace(spec, wire_dtype=cfg.wire_dtype)
         self.cfg = cfg
@@ -175,99 +227,223 @@ class Trainer:
         self.opt_state = self.opt.init(self.params)
         self._pad_hwm: dict = {}  # high-water-mark padding (stable shapes)
         self._epoch = 0  # epochs consumed via train_epoch (keyed RNG input)
+        self.global_step = 0  # optimizer steps taken
+        self.nonfinite_skips = 0  # steps whose update the guard skipped
+        self.injector = injector
+        self.sig_cache = SignatureCache()
         self.device_sampler = None
-        if cfg.plan_source == "device":
+        if cfg.plan_source in ("device", "device_pipelined"):
             self.device_sampler = DeviceSampler(
                 dataset.graph, self.partition.assignment, cfg.num_devices,
                 list(cfg.fanouts), cfg.seed, host_sampler=self.sampler,
                 device=self.device,
             )
+            self.device_sampler.obs = self.obs
         self.producer = PlanProducer(
             self.sampler, dataset.features, dataset.labels,
             num_devices=cfg.num_devices, pad_multiple=cfg.pad_multiple,
             assignment=self.partition.assignment,
             device_sampler=self.device_sampler,
+            pin=self.device.type == "cuda",
+            obs=self.obs,
+            injector=injector,
         )
 
     # ------------------------------------------------------------------ #
-    def _step(self, plan, feats: np.ndarray, labels: np.ndarray):
-        """Stage one repadded plan and take one optimizer step; returns host
-        ``(loss, acc)``."""
-        dev = self.device
-        plan_arrays = plan_to_device(plan, dev)
-        feats_d = torch.as_tensor(feats, device=dev)
-        labels_d = torch.as_tensor(labels, device=dev)
+    def _dispatch_step(self, plan, feats: torch.Tensor, labels: np.ndarray):
+        """Stage one repadded plan and enqueue one optimizer step. Returns
+        the step's device values ``(loss, acc, finite)``; ``finite`` is None
+        unless ``skip_nonfinite`` is on."""
+        feats_d, plan_arrays, labels_d = stage_batch(
+            plan, feats, labels, self.device
+        )
         layers = list(self.model.layers)
         logits = gnn_forward(self.spec, layers, feats_d, plan_arrays, sim_shuffle)
         mask = plan_arrays["target_mask"]
         loss = masked_softmax_xent(logits, labels_d, mask)
         acc = masked_accuracy(logits, labels_d, mask)
         grads = torch.autograd.grad(loss, self.params)
-        self.params, self.opt_state = self.opt.update(
-            grads, self.opt_state, self.params
-        )
-        # the step's one sync: both scalars in one transfer
-        loss_v, acc_v = torch.stack([loss.detach(), acc.to(loss.dtype)]).tolist()
-        return loss_v, acc_v
+        if not self.cfg.skip_nonfinite:
+            self.params, self.opt_state = self.opt.update(
+                grads, self.opt_state, self.params
+            )
+            return loss, acc, None
+        # the guarded step: one isfinite reduction on the device, and the
+        # update kept or dropped by a select, with no host round trip
+        with torch.no_grad():
+            finite = torch.isfinite(loss)
+            for g in grads:
+                finite = finite & torch.isfinite(g).all()
+            old = [t.clone() for t in self._opt_tensors()]
+            self.params, self.opt_state = self.opt.update(
+                grads, self.opt_state, self.params
+            )
+            for t, o in zip(self._opt_tensors(), old):
+                t.copy_(torch.where(finite, t, o))
+        return loss, acc, finite
+
+    def _opt_tensors(self) -> list:
+        """The params and the optimizer's slot tensors (updated in place)."""
+        slots = self.opt_state.slots
+        if isinstance(slots, dict):
+            slots = [t for v in slots.values() for t in v]
+        return [*self.params, *slots]
+
+    def _sync_step(self, loss, acc, finite, step_before: int):
+        """The step's one sync: one transfer brings both scalars, and the
+        finite flag when the guard is on. A skipped step keeps the
+        optimizer's step count (its tensors were kept on the device)."""
+        vals = [loss.detach(), acc.to(loss.dtype)]
+        if finite is not None:
+            vals.append(finite.to(loss.dtype))
+        out = torch.stack(vals).tolist()
+        if finite is not None and not out[2]:
+            self.opt_state = self.opt_state._replace(step=step_before)
+            self.nonfinite_skips += 1
+            self.obs.count("fault/nonfinite_skips", 1)
+            self.obs.instant(
+                "fault/nonfinite_skip",
+                {"step": self.global_step, "loss": repr(out[0])},
+            )
+            log.warning(
+                "non-finite loss/gradients at step %d — optimizer update "
+                "skipped (loss=%r)", self.global_step, out[0],
+            )
+        return out[0], out[1]
+
+    def _step(self, plan, feats: torch.Tensor, labels: np.ndarray):
+        """Stage and take one optimizer step inside the ``step`` span;
+        returns ``(loss, acc, t_stage, t_device)`` on the host."""
+        step_before = self.opt_state.step
+        with self.obs.span("step/stage") as sp_stage:
+            loss, acc, finite = self._dispatch_step(plan, feats, labels)
+        with self.obs.span("step/device") as sp_dev:
+            loss, acc = self._sync_step(loss, acc, finite, step_before)
+        self.global_step += 1
+        return loss, acc, sp_stage.duration, sp_dev.duration
 
     def _iter_stats(self, plan, loss, acc, t_sample, t_split, t_load,
-                    t_compute) -> IterStats:
-        return IterStats(
+                    t_stage, t_device, t_wait=0.0) -> IterStats:
+        st = IterStats(
             loss=loss,
             accuracy=acc,
             t_sample=t_sample,
             t_split=t_split,
             t_load=t_load,
-            t_compute=t_compute,
+            t_compute=t_stage + t_device,
             loaded_rows=plan.loaded_feature_rows(),
             computed_edges=plan.computed_edges(),
             shuffle_rows=plan.shuffle_rows(),
+            t_wait=t_wait,
+            t_stage=t_stage,
+            t_device=t_device,
         )
+        self._emit_iter_metrics(st)
+        return st
+
+    def _emit_iter_metrics(self, st: IterStats) -> None:
+        """Fold one step's IterStats into the metrics registry (no-op when
+        obs is off), so a written trace is self-contained."""
+        obs = self.obs
+        if not obs.enabled:
+            return
+        obs.observe("step/compute_s", st.t_compute)
+        obs.count("plan/loaded_rows", st.loaded_rows)
+        obs.count("plan/shuffle_rows", st.shuffle_rows)
 
     def train_iter(self, targets: np.ndarray) -> IterStats:
         """One step on ``targets`` with the streamed sampler RNG (draws in
         call order), like the JAX ``Trainer.train_iter``."""
         cfg = self.cfg
-        t0 = time.perf_counter()
-        sample = self.sampler.sample(targets)
-        t1 = time.perf_counter()
-        plan = build_split_plan(
-            sample, self.partition.assignment, cfg.num_devices,
-            pad_multiple=cfg.pad_multiple,
-        )
-        plan = repad_plan(plan, self._pad_hwm)
-        t2 = time.perf_counter()
-        feats = load_features(plan, self.ds.features)
-        labels = load_labels(plan, self.ds.labels)
-        t3 = time.perf_counter()
-        loss, acc = self._step(plan, feats, labels)
-        t4 = time.perf_counter()
-        return self._iter_stats(plan, loss, acc, t1 - t0, t2 - t1, t3 - t2,
-                                t4 - t3)
+        with self.obs.span("plan/sample") as sp_sample:
+            sample = self.sampler.sample(targets)
+        with self.obs.span("plan/split") as sp_split:
+            plan = build_split_plan(
+                sample, self.partition.assignment, cfg.num_devices,
+                pad_multiple=cfg.pad_multiple,
+            )
+            before = dict(self._pad_hwm)
+            plan = repad_plan(plan, self._pad_hwm)
+        note_hwm_growth(self.obs, before, self._pad_hwm, "train_iter")
+        with self.obs.span("plan/load") as sp_load:
+            feats = gather_features(plan, self.ds.features, self.producer.pin)
+            labels = load_labels(plan, self.ds.labels)
+        with self.obs.span("step", {"wait_s": 0.0}) as step_sp:
+            loss, acc, t_stage, t_device = self._step(plan, feats, labels)
+            step_sp.attrs.update(stage_s=t_stage, device_s=t_device)
+        return self._iter_stats(plan, loss, acc, sp_sample.duration,
+                                sp_split.duration, sp_load.duration,
+                                t_stage, t_device)
 
-    def plan_source_for(self, epoch: int, max_iters: int | None = None):
+    def plan_source_for(self, epoch: int, max_iters: int | None = None,
+                        start: int = 0):
         """The configured plan source over ``epoch``'s batches (the first
-        ``max_iters``), delivering into the trainer's high-water marks."""
+        ``max_iters``, from ``start`` on: every delivered batch keeps its
+        global index for its draws), delivering into the trainer's
+        high-water marks, with the retry policy and the stall watchdog."""
         batches = self.sampler.epoch_targets(epoch)
         if max_iters is not None:
             batches = batches[:max_iters]
-        return make_plan_source(self.cfg.plan_source, self.producer, epoch,
-                                batches, self._pad_hwm)
+        batches = batches[start:]
+        retry = None
+        if self.cfg.plan_retries > 0:
+            retry = RetryPolicy(
+                retries=self.cfg.plan_retries,
+                backoff_s=self.cfg.plan_retry_backoff_s,
+            )
+        return make_plan_source(
+            self.cfg.plan_source, self.producer, epoch, batches,
+            self._pad_hwm, self.sig_cache,
+            depth=self.cfg.pipeline_depth,
+            workers=self.cfg.plan_workers,
+            sig_extra=(self.cfg.wire_dtype, self.cfg.shuffle_chunks,
+                       self.cfg.shuffle_overlap),
+            obs=self.obs,
+            start=start,
+            retry=retry,
+            stall_timeout_s=self.cfg.stall_timeout_s,
+        )
 
     def train_epoch(self, max_iters: int | None = None) -> EpochStats:
         """One epoch through the configured plan source: batches keyed by
-        ``(seed, epoch, index)``, repadded at delivery."""
+        ``(seed, epoch, index)``, repadded at delivery. With a pipelined
+        source the producers build ahead behind a bounded queue and the
+        consumer pays only its wait, the staging and the step."""
         source = self.plan_source_for(self._epoch, max_iters)
         stats = EpochStats()
         t_epoch = time.perf_counter()
-        for batch in source:
-            t0 = time.perf_counter()
-            loss, acc = self._step(batch.plan, batch.feats, batch.labels)
-            stats.iters.append(self._iter_stats(
-                batch.plan, loss, acc, batch.t_sample, batch.t_split,
-                batch.t_load, time.perf_counter() - t0,
-            ))
-        stats.t_wall = time.perf_counter() - t_epoch
+        try:
+            it = iter(source)
+            while True:
+                # time blocked on the source: the producer-bound part of the
+                # step (a serial source builds the whole batch here)
+                with self.obs.span("step/wait") as sp_wait:
+                    batch = next(it, None)
+                if batch is None:
+                    break
+                with self.obs.span(
+                    "step", {"epoch": batch.epoch, "batch": batch.index}
+                ) as step_sp:
+                    # close the flow arrow from this plan's producer span
+                    self.obs.flow_end(("plan", batch.epoch, batch.index))
+                    loss, acc, t_stage, t_device = self._step(
+                        batch.plan, batch.feats, batch.labels
+                    )
+                    step_sp.attrs.update(
+                        wait_s=sp_wait.duration, stage_s=t_stage,
+                        device_s=t_device,
+                    )
+                stats.iters.append(self._iter_stats(
+                    batch.plan, loss, acc, batch.t_sample, batch.t_split,
+                    batch.t_load, t_stage, t_device, sp_wait.duration,
+                ))
+        finally:
+            source.close()
         stats.pipeline = source.stats()
+        stats.t_wall = time.perf_counter() - t_epoch
+        if self.obs.enabled:
+            self.obs.absorb(stats.pipeline, prefix="source/")
+            if self.cfg.obs_path:
+                self.obs.write(self.cfg.obs_path)
         self._epoch += 1
         return stats

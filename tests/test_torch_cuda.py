@@ -613,3 +613,85 @@ def test_cuda_torch_backend_edge_softmax_repeats_bitwise(cuda):
     assert all(torch.equal(grads[0], g) for g in grads[1:])
     want = segment_ops.edge_softmax(logits.detach().cpu(), dst.cpu(), mask.cpu(), N)
     torch.testing.assert_close(outs[0].cpu(), want, **TOL)
+
+
+def _tiny_trainer(cuda, source="serial", injector=None, **over):
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    ds = make_dataset("tiny")
+    spec = GNNSpec(model="sage", in_dim=ds.spec.feat_dim, hidden_dim=32,
+                   out_dim=ds.spec.num_classes, num_layers=2)
+    kw = dict(num_devices=4, fanouts=(4, 4), batch_size=16, presample_epochs=1,
+              plan_source=source, plan_workers=2, pipeline_depth=2,
+              stall_timeout_s=60.0)
+    return Trainer(ds, spec, TrainConfig(**{**kw, **over}), device=cuda,
+                   injector=injector)
+
+
+@pytest.mark.cuda
+def test_cuda_pinned_stage_batch_is_byte_equal(cuda):
+    """``stage_batch`` on the card (one pinned, non-blocking copy of the
+    packed plan and labels, one of the pinned feature block, padded on the
+    card) gives tensors byte-equal to pageable per-array staging; a pageable
+    feature block raises."""
+    from repro_torch.core.splitting import pad_axis
+    from repro_torch.train import plan_io
+
+    tr = _tiny_trainer(cuda)
+    for batch in tr.plan_source_for(0, 3):
+        assert batch.feats.is_pinned()
+        # a block gathered before the marks grew: the card pads it
+        short = batch.feats[:, : batch.feats.shape[1] // 2].contiguous().pin_memory()
+        for feats in (batch.feats, short):
+            f_d, pa, l_d = plan_io.stage_batch(batch.plan, feats, batch.labels, cuda)
+            want = plan_io.plan_to_device(batch.plan, cuda)
+            rows = batch.plan.front_ids[-1].shape[1]
+            torch.cuda.synchronize()
+            assert torch.equal(f_d.cpu(), torch.as_tensor(
+                pad_axis(feats.numpy(), 1, rows)))
+            assert torch.equal(l_d.cpu(), torch.as_tensor(batch.labels))
+            for a, b in zip([pa] + pa["layers"], [want] + want["layers"]):
+                for k, t in b.items():
+                    if k == "layers":
+                        continue
+                    assert a[k].device == t.device and a[k].dtype == t.dtype, k
+                    assert a[k].is_contiguous() and a[k].data_ptr() % 256 == 0, k
+                    assert torch.equal(a[k], t), k
+    with pytest.raises(RuntimeError, match="pinned"):
+        plan_io.stage_batch(batch.plan, batch.feats.clone(), batch.labels, cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("serial,pipelined", [
+    ("serial", "pipelined"),
+    ("device", "device_pipelined"),
+])
+def test_cuda_pipelined_equals_serial_bitwise(cuda, serial, pipelined):
+    """On the card, pipelined delivery (device sampling on the producers' own
+    streams for ``device_pipelined``) trains bit for bit as serial does."""
+    runs = []
+    for source in (serial, pipelined):
+        tr = _tiny_trainer(cuda, source)
+        losses = [it.loss for _ in range(2) for it in tr.train_epoch(3).iters]
+        runs.append((losses, [p.detach().cpu() for p in tr.params]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+def test_cuda_guarded_step_freezes_params_on_poison(cuda):
+    """With ``skip_nonfinite`` a poisoned batch leaves params and Adam state
+    bitwise where the step before it left them."""
+    from repro_torch.faults import FaultAction, FaultInjector
+
+    inj = FaultInjector([FaultAction("poison", batch=1)])
+    poisoned = _tiny_trainer(cuda, "pipelined", inj, skip_nonfinite=True)
+    st = poisoned.train_epoch(2)
+    once = _tiny_trainer(cuda, "pipelined", skip_nonfinite=True)
+    once.train_epoch(1)
+    assert poisoned.nonfinite_skips == 1 and not np.isfinite(st.iters[1].loss)
+    assert poisoned.opt_state.step == once.opt_state.step == 1
+    for a, b in zip(poisoned._opt_tensors(), once._opt_tensors(), strict=True):
+        assert torch.equal(a, b)

@@ -138,6 +138,9 @@ def test_port_imports_no_jax_and_no_reference_package():
         "src/repro_torch/models/transformer/model.py",
         "src/repro_torch/configs/smollm_135m.py",
         "src/repro_torch/serve.py",
+        "src/repro_torch/runtime/prefetch.py",
+        "src/repro_torch/obs/trace.py",
+        "src/repro_torch/faults/inject.py",
     } <= scanned
     for path in files:
         for name in _imports(path):
@@ -167,8 +170,8 @@ def test_trainer_runs_on_the_card_unless_asked(monkeypatch):
     ("mode", "pushpull"),
     ("partition_method", "node"),
     ("partition_method", "rand"),
-    ("plan_source", "pipelined"),
-    ("plan_source", "device_pipelined"),
+    ("ckpt_every", 1),
+    ("record_telemetry", True),
     ("cache_mode", "partitioned"),
     ("shuffle_overlap", True),
     ("replication_budget", 0.05),
