@@ -105,13 +105,52 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 12. tracing -- phase 4's pipelined run again with ``obs_trace`` and
               ``obs_path`` under ``build/``: bitwise equal losses, a trace
               that ``validate_trace`` passes, and its stall-class summary.
+13. overlap -- the overlap schedule (local/remote edge halves, chunked
+              exchange) at phase 4's widths, GAT with 4 heads at hidden 256.
+              (a) On the first batch (built with its halves), the overlap
+              forward and the gradients of the masked cross-entropy at 1 and
+              4 chunks against the blocking ones on the card, for SAGE, GCN
+              and GAT: 5e-5 and 3e-4; a bf16 wire at 2 chunks: 5e-2, SAGE
+              and GCN (each atol in units of the reference's largest entry,
+              see ``scaled_close``; the count outside the unscaled one is
+              printed); GAT's bf16 wire error is printed, not held (its
+              bf16 scores, see ``overlap_parity``). Each
+              model's forward + backward timed by CUDA events, blocking and
+              overlap. (b) Each half's gather_segsum kernels at their largest
+              launch (the local half over the split's rows, the remote half
+              over the recv region, a GAT head chunk of one head), the walk
+              included, and the shuffle adjoint at GAT's score width (H=4),
+              bitwise against their plain versions on a CPU copy; a
+              ``kernel_detail`` line gives their shapes. (c) SAGE with
+              overlap at 4 chunks trains 2 epochs of 3 steps on the serial
+              and the pipelined source: bitwise equal, and within rtol 1e-4
+              of phase 4's blocking losses; GAT with overlap takes 2 steps.
+              Each run emits its step ms, peak memory and ``wire_bytes``.
+14. cache   -- the same SAGE with the feature cache at 2048 rows a split (a
+              quarter of papers-s's 32,768 nodes across P=4). (a) The first
+              batch's served block (``sim_serve_features`` over the
+              resident block and the staged miss rows) equals the host
+              gather, byte for byte on the valid rows, for ``partitioned``
+              (no remote hit) and ``distributed`` (some). (b) The
+              partitioned cache on the serial and the device_pipelined
+              source, 2 epochs of 3 steps: losses bitwise equal to phase 4's
+              and phase 7's uncached ones. (c) The hit/miss breakdown, miss
+              rows against the input rows, the pinned feature bytes of the
+              first batches with and without the cache, the resident block's
+              bytes. (d) Overlap at 4 chunks with the partitioned cache on
+              the device_pipelined source, bitwise equal to the device
+              source. (e) ``profile_step`` in a process of its own over two
+              pipelined steps with overlap and the cache: no pageable
+              host-to-device copy, two pinned ones a step, and the window's
+              device ms and idle share.
 
 Launch counts are set to 0 just before each trainer run and the serve run
 and read just after; a kernel of the run's path that was never launched
 fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
 adjoint's ``csr_builds``) or whose shuffle-adjoint launches differ from its
-steps times the gathers a step differentiates (``SHUFFLE_BWD_PER_STEP``). The packed segment kernels run on no trainer path
+steps times the gathers a step differentiates (``SHUFFLE_BWD_PER_STEP``;
+``SHUFFLE_BWD_OVERLAP`` under the overlap schedule). The packed segment kernels run on no trainer path
 (``segment_ops``'s packed backend, which the model does not call): their
 counts come from one call of ``segment_ops.segment_sum``/``edge_softmax``
 with ``backend="packed"``, driven with the counts at 0. The last lines are
@@ -169,6 +208,14 @@ FANOUTS = (15, 15, 15)
 #: rows' (SAGE: likewise; GAT: every layer, whose weighted rows take one)
 SHUFFLE_BWD_PER_STEP = {"sage": 2 * (len(FANOUTS) - 1), "gcn": len(FANOUTS) - 1,
                         "gat": 2 * len(FANOUTS) - 1}
+#: under the overlap schedule GAT sends transformed rows (w takes a
+#: gradient at every layer) and its a_src scores: send, scores and self rows
+#: at every layer, one launch each, whatever the chunks (autograd's slice
+#: adjoint sums the chunks' cotangents); SAGE and GCN launch as blocking
+SHUFFLE_BWD_OVERLAP = {**SHUFFLE_BWD_PER_STEP, "gat": 3 * len(FANOUTS)}
+OVERLAP_TOL = dict(rtol=5e-5, atol=5e-5)
+WIRE_TOL = dict(rtol=5e-2, atol=5e-2)
+CACHE_ROWS = 2048  # a quarter of papers-s's 32,768 nodes across P=4
 
 
 def counters():
@@ -311,7 +358,8 @@ def bound(nbytes, ops, rate=FP32_FLOPS):
 def papers_first_batch(seed=0):
     """The first batch of papers-s as the trainer builds it (P=4, fan-outs
     15,15,15, batch 1024, presample cut to 2 epochs): the dataset, the
-    partition, the host sampler, the batch's targets and its repadded plan."""
+    partition, the host sampler, the batch's targets and its repadded plan,
+    with its edge halves."""
     from repro_torch.core import build_split_plan, partition_graph, presample, repad_plan
     from repro_torch.graph.datasets import make_dataset
     from repro_torch.graph.sampling import NeighborSampler
@@ -322,8 +370,10 @@ def papers_first_batch(seed=0):
     part = partition_graph(ds.graph, 4, method="gsplit", weights=w, seed=seed)
     sampler = NeighborSampler(ds.graph, ds.train_ids, fan, 1024, seed=seed)
     targets = sampler.epoch_targets(0)[0]
+    # with the overlap schedule's edge halves (phase 13); the blocking
+    # kernels of phase 3 do not read them
     plan = build_split_plan(sampler.sample_batch(targets, 0, 0),
-                            part.assignment, 4, pad_multiple=-1)
+                            part.assignment, 4, pad_multiple=-1, with_halves=True)
     return SimpleNamespace(ds=ds, part=part, sampler=sampler, targets=targets,
                            plan=repad_plan(plan, {}))
 
@@ -925,7 +975,9 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
     check(launches["src_sorted_csr"] == launches["gather_segsum_bwd_mixed"],
           f"{name}: {launches['src_sorted_csr']} walk builds for "
           f"{launches['gather_segsum_bwd_mixed']} row adjoints")
-    want = len(iters) * SHUFFLE_BWD_PER_STEP[spec.model]
+    per_step = (SHUFFLE_BWD_OVERLAP if cfg.shuffle_overlap
+                else SHUFFLE_BWD_PER_STEP)[spec.model]
+    want = len(iters) * per_step
     check(launches["shuffle_bwd"] == want,
           f"{name}: {launches['shuffle_bwd']} shuffle_bwd launches, expected {want}")
     emit("run", {
@@ -948,6 +1000,15 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
         "max_memory_allocated": torch.cuda.max_memory_allocated(),
         "launches": launches,
         "source_stats": [e.pipeline for e in epoch_stats],
+        "shuffle_overlap": cfg.shuffle_overlap,
+        "shuffle_chunks": cfg.shuffle_chunks,
+        "cache_mode": cfg.cache_mode,
+        "wire_bytes": [it.wire_bytes for it in iters],
+        "load_breakdown": [
+            None if it.load_breakdown is None else
+            [it.load_breakdown.local_hit, it.load_breakdown.remote_hit,
+             it.load_breakdown.host_miss] for it in iters],
+        "loaded_rows": [it.loaded_rows for it in iters],
     })
     return launches, tr, st, losses
 
@@ -1476,6 +1537,341 @@ def tracing_phase(papers, cfg, dev, plain):
     })
 
 
+def scaled_close(name, got, want, tol, hold=True):
+    """Hold ``got`` to ``want`` within ``tol``'s rtol, and its atol in units
+    of ``want``'s largest magnitude (at least 1): the overlap schedule
+    reassociates each destination's sum and the bf16 wire rounds each sent
+    value once, so an entry's error follows the scale of the rows summed
+    into it, not its own size. Returns the errors, with the count of entries
+    outside the unscaled tolerance; ``hold=False`` only measures them."""
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    diff = (got.float() - want.float()).abs()
+    rel = tol["rtol"] * want.abs()
+    if hold:
+        check(bool((diff <= tol["atol"] * scale + rel).all()),
+              f"{name}: max error {float(diff.max())} outside {tol} at scale {scale}")
+    return {"max_abs_err": float(diff.max()) if diff.numel() else 0.0,
+            "scale": scale, "entries": diff.numel(),
+            "outside_unscaled": int((diff > tol["atol"] + rel).sum())}
+
+
+def overlap_parity(dev, first, plan):
+    """Phase 13a: the overlap forward and gradients against the blocking
+    ones on the card, the three models at full width: the target logits at
+    5e-5 (fp32 wire) and 5e-2 (bf16 wire), every gradient at 3e-4, each
+    ``scaled_close``. GAT's bf16 wire is measured, not held: it sends its
+    a_src scores in bf16, whose magnitude (~1e2 with these random weights)
+    costs up to 0.5 a score, and the edge softmax turns that into factors
+    of up to e^0.5 on the attention weights (the JAX package's schedule
+    sends them the same way)."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.models.gnn import GNN, GNNSpec, gnn_forward
+    from repro_torch.train import plan_io
+    from repro_torch.train.loss import masked_softmax_xent
+
+    pa = plan_io.plan_to_device(plan, dev, with_halves=True)
+    feats = torch.as_tensor(plan_io.load_features(plan, first.ds.features),
+                            device=dev)
+    labels = torch.as_tensor(plan_io.load_labels(plan, first.ds.labels),
+                             device=dev)
+    valid = pa["target_mask"]
+    for model in ("sage", "gcn", "gat"):
+        spec = GNNSpec(model=model, num_heads=4)
+        gnn = GNN(spec, generator=torch.Generator().manual_seed(0)).to(dev)
+        params = list(gnn.parameters())
+
+        def run(s, gnn=gnn, params=params):
+            out = gnn_forward(s, list(gnn.layers), feats, pa)
+            loss = masked_softmax_xent(out, labels, valid)
+            return out.detach(), torch.autograd.grad(loss, params)
+
+        ref_out, ref_g = run(spec)
+        errs = {}
+        for chunks, wire in ((1, "float32"), (4, "float32"), (2, "bfloat16")):
+            out, grads = run(replace(spec, overlap=True, shuffle_chunks=chunks,
+                                     wire_dtype=wire))
+            key = f"chunks{chunks}_{wire}"
+            fp32 = wire == "float32"
+            errs[key] = {"logits": scaled_close(
+                f"{model} {key} logits", out[valid], ref_out[valid],
+                OVERLAP_TOL if fp32 else WIRE_TOL,
+                hold=fp32 or model != "gat")}
+            if fp32:
+                errs[key]["grads"] = [
+                    scaled_close(f"{model} {key} grad {i}", a, b, ADJ_TOL)
+                    for i, (a, b) in enumerate(zip(grads, ref_g, strict=True))]
+        ms = {name: time_ms(lambda s=s: run(s), iters=5, warmup=1)
+              for name, s in (("blocking", spec),
+                              ("overlap_chunks1", replace(spec, overlap=True)),
+                              ("overlap_chunks4", replace(spec, overlap=True,
+                                                          shuffle_chunks=4)))}
+        emit("overlap_parity", {"model": model, "errors": errs,
+                                "tolerance": {"fp32": OVERLAP_TOL, "grads": ADJ_TOL,
+                                              "bf16_wire": WIRE_TOL},
+                                "fwd_bwd_event_ms": ms})
+
+
+def overlap_kernels(dev, plan):
+    """Phase 13b: each half's kernels at their largest launch, and the
+    shuffle adjoint at GAT's score width, bitwise against their plain
+    versions on a CPU copy."""
+    import torch
+
+    from repro_torch.kernels.gather_segsum import kernel, ops, ref
+    from repro_torch.kernels.gather_segsum.layout import AGG_ROWS as R
+    from repro_torch.kernels.shuffle import kernel as sh
+    from repro_torch.kernels.shuffle import ref as sh_ref
+
+    def on_cpu(fn, *args):
+        return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+
+    P, L = plan.num_devices, plan.num_layers
+    largest = {}
+    for li, lp in enumerate(plan.layers):
+        F = 128 if li == L - 1 else 256
+        for side in "lr":
+            valid = int((getattr(lp, f"{side}pack_dst") < R).sum())
+            if valid * F > largest.get(side, (0,))[0]:
+                largest[side] = (valid * F, li, F, valid)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    detail = []
+    for side, (_, li, F, valid) in sorted(largest.items()):
+        lp = plan.layers[li]
+        M = lp.n_local if side == "l" else P * lp.send_idx.shape[2]
+        num_out = lp.self_pos.shape[1]
+        src = torch.as_tensor(getattr(lp, f"{side}edge_src"), device=dev)
+        perm = torch.as_tensor(getattr(lp, f"{side}pack_perm"), device=dev)
+        pd = torch.as_tensor(getattr(lp, f"{side}pack_dst"), device=dev)
+        pack_src = ops._pack_src(src, perm, pd, M)
+        rows = torch.randn(P, M, F, device=dev, generator=gen)
+        g = torch.randn(P, num_out, F, device=dev, generator=gen)
+        csr = kernel.src_sorted_csr(pack_src, pd, M, num_out)
+        for got, want in zip(csr, on_cpu(ref.src_sorted_csr_ref, pack_src, pd, M,
+                                         num_out), strict=True):
+            check(torch.equal(got.cpu(), want), f"{side} half: walk differs")
+        checks = {
+            "gather_segsum_fwd": (
+                kernel.gather_segsum_fwd(rows, pack_src, pd, None, num_out),
+                on_cpu(ref.gather_segsum_fwd_packed, rows, pack_src, pd, None,
+                       num_out)),
+            "gather_segsum_bwd_mixed": (
+                kernel.gather_segsum_bwd_mixed(g, pack_src, pd, None, M, csr),
+                on_cpu(ref.gather_segsum_bwd_mixed_packed, g, pack_src, pd,
+                       None, M)),
+        }
+        # GAT's head chunk at 4 chunks of 4 heads: one head of 64 columns,
+        # its weights a strided slice of alpha packed as the op packs them
+        dh = 64
+        alpha = torch.randn(P, src.shape[1], 4, device=dev, generator=gen)
+        flat = perm.reshape(P, -1).long().clamp(0, src.shape[1] - 1)
+        live = (pd.reshape(P, -1) < R).float()
+        w = (torch.gather(alpha[:, :, 1:2], 1, flat[:, :, None])
+             * live[:, :, None]).contiguous()
+        rows_c, g_c = rows[:, :, :dh].contiguous(), g[:, :, :dh].contiguous()
+        checks["gather_segsum_fwd, head chunk"] = (
+            kernel.gather_segsum_fwd(rows_c, pack_src, pd, w, num_out),
+            on_cpu(ref.gather_segsum_fwd_packed, rows_c, pack_src, pd, w, num_out))
+        checks["gather_segsum_bwd_mixed, head chunk"] = (
+            kernel.gather_segsum_bwd_mixed(g_c, pack_src, pd, w, M),
+            on_cpu(ref.gather_segsum_bwd_mixed_packed, g_c, pack_src, pd, w, M))
+        checks["gather_segsum_bwd_w, head chunk"] = (
+            kernel.gather_segsum_bwd_w(rows_c, g_c, pack_src, pd, 1),
+            on_cpu(ref.gather_segsum_bwd_w_packed, rows_c, g_c, pack_src, pd, 1))
+        for name, (got, want) in checks.items():
+            check(torch.equal(got.cpu(), want),
+                  f"{side} half, layer {li}: {name} differs from its plain version")
+        detail.append({"half": {"l": "local", "r": "remote"}[side], "layer": li,
+                       "P": P, "rows": M, "F": F, "head_chunk_F": dh,
+                       "num_out": num_out, "DB": pd.shape[1], "EB": pd.shape[2],
+                       "valid_slots": valid, "bitwise_vs_cpu": sorted(checks)})
+    # GAT's eager score exchange: the send gather's adjoint at width H=4, at
+    # the input layer (its scores take a gradient through w)
+    lp = plan.layers[-1]
+    idx = torch.as_tensor(lp.send_idx, device=dev)
+    count = torch.as_tensor(lp.send_count, device=dev)
+    S = idx.shape[2]
+    live = torch.arange(S, device=dev)[None, None, :] < count[:, :, None]
+    g = torch.randn(P, P, S, 4, device=dev, generator=gen) * live[..., None]
+    got = sh.shuffle_bwd(g, idx, count, lp.n_local)
+    check(torch.equal(got.cpu(), on_cpu(sh_ref.shuffle_bwd, g, idx, count,
+                                        lp.n_local)),
+          "shuffle_bwd at the score width differs from its plain version")
+    detail.append({"kernel": "shuffle_bwd", "layer": L - 1, "P": P, "S": S,
+                   "F": 4, "rows": lp.n_local,
+                   "valid_slots": int(lp.send_count.sum()), "bitwise_vs_cpu": True})
+    emit("kernel_detail", {"name": "overlap_halves", "launches": detail})
+
+
+def overlap_phase(dev, first, cfg, blocking, total):
+    """Phase 13: the overlap schedule. ``blocking`` is phase 4's serial
+    losses; the runs' launches are added to ``total``."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.models.gnn import GNNSpec
+
+    overlap_parity(dev, first, first.plan)
+    overlap_kernels(dev, first.plan)
+    ocfg = replace(cfg, shuffle_overlap=True, shuffle_chunks=4)
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+            "shuffle_bwd")
+    losses = {}
+    for source in ("serial", "pipelined"):
+        launches, _, _, losses[source] = run_trainer(
+            first.ds, GNNSpec(model="sage"), replace(ocfg, plan_source=source),
+            dev, 3, f"sage overlap, {source} source", both, epochs=2)
+        for k in total:
+            total[k] += launches[k]
+    check(losses["serial"] == losses["pipelined"],
+          f"overlap: serial and pipelined losses differ {losses}")
+    np.testing.assert_allclose(losses["serial"], blocking[:6], rtol=1e-4,
+                               atol=1e-6)
+    launches, _, _, gat = run_trainer(
+        first.ds, GNNSpec(model="gat", num_heads=4), ocfg, dev, 2,
+        "gat overlap", both + ("gather_segsum_bwd_w",))
+    for k in total:
+        total[k] += launches[k]
+    emit("overlap", {"sage_serial_equals_pipelined": True,
+                     "sage_vs_blocking_max_rel": float(np.max(
+                         np.abs(np.array(losses["serial"]) - blocking[:6])
+                         / np.abs(blocking[:6]))),
+                     "gat_losses": gat})
+
+
+def cache_phase(first, cfg, dev, serial, device_pipelined, total):
+    """Phase 14: the feature cache. ``serial`` and ``device_pipelined`` are
+    phase 4's and phase 7's uncached losses; the runs' launches are added to
+    ``total``."""
+    import json as _json
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.core.shuffle import sim_serve_features
+    from repro_torch.graph.cache import FeatureCache
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train import plan_io
+    from repro_torch.train.trainer import Trainer
+
+    papers = first.ds
+    ccfg = replace(cfg, cache_mode="partitioned",
+                   cache_capacity_per_device=CACHE_ROWS)
+    spec = GNNSpec(model="sage")
+    tr = Trainer(papers, spec, ccfg, device=dev)
+
+    # (a) the first batch's served block against the host gather
+    batch = next(iter(tr.plan_source_for(0, 1)))
+    plan, cp = batch.plan, batch.cache_plan
+    want = plan_io.gather_features(plan, papers.features)
+    valid = torch.as_tensor(plan.node_mask[-1])
+    distributed = FeatureCache(
+        papers.graph.num_nodes, ccfg.num_devices, CACHE_ROWS,
+        ranking=tr.weights.vertex_weight, mode="distributed",
+        partition_assignment=tr.partition.assignment)
+    served = {}
+    for mode, cache, block, plan_c, miss in (
+        ("partitioned", tr.cache, tr.cache_block, cp, batch.feats),
+        ("distributed", distributed,
+         torch.as_tensor(distributed.build_resident(papers.features), device=dev),
+         None, None),
+    ):
+        if plan_c is None:
+            plan_c = cache.build_plan(plan)
+            miss = plan_io.gather_miss_features(plan_c, papers.features, pin=True)
+        got = sim_serve_features(
+            block, plan_io.cache_plan_to_device(plan_c, dev),
+            plan_io.pad_rows(miss.to(dev, non_blocking=True), plan_c.max_miss),
+        ).cpu()
+        check(got[valid].numpy().tobytes() == want[valid].numpy().tobytes()
+              and not got[~valid].any(),
+              f"cache {mode}: the served block differs from the host gather")
+        bd = plan_c.breakdown()
+        check((bd.remote_hit > 0) == (mode == "distributed"),
+              f"cache {mode}: {bd.remote_hit} remote hits")
+        served[mode] = {"local_hit": bd.local_hit, "remote_hit": bd.remote_hit,
+                        "host_miss": bd.host_miss, "input_rows": bd.total,
+                        "miss_width": plan_c.max_miss, "send_width": plan_c.max_send,
+                        "resident_block_bytes": block.numel() * 4}
+    emit("cache_served", {"rows_per_split": CACHE_ROWS, "first_batch": served,
+                          "valid_rows_byte_equal": True, "padding_rows_zero": True})
+
+    # (c) pinned feature bytes of the first batches, with the cache and without
+    feat_bytes = {"cached": [], "full": []}
+    for i, targets in enumerate(tr.sampler.epoch_targets(0)[:3]):
+        for key, serve in (("cached", True), ("full", False)):
+            tr.producer.serve_cache = serve
+            feat_bytes[key].append(tr.producer.build(0, i, targets).feats.nbytes)
+    tr.producer.serve_cache = True
+
+    # (b) cached runs: bitwise the uncached losses
+    expect = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+              "shuffle_bwd")
+    runs = {}
+    for source, plain in (("serial", serial), ("device_pipelined", device_pipelined)):
+        launches, _, st, runs[source] = run_trainer(
+            papers, spec, replace(ccfg, plan_source=source), dev, 3,
+            f"sage cache, {source} source",
+            expect + (("wavefront_expand",) if source != "serial" else ()),
+            epochs=2)
+        for k in total:
+            total[k] += launches[k]
+        check(runs[source] == plain[:6],
+              f"cache: {source} losses {runs[source]} != uncached {plain[:6]}")
+    totals = st.totals()
+    emit("cache", {
+        "rows_per_split": CACHE_ROWS, "cached_equals_uncached": True,
+        "last_epoch_breakdown": {k: totals[k] for k in (
+            "load_local_hit", "load_remote_hit", "load_host_miss", "loaded_rows")},
+        "pinned_feature_bytes": feat_bytes,
+        "resident_block_bytes": tr.cache_block.numel() * 4,
+    })
+    del tr
+
+    # (d) overlap and the cache on the device sources
+    ocfg = replace(ccfg, shuffle_overlap=True, shuffle_chunks=4)
+    both = {}
+    for source in ("device", "device_pipelined"):
+        launches, _, _, both[source] = run_trainer(
+            papers, spec, replace(ocfg, plan_source=source), dev, 3,
+            f"sage overlap + cache, {source} source",
+            expect + ("wavefront_expand",))
+        for k in total:
+            total[k] += launches[k]
+    check(both["device"] == both["device_pipelined"],
+          f"overlap + cache: device and device_pipelined differ {both}")
+
+    # (e) the staged window with overlap and the cache
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.profile_step", "--plan-source",
+         "pipelined", "--overlap-chunks", "4", "--cache-mode", "partitioned",
+         "--cache-capacity", str(CACHE_ROWS)],
+        capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(ROOT / "src")),
+    )
+    check(proc.returncode == 0,
+          f"cache: profile_step failed ({proc.returncode}): {proc.stderr[-2000:]}")
+    prof = _json.loads(proc.stdout.strip().splitlines()[-1])["profile"]
+    copies, steps = prof["h2d_copies"], prof["steps"]
+    check("pageable" not in copies,
+          f"cache: pageable host-to-device copies in the steps: {copies}")
+    pinned = copies.get("pinned", {"count": 0, "device_ms": 0.0})
+    check(pinned["count"] == 2 * steps,
+          f"cache: {pinned['count']} pinned copies for {steps} steps")
+    emit("cache_staging", {
+        "device_equals_device_pipelined": True, "overlap_chunks": 4,
+        "h2d_copies": copies, "pinned_copies_per_step": pinned["count"] / steps,
+        "window_wall_ms": prof["wall_ms"], "window_device_ms": prof["device_ms"],
+        "device_idle_share": prof["device_idle_share"],
+        "wait_ms": prof["wait_ms"], "stage_ms": prof["stage_ms"],
+        "device_sync_ms": prof["device_sync_ms"],
+        "resident_bytes": prof["resident_bytes"],
+    })
+
+
 def main():
     import torch
 
@@ -1593,6 +1989,13 @@ def main():
 
     # ---- 12. tracing ------------------------------------------------------
     tracing_phase(papers, cfg, dev, main_losses["pipelined"])
+
+    # ---- 13. the overlap schedule -----------------------------------------
+    overlap_phase(dev, first, cfg, main_losses["serial"], total)
+
+    # ---- 14. the feature cache --------------------------------------------
+    cache_phase(first, cfg, dev, main_losses["serial"], device_pipelined_losses,
+                total)
 
     for k, r in results.items():
         r["launches"] = total[k]

@@ -7,7 +7,11 @@ transpose of the (owner, needer) axes. The mixed-frontier buffer is
 ``edge_src``, so their values are irrelevant (and receive zero cotangent).
 The send gather's adjoint is ``kernels/shuffle``'s (the CUDA kernel on the
 card), which reads only the valid slots of each (owner, needer) pair.
-The multi-GPU form (``all_to_all_single`` over NCCL) comes with a later slice.
+``chunk_slices`` tiles the overlap schedule's exchange along the feature
+axis; ``sim_serve_features`` assembles the input block from the resident
+feature cache (its gathers and scatter-adds are plain torch ops, as the JAX
+package leaves them to XLA). The multi-GPU form (``all_to_all_single`` over
+NCCL) comes with a later slice.
 """
 from __future__ import annotations
 
@@ -68,3 +72,80 @@ def sim_shuffle(
     send = send_gather(h, send_idx, send_count)  # (P, P, S, F)
     recv = sim_alltoall(send, wire_dtype)
     return torch.cat([h, recv.reshape(P, P * S, F)], dim=1)
+
+
+def chunk_slices(width: int, chunks: int, align: int = 1) -> list[slice]:
+    """Static feature-axis tiling for the chunked overlapped exchange.
+
+    Splits ``[0, width)`` into at most ``chunks`` contiguous slices whose
+    boundaries are multiples of ``align`` (GAT requires head-aligned chunks
+    so each chunk carries whole heads). Python ints only: the tiling is
+    program structure, never data-dependent.
+    """
+    if chunks <= 1 or width <= align:
+        return [slice(0, width)]
+    blocks = width // align  # align divides width at every call site
+    per = -(-blocks // chunks)
+    out = []
+    for start in range(0, blocks, per):
+        lo = start * align
+        hi = min((start + per) * align, width)
+        out.append(slice(lo, hi))
+    return out
+
+
+def _scatter_add_rows(block: torch.Tensor, rows: torch.Tensor,
+                      pos: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Scatter ``rows`` (P, K, F), masked, into ``block`` (P, N, F) at
+    ``pos`` (P, K) by addition, per split.
+
+    Valid positions are written by exactly one source and start at 0.0, so
+    the add is exact in any order (also the order of the card's atomics);
+    masked (padding) rows contribute 0.0 at row 0, also exact. This is what
+    makes the served feature block equal to a full host gather whatever the
+    padding widths.
+    """
+    P, N, F = block.shape
+    split = torch.arange(P, device=block.device)[:, None]
+    idx = (pos.long() + split * N).reshape(-1)
+    vals = (rows * mask[:, :, None].to(rows.dtype)).reshape(-1, F)
+    return block.reshape(P * N, F).index_add(0, idx, vals).reshape(P, N, F)
+
+
+def sim_serve_features(
+    cache_block: torch.Tensor,
+    cplan: dict,
+    miss_feats: torch.Tensor,
+    wire_dtype: str | None = None,
+) -> torch.Tensor:
+    """Assemble the input-feature block from the resident cache (sim mode).
+
+    cache_block -- (P, C, F) device-resident rows (trainer setup, static)
+    cplan       -- device tensors of a ``graph.cache.CachePlan``
+                   (``plan_io.cache_plan_to_device``)
+    miss_feats  -- (P, M, F) host-gathered miss rows (padding rows zeroed)
+    wire_dtype  -- wire format of the remote-hit all-to-all; fp32 keeps the
+                   served block equal to ``plan_io.load_features``, bf16/fp16
+                   quantize only the remotely fetched rows
+    returns     -- (P, N_L, F), equal to ``plan_io.load_features`` when the
+                   wire is fp32
+    """
+    P = cache_block.shape[0]
+    split = torch.arange(P, device=cache_block.device)[:, None]
+    feats = cache_block[split, cplan["local_slot"].long()]  # (P, N, F)
+    feats = feats * cplan["local_mask"][:, :, None].to(feats.dtype)
+    if cplan["send_slot"].shape[-1]:
+        # remote hits ride the same all-to-all as the layer shuffles: gather
+        # the (P, P, Sc, F) send buffer from owner blocks, transpose the
+        # (owner, needer) axes, scatter into needer positions
+        send = cache_block[split[:, :, None], cplan["send_slot"].long()]
+        recv = sim_alltoall(send, wire_dtype)  # (P_needer, P_owner, Sc, F)
+        feats = _scatter_add_rows(
+            feats, recv.reshape(P, -1, feats.shape[-1]),
+            cplan["recv_pos"].reshape(P, -1), cplan["recv_mask"].reshape(P, -1),
+        )
+    if miss_feats.shape[1]:
+        feats = _scatter_add_rows(
+            feats, miss_feats, cplan["miss_pos"], cplan["miss_mask"]
+        )
+    return feats

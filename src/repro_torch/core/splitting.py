@@ -21,10 +21,12 @@ of NCCL's variable-size all-to-allv):
     via ``edge_src``. Remote rows arrive via one all-to-all of the
     ``(P, S_i, F)`` send buffer built with ``send_idx``.
 
-A numpy copy of ``repro.core.splitting`` for the blocking split path: the
-plans it builds are field-for-field equal to the JAX package's
-(``tests/test_torch_trainer.py``). The data-parallel plan, the overlap
-schedule's local/remote edge halves and hot-vertex replication come with the
+A numpy copy of ``repro.core.splitting`` for the split path, with the
+overlap schedule's local/remote edge halves (``split_edge_halves``,
+``build_split_plan(with_halves=True)``, their repad): the plans it builds are
+field-for-field equal to the JAX package's (``tests/test_torch_trainer.py``,
+``tests/test_torch_overlap.py``). The data-parallel plan and hot-vertex
+replication (``num_replicated``, the replicated block's region) come with the
 port's later slices.
 """
 from __future__ import annotations
@@ -34,7 +36,11 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.graph.sampling import MiniBatchSample
-from repro_torch.kernels.gather_segsum.layout import AGG_ROWS, layer_layout
+from repro_torch.kernels.gather_segsum.layout import (
+    AGG_ROWS,
+    layer_layout,
+    packed_layout,
+)
 
 
 def pad_axis(a: np.ndarray, axis: int, size: int) -> np.ndarray:
@@ -113,6 +119,35 @@ class LayerPlan:
     seg_offsets: np.ndarray  # (P, N_i + 1) int32 CSR offsets, dst-sorted order
     pack_perm: np.ndarray  # (P, DB, EB) int32 slot -> edge idx (pad: E)
     pack_dst: np.ndarray  # (P, DB, EB) int32 slot -> dst - db*R (pad: R)
+    # --- local/remote edge halves (DESIGN.md §3a, overlap schedule) -------
+    # The same edge set partitioned by source locality, so the overlapped
+    # executor can aggregate the local half from its own row block while the
+    # all-to-all for the remote half is still in flight. Each half carries
+    # its own edge-order arrays, its position in the full edge axis
+    # (``*edge_ids`` — used to slice per-edge quantities like GAT's alpha),
+    # and its own repad-stable packed layout for the fused kernels. Local
+    # sources index the local block directly (``< n_local``); remote sources
+    # are *recv-region relative* (``q*S + slot``), so only send-width growth
+    # ever rebases them — never local-region growth. Built only when the
+    # plan builder is asked for them (``with_halves`` — the blocking path
+    # never pays the construction, repad, or transfer cost); ``None`` means
+    # absent, and repad/signature/transfer all skip them consistently.
+    ledge_src: np.ndarray | None = None  # (P, EL) int32, [0, n_local)
+    ledge_dst: np.ndarray | None = None  # (P, EL) int32 depth-i local rows
+    ledge_mask: np.ndarray | None = None  # (P, EL) bool
+    ledge_ids: np.ndarray | None = None  # (P, EL) int32 full-edge-axis pos
+    lpack_perm: np.ndarray | None = None  # (P, DB, LEB) int32 half-edge idx
+    lpack_dst: np.ndarray | None = None  # (P, DB, LEB) int32 dst - db*R
+    redge_src: np.ndarray | None = None  # (P, ER) int32 recv region [0,P*S)
+    redge_dst: np.ndarray | None = None  # (P, ER) int32
+    redge_mask: np.ndarray | None = None  # (P, ER) bool
+    redge_ids: np.ndarray | None = None  # (P, ER) int32 full-edge-axis pos
+    rpack_perm: np.ndarray | None = None  # (P, DB, REB) int32
+    rpack_dst: np.ndarray | None = None  # (P, DB, REB) int32
+
+    @property
+    def has_halves(self) -> bool:
+        return self.ledge_src is not None
 
     @property
     def max_send(self) -> int:
@@ -169,17 +204,93 @@ def _group_by_owner(frontier: np.ndarray, owner_of: np.ndarray, num_devices: int
     return owner, local_idx, counts
 
 
+def split_edge_halves(
+    edge_src: np.ndarray,  # (P, E) int32, mixed-buffer coordinates
+    edge_dst: np.ndarray,  # (P, E) int32
+    edge_mask: np.ndarray,  # (P, E) bool
+    n_local: int,
+    num_out: int,
+    pad_multiple: int = 8,
+    recv_width: int | None = None,
+) -> dict:
+    """Partition a layer's edge set into local-src and remote-src halves.
+
+    Every valid edge lands in exactly one half; the halves are compacted per
+    device and padded to bucketed widths ``EL``/``ER``. Remote sources are
+    stored *recv-region relative* (``edge_src - n_local``), making them
+    invariant under local-region growth — ``repad_plan`` only rebases them
+    when the send width S grows. Returns the ``LayerPlan`` half fields (see
+    the dataclass) including the per-half packed layouts for the fused
+    kernels.
+
+    ``recv_width`` bounds the recv region (``P * S``): sources at or beyond
+    ``n_local + recv_width`` address a static block after it (the JAX
+    package's replicated rows, a later slice of the port), which needs no
+    exchange — so they belong to the **local** half, with their coordinates
+    compacted onto ``concat([local rows, block rows])`` (``recv_width`` is
+    subtracted). ``None`` keeps the two-way split, which is identical
+    whenever no source lies beyond the recv region.
+    """
+    P, _ = edge_src.shape
+
+    def one_half(sel: np.ndarray, vals: np.ndarray) -> tuple:
+        counts = sel.sum(axis=1)
+        W = _roundup(int(counts.max()), pad_multiple)
+        src = np.zeros((P, W), dtype=np.int32)
+        dst = np.zeros((P, W), dtype=np.int32)
+        mask = np.zeros((P, W), dtype=bool)
+        ids = np.zeros((P, W), dtype=np.int32)
+        for p in range(P):
+            idx = np.flatnonzero(sel[p])
+            k = idx.shape[0]
+            ids[p, :k] = idx
+            src[p, :k] = vals[p, idx]
+            dst[p, :k] = edge_dst[p, idx]
+            mask[p, :k] = True
+        pack_perm, pack_dst = packed_layout(dst, mask, num_out)
+        return src, dst, mask, ids, pack_perm, pack_dst
+
+    if recv_width is None:
+        local_sel = edge_mask & (edge_src < n_local)
+        local_vals = edge_src
+        remote_sel = edge_mask & (edge_src >= n_local)
+    else:
+        recv_end = n_local + recv_width
+        is_rep = edge_src >= recv_end
+        local_sel = edge_mask & ((edge_src < n_local) | is_rep)
+        local_vals = np.where(is_rep, edge_src - recv_width, edge_src)
+        remote_sel = edge_mask & (edge_src >= n_local) & ~is_rep
+    local = one_half(local_sel, local_vals)
+    remote = one_half(remote_sel, edge_src - n_local)
+    return {
+        "ledge_src": local[0],
+        "ledge_dst": local[1],
+        "ledge_mask": local[2],
+        "ledge_ids": local[3],
+        "lpack_perm": local[4],
+        "lpack_dst": local[5],
+        "redge_src": remote[0],
+        "redge_dst": remote[1],
+        "redge_mask": remote[2],
+        "redge_ids": remote[3],
+        "rpack_perm": remote[4],
+        "rpack_dst": remote[5],
+    }
+
+
 def build_split_plan(
     sample: MiniBatchSample,
     assignment: np.ndarray,
     num_devices: int,
     pad_multiple: int = 8,
+    with_halves: bool = False,
 ) -> SplitPlan:
     """Split a sampled mini-batch with f_G = ``assignment`` (the online part).
 
     Everything here is O(|sample|) with vectorized numpy — the per-vertex
     mapping is a constant-time lookup, matching the paper's requirement that
-    splitting runs on-the-fly at every iteration.
+    splitting runs on-the-fly at every iteration. ``with_halves`` adds each
+    layer's local/remote edge halves for the overlap schedule.
     """
     P = num_devices
     L = sample.num_layers
@@ -287,6 +398,15 @@ def build_split_plan(
                 self_pos=self_pos,
                 n_local=n_local,
                 **layer_layout(edge_dst, edge_mask, front_size[i]),
+                **(
+                    split_edge_halves(
+                        edge_src, edge_dst, edge_mask, n_local,
+                        front_size[i], pad_multiple,
+                        recv_width=P * S,
+                    )
+                    if with_halves
+                    else {}
+                ),
             )
         )
 
@@ -382,4 +502,34 @@ def repad_plan(plan: SplitPlan, hwm: dict) -> SplitPlan:
         lp.pack_perm = pad_axis_fill(lp.pack_perm, 1, new_db, new_e)
         lp.pack_dst = pad_axis_fill(lp.pack_dst, 2, hwm[ebk], AGG_ROWS)
         lp.pack_dst = pad_axis_fill(lp.pack_dst, 1, new_db, AGG_ROWS)
+        # --- local/remote halves (overlap schedule, DESIGN.md §3a) --------
+        # Edge-axis growth is pure masked appends for both halves. Local
+        # sources index the local block, whose rows never move; remote
+        # sources are recv-region relative (q*S + slot), so only send-width
+        # growth rebases them — exactly the slot re-encoding applied to the
+        # full edge_src above, minus the n_local offset. Plans built without
+        # halves (blocking path) skip this block and never create the
+        # EL/ER/LEB/REB marks.
+        if not lp.has_halves:
+            continue
+        for side in ("l", "r"):
+            hk = f"E{side.upper()}{i}"
+            width = getattr(lp, f"{side}edge_src").shape[1]
+            hwm[hk] = max(hwm.get(hk, 0), width)
+            if side == "r" and old_s > 0 and new_s != old_s:
+                q, slot = np.divmod(lp.redge_src.astype(np.int64), old_s)
+                lp.redge_src = (q * new_s + slot).astype(np.int32)
+            for name in ("edge_src", "edge_dst", "edge_mask", "edge_ids"):
+                attr = f"{side}{name}"
+                setattr(lp, attr, pad_axis(getattr(lp, attr), 1, hwm[hk]))
+            pbk = f"{side.upper()}EB{i}"
+            perm = getattr(lp, f"{side}pack_perm")
+            dst = getattr(lp, f"{side}pack_dst")
+            hwm[pbk] = max(hwm.get(pbk, 0), perm.shape[2])
+            perm = pad_axis_fill(perm, 2, hwm[pbk], hwm[hk])
+            perm = pad_axis_fill(perm, 1, new_db, hwm[hk])
+            dst = pad_axis_fill(dst, 2, hwm[pbk], AGG_ROWS)
+            dst = pad_axis_fill(dst, 1, new_db, AGG_ROWS)
+            setattr(lp, f"{side}pack_perm", perm)
+            setattr(lp, f"{side}pack_dst", dst)
     return plan

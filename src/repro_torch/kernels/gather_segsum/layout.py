@@ -81,6 +81,56 @@ def pack_dst_blocks(
     return pack_perm, pack_dst
 
 
+def block_counts(
+    edge_dst: np.ndarray, edge_mask: np.ndarray, num_out: int,
+    rows: int = AGG_ROWS,
+) -> np.ndarray:
+    """Valid edges per dst row-block: (ceil(num_out / rows),)."""
+    db = max(-(-num_out // rows), 1)
+    return np.bincount(
+        edge_dst[edge_mask].astype(np.int64) // rows, minlength=db
+    )
+
+
+def packed_layout(
+    edge_dst: np.ndarray,  # (P, E) int32
+    edge_mask: np.ndarray,  # (P, E) bool
+    num_out: int,
+    rows: int = AGG_ROWS,
+) -> tuple[np.ndarray, np.ndarray]:
+    """(P, DB, EB) ``pack_perm``/``pack_dst`` with one shared EB across P.
+
+    The packed realization alone — no ``edge_perm``/``seg_offsets`` — for
+    edge *subsets* that already have a full layout elsewhere: the local/
+    remote halves of a layer's edge set (the overlap schedule) carry only
+    their packed blocks, because the combined CSR offsets of the full layout
+    supply the mean denominator. Zero-width edge axes are legal (an
+    all-local or all-remote layer) and yield all-sentinel blocks.
+    """
+    P, E = edge_dst.shape
+    DB = max(-(-num_out // rows), 1)
+    eb = pow2_at_least(
+        int(
+            max(
+                (
+                    block_counts(edge_dst[p], edge_mask[p], num_out, rows).max(
+                        initial=0
+                    )
+                    for p in range(P)
+                ),
+                default=0,
+            )
+        )
+    )
+    pack_perm = np.empty((P, DB, eb), dtype=np.int32)
+    pack_dst = np.empty((P, DB, eb), dtype=np.int32)
+    for p in range(P):
+        pack_perm[p], pack_dst[p] = pack_dst_blocks(
+            edge_dst[p], edge_mask[p], num_out, eb, rows
+        )
+    return pack_perm, pack_dst
+
+
 def layer_layout(
     edge_dst: np.ndarray,  # (P, E) int32
     edge_mask: np.ndarray,  # (P, E) bool

@@ -1,5 +1,7 @@
 """GNN layers behind the paper's layer-centric API (§6), the counterpart of
-``repro/models/gnn/layers.py`` on the blocking split path.
+``repro/models/gnn/layers.py`` on the split path: the blocking schedule, the
+overlap schedule (``_gnn_layer_overlap``) and the cached forward
+(``gnn_forward_cached``).
 
 Each layer consumes the *mixed frontier* buffer (local + received rows, built
 by the shuffle) and the plan's per-edge indices, and produces the local rows of
@@ -18,10 +20,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.shuffle import sim_shuffle
+from repro_torch.core.shuffle import (
+    chunk_slices,
+    sim_alltoall,
+    sim_serve_features,
+    sim_shuffle,
+)
 from repro_torch.kernels import segment_ops
 from repro_torch.kernels.gather_segsum import ops as gather_ops
-from repro_torch.kernels.shuffle import self_gather
+from repro_torch.kernels.shuffle import self_gather, send_gather
 
 AGG_BACKENDS = ("fused", "torch")
 
@@ -40,6 +47,15 @@ class GNNSpec:
     # counterpart of "jnp") materializes the (E, F) per-edge buffer and
     # scatter-adds it.
     agg_backend: str = "fused"
+    # Overlap-aware shuffle schedule (DESIGN.md §3a). ``overlap`` switches
+    # the per-layer step from blocking shuffle->aggregate to split
+    # aggregation: the local-src half is aggregated from the split's own
+    # rows, the remote-src half from the received rows. ``shuffle_chunks``
+    # tiles that exchange along the feature axis. ``wire_dtype`` down-casts
+    # only the rows on the wire (fp32 accumulation everywhere); fp32 wire is
+    # bit-exact.
+    overlap: bool = False
+    shuffle_chunks: int = 1
     wire_dtype: str = "float32"  # float32 | bfloat16 | float16
     dtype: str = "float32"
 
@@ -220,9 +236,177 @@ def gnn_layer_apply(spec, layer_params, mixed, lp, num_out, is_last):
     return out
 
 
+def _half_sum(spec, rows, lp, side, num_out):
+    """Per-split partial sum over one edge half (``side`` in {"l", "r"}) ->
+    (P, num_out, F).
+
+    ``rows (P, M, F)`` is the half's source space: the local row block for
+    "l", the recv region (P*S rows) for "r" (half ``*edge_src`` entries index
+    it directly, and the fused op takes its padding sentinel from its height).
+    A zero-width half contributes exact zeros and launches nothing: an
+    all-local layer and P=1 hit this path.
+    """
+    src = lp[f"{side}edge_src"]
+    P, M, Fr = rows.shape
+    if src.shape[1] == 0:
+        return rows.new_zeros((P, num_out, Fr))
+    if spec.agg_backend == "fused":
+        return gather_ops.gather_segment_sum(
+            rows, src, lp[f"{side}pack_perm"], lp[f"{side}pack_dst"], num_out
+        )
+    split = torch.arange(P, device=rows.device)[:, None]
+    flat_src = (src.long() + split * M).reshape(-1)
+    flat_dst = (lp[f"{side}edge_dst"].long() + split * num_out).reshape(-1)
+    out = segment_ops.segment_sum(
+        rows.reshape(P * M, Fr)[flat_src], flat_dst,
+        lp[f"{side}edge_mask"].reshape(-1), P * num_out,
+    )
+    return out.reshape(P, num_out, Fr)
+
+
+def _half_weighted(spec, rows, alpha_half, lp, side, num_out, dh):
+    """Per-split weighted partial sum over one edge half (GAT) ->
+    (P, num_out, Hc*dh).
+
+    ``rows (P, M, Hc*dh)`` carries whole heads (chunk boundaries are
+    dh-aligned); ``alpha_half (P, EW, Hc)`` is the half's attention weights
+    sliced to the chunk's heads (a strided view: the fused op gathers it into
+    the pack). Padding slots are killed by the half mask (torch) or the pack
+    sentinel (fused), so stale alpha values at masked positions are never
+    read. A zero-width half gives exact zeros and launches nothing.
+    """
+    src = lp[f"{side}edge_src"]
+    P, M, Fr = rows.shape
+    if src.shape[1] == 0:
+        return rows.new_zeros((P, num_out, Fr))
+    if spec.agg_backend == "fused":
+        return gather_ops.gather_weighted_segsum(
+            rows, alpha_half, src, lp[f"{side}pack_perm"],
+            lp[f"{side}pack_dst"], num_out,
+        )
+    E, Hc = alpha_half.shape[1:]
+    split = torch.arange(P, device=rows.device)[:, None]
+    flat_src = (src.long() + split * M).reshape(-1)
+    flat_dst = (lp[f"{side}edge_dst"].long() + split * num_out).reshape(-1)
+    msg = rows.reshape(P * M, Fr)[flat_src].reshape(P * E, Hc, dh)
+    msg = msg * alpha_half.reshape(P * E, Hc)[:, :, None]
+    out = segment_ops.segment_sum(
+        msg.reshape(P * E, Fr), flat_dst, lp[f"{side}edge_mask"].reshape(-1),
+        P * num_out,
+    )
+    return out.reshape(P, num_out, Fr)
+
+
+def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
+    """One GNN layer on all P splits under the overlap schedule (DESIGN.md
+    §3a), the counterpart of the JAX ``_gnn_layer_overlap`` in sim form.
+
+    Split aggregation: the local-src half of the edge set is aggregated from
+    each split's own rows ``h (P, N, F)``, the remote half from the received
+    rows, and the exchange is tiled along the feature axis
+    (``spec.shuffle_chunks``) so each chunk's remote partial depends only on
+    its own recv block; rows travel in ``spec.wire_dtype`` (fp32
+    accumulation throughout). The send buffer is gathered once
+    (``send_gather``); each chunk is a slice of it, so autograd's slice
+    adjoint sums the chunks' cotangents into one ``shuffle_bwd`` call.
+    Equal to the blocking ``gnn_layer_apply`` within fp tolerance (the
+    partial sums reassociate the edge reduction).
+
+    GAT exchanges *transformed* rows (``wh = h @ w``, computed on the owner)
+    plus an eager exchange of the (N, H) a_src scores, so attention weights
+    for all edges are available before any feature chunk lands.
+    """
+    wire = spec.wire_dtype
+    send_idx, send_count = lp["send_idx"], lp["send_count"]
+    self_pos, dst_count = lp["self_pos"], lp["dst_count"]
+    P, N = h.shape[:2]
+    S = send_idx.shape[-1]
+    split = torch.arange(P, device=h.device)[:, None]
+    if spec.model in ("sage", "gcn"):
+        payload = h  # rows travel as raw features, like the blocking path
+        align = 1
+    elif spec.model == "gat":
+        w = layer_params["w"]  # (F_in, H, dh)
+        H, dh = w.shape[1], w.shape[2]
+        wh = torch.einsum("pnf,fhd->pnhd", h, w)
+        payload = wh.reshape(P, N, H * dh)
+        align = dh
+    else:
+        raise ValueError(spec.model)
+    F_out = payload.shape[-1]
+    slices = chunk_slices(F_out, spec.shuffle_chunks, align)
+    has_remote = S > 0 and lp["redge_src"].shape[-1] > 0
+    send = send_gather(payload, send_idx, send_count) if has_remote else None
+
+    def recv_chunk(sl):
+        recv = sim_alltoall(send[..., sl], wire)  # (P, P, S, Fc)
+        return recv.reshape(P, P * S, sl.stop - sl.start)
+
+    if spec.model in ("sage", "gcn"):
+        loc = _half_sum(spec, payload, lp, "l", num_out)
+        if has_remote:
+            rem = torch.cat([_half_sum(spec, recv_chunk(sl), lp, "r", num_out)
+                             for sl in slices], dim=-1)
+        else:
+            rem = torch.zeros_like(loc)
+        seg = lp["seg_offsets"]
+        count = (seg[:, 1:] - seg[:, :-1]).to(loc.dtype)
+        agg = (loc + rem) / count.clamp(min=1.0)[:, :, None]
+        if spec.model == "sage":
+            h_self = self_gather(h, self_pos, dst_count)
+            out = h_self @ layer_params["w_self"] + agg @ layer_params["w_neigh"]
+            out = out + layer_params["b"]
+        else:
+            out = agg @ layer_params["w"] + layer_params["b"]
+    else:  # gat
+        s_src_loc = torch.einsum("pnhd,hd->pnh", wh, layer_params["a_src"])
+        if S > 0:
+            # eager score exchange: H columns per row against H*dh for the
+            # features — the small price that lets every feature chunk
+            # aggregate independently (alpha is feature-independent)
+            s_recv = sim_alltoall(send_gather(s_src_loc, send_idx, send_count),
+                                  wire).reshape(P, P * S, H)
+            s_src_mix = torch.cat([s_src_loc, s_recv], dim=1)
+        else:
+            s_src_mix = s_src_loc
+        wh_self = self_gather(payload, self_pos, dst_count).reshape(
+            P, num_out, H, dh)
+        s_dst_n = torch.einsum("pnhd,hd->pnh", wh_self, layer_params["a_dst"])
+        logits = F.leaky_relu(
+            s_src_mix[split, lp["edge_src"].long()]
+            + s_dst_n[split, lp["edge_dst"].long()],
+            negative_slope=0.2,
+        )  # (P, E, H)
+        E = logits.shape[1]
+        flat_dst = (lp["edge_dst"].long() + split * num_out).reshape(-1)
+        alpha = segment_ops.edge_softmax(
+            logits.reshape(P * E, H), flat_dst, lp["edge_mask"].reshape(-1),
+            P * num_out,
+        ).reshape(P, E, H)
+        loc = _half_weighted(spec, payload, alpha[split, lp["ledge_ids"].long()],
+                             lp, "l", num_out, dh)
+        if has_remote:
+            a_rem = alpha[split, lp["redge_ids"].long()]  # (P, ER, H)
+            rem = torch.cat([
+                _half_weighted(
+                    spec, recv_chunk(sl),
+                    a_rem[:, :, sl.start // dh:sl.stop // dh], lp, "r",
+                    num_out, dh,
+                )
+                for sl in slices
+            ], dim=-1)
+        else:
+            rem = torch.zeros_like(loc)
+        out = loc + rem + layer_params["b"]
+    if not is_last:
+        out = torch.relu(out)
+    return out
+
+
 def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle):
-    """Split-parallel forward pass (Algorithm 2), blocking schedule:
-    shuffle -> gnn layer, per depth.
+    """Split-parallel forward pass (Algorithm 2): shuffle -> gnn layer, per
+    depth, or with ``spec.overlap`` the split local/remote schedule
+    (``_gnn_layer_overlap``) on plans staged with their edge halves.
 
     ``params`` is a list of per-layer dicts (``params[0]`` consumes the input
     features); ``h_input`` is (P, N_L, F_in). Runs depths L-1 .. 0 and returns
@@ -234,9 +418,31 @@ def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle):
     for li in range(L - 1, -1, -1):
         lp = plan_arrays["layers"][li]
         num_out = lp["self_pos"].shape[-1]  # N_i
+        if spec.overlap:
+            h = _gnn_layer_overlap(spec, params[L - 1 - li], h, lp, num_out,
+                                   is_last=(li == 0))
+            continue
         mixed = shuffle_fn(h, lp["send_idx"], spec.wire_dtype,
                            send_count=lp["send_count"])  # (P, M, F)
         h = gnn_layer_apply(
             spec, params[L - 1 - li], mixed, lp, num_out, is_last=(li == 0)
         )
     return h
+
+
+def gnn_forward_cached(spec, params, cache_block, miss_feats, plan_arrays,
+                       shuffle_fn=sim_shuffle):
+    """Split-parallel forward with the loading stage folded into the step.
+
+    Instead of a pre-gathered (P, N_L, F) block, the input features are
+    assembled on the device from the resident cache block ``(P, C, F)`` and
+    the compacted miss rows ``(P, M, F)`` (``core.shuffle.sim_serve_features``
+    over ``plan_arrays["cache"]``): the same numbers as
+    ``gnn_forward(load_features(...))``, while the host link carried only
+    the misses.
+    """
+    h_input = sim_serve_features(
+        cache_block, plan_arrays["cache"], miss_feats,
+        wire_dtype=spec.wire_dtype,
+    )
+    return gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn)

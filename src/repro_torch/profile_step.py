@@ -3,11 +3,16 @@ steady steps of the main path.
 
     PYTHONPATH=src python -m repro_torch.profile_step [--model sage] [--steps 2]
         [--plan-source serial|pipelined|device|device_pipelined] [--shapes]
+        [--overlap-chunks K] [--cache-mode partitioned|distributed]
+        [--cache-capacity C] [--dataset papers-s|tiny]
 
 Builds the papers-s trainer of ``chip_smoke.py``'s main path (SAGE 128 ->
 256 -> 256 -> 16, fan-outs 15,15,15, batch 1024, P=4, presample cut to 2
-epochs) on the chosen plan source (``device*``: sampling on the card;
-``*pipelined``: producer threads build ahead), takes one warm-up epoch of one
+epochs; ``--dataset tiny``: 2 layers, hidden 32, fan-outs 4,4, batch 16) on
+the chosen plan source (``device*``: sampling on the card; ``*pipelined``:
+producer threads build ahead), with the overlap schedule at K chunks
+(``--overlap-chunks``, 0 = blocking) and the feature cache at C rows a split
+(``--cache-mode``, ``--cache-capacity``), takes one warm-up epoch of one
 step, then profiles an epoch of ``--steps`` steps with CPU and CUDA
 activities (a pipelined epoch starts with its pipeline filling). Prints the
 top operators by device time, then one JSON line: the host wall time of the
@@ -81,12 +86,29 @@ def main(argv=None) -> int:
     ap.add_argument("--plan-source", default="serial",
                     choices=("serial", "pipelined", "device", "device_pipelined"))
     ap.add_argument("--shapes", action="store_true")
+    ap.add_argument("--overlap-chunks", type=int, default=0)
+    ap.add_argument("--cache-mode", default="none",
+                    choices=("none", "partitioned", "distributed"))
+    ap.add_argument("--cache-capacity", type=int, default=0)
+    ap.add_argument("--dataset", default="papers-s", choices=("papers-s", "tiny"))
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_step: needs a CUDA card")
-    cfg = TrainConfig(num_devices=4, fanouts=(15, 15, 15), batch_size=1024,
-                      presample_epochs=2, plan_source=args.plan_source)
-    tr = Trainer(make_dataset("papers-s"), GNNSpec(model=args.model), cfg)
+    ds = make_dataset(args.dataset)
+    if args.dataset == "tiny":
+        fanouts, batch = (4, 4), 16
+        spec = GNNSpec(model=args.model, in_dim=ds.spec.feat_dim, hidden_dim=32,
+                       out_dim=ds.spec.num_classes, num_layers=2, num_heads=4)
+    else:
+        fanouts, batch = (15, 15, 15), 1024
+        spec = GNNSpec(model=args.model)
+    cfg = TrainConfig(num_devices=4, fanouts=fanouts, batch_size=batch,
+                      presample_epochs=2, plan_source=args.plan_source,
+                      shuffle_overlap=args.overlap_chunks > 0,
+                      shuffle_chunks=max(args.overlap_chunks, 1),
+                      cache_mode=args.cache_mode,
+                      cache_capacity_per_device=args.cache_capacity)
+    tr = Trainer(ds, spec, cfg)
     tr.train_epoch(max_iters=1)  # warm-up: library init, allocator growth
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
@@ -117,6 +139,12 @@ def main(argv=None) -> int:
     print(json.dumps({"profile": {
         "model": args.model,
         "plan_source": args.plan_source,
+        "dataset": args.dataset,
+        "overlap_chunks": args.overlap_chunks,
+        "cache_mode": args.cache_mode,
+        "cache_capacity": args.cache_capacity,
+        "resident_bytes": (0 if tr.cache_block is None
+                           else tr.cache_block.numel() * 4),
         "steps": len(stats.iters),
         "wall_ms": 1e3 * wall,
         "device_ms": device_us / 1e3,

@@ -1,6 +1,5 @@
 """Plan sources: who builds the per-iteration ``SplitPlan`` and when — the
-counterpart of ``repro/runtime/plan_source.py`` (split mode, no cache
-serving, no mesh).
+counterpart of ``repro/runtime/plan_source.py`` (split mode, no mesh).
 
 GSplit's cooperative pipeline (paper §5) overlaps the host stages of
 mini-batch ``k+1`` (sampling, online splitting, feature loading) with the
@@ -23,7 +22,11 @@ Every batch's draws are keyed by ``(seed, epoch, index)``, so a batch does
 not depend on which thread builds it, and padding to the running high-water
 marks (``repad_plan``) is applied at *delivery* (``finalize``), on the
 ordered side of the queue: padded shapes, signatures and float trajectories
-are bit-for-bit the same from all four sources of one sampling kind.
+are bit-for-bit the same from all four sources of one sampling kind. The
+overlap schedule's edge halves are built by the producer with the plan
+(``with_halves``), and with a serving feature cache the producer compiles
+the batch's ``CachePlan`` and gathers only its miss rows; the cache plan is
+grown to its own marks (``CM``/``CS``) at delivery too.
 """
 from __future__ import annotations
 
@@ -35,12 +38,13 @@ import numpy as np
 import torch
 
 from repro_torch.core.splitting import SplitPlan, build_split_plan, pad_axis, repad_plan
+from repro_torch.graph.cache import CachePlan, FeatureCache, LoadBreakdown
 from repro_torch.faults.retry import RetryPolicy
 from repro_torch.graph.sampling import NeighborSampler
 from repro_torch.obs import NULL_OBS, Obs, note_hwm_growth
 from repro_torch.runtime.prefetch import OrderedPrefetcher
 from repro_torch.runtime.signature import SignatureCache, plan_signature
-from repro_torch.train.plan_io import gather_features, host_tensor, load_labels
+from repro_torch.train.plan_io import host_tensor, load_labels, stage_host_features
 
 
 @dataclass
@@ -48,17 +52,23 @@ class PlanBatch:
     """One fully-loaded mini-batch: plan + host feature/label blocks.
 
     ``feats`` keeps the height the producer gathered; ``plan_io.stage_batch``
-    pads it to the repadded plan's input height on the device.
+    pads it to the repadded plan's input height (with a cache plan: to its
+    miss width) on the device.
     """
 
     index: int
     epoch: int
     plan: SplitPlan
-    feats: torch.Tensor  # (P, N_L, F) float32 host tensor, pinned for a card
+    # (P, N_L, F) float32 host tensor, pinned for a card; with a cache plan
+    # the (P, M, F) miss rows
+    feats: torch.Tensor
     labels: np.ndarray  # (P, N_0) int32, padding zeroed
     t_sample: float
     t_split: float
     t_load: float
+    # where the batch's input rows are served from (None without a cache)
+    breakdown: LoadBreakdown | None = None
+    cache_plan: CachePlan | None = None  # set when the cache serves
     signature: tuple = ()
     sig_hit: bool = False
     # producer-side completion time (perf_counter): delivery minus this is
@@ -69,9 +79,12 @@ class PlanBatch:
 class PlanProducer:
     """Builds one ``PlanBatch``: sample -> online split -> feature load
     (split mode). Sampling runs on ``device_sampler`` when one is given,
-    else on the host sampler. Holds only read-only references, so any thread
-    may build any batch; repadding is left to ``finalize``. With ``pin`` the
-    feature block is gathered into pinned memory, for staging to a card."""
+    else on the host sampler. Holds only read-only references (the cache's
+    tables included), so any thread may build any batch; repadding is left
+    to ``finalize``. With ``pin`` the feature block is gathered into pinned
+    memory, for staging to a card. ``with_halves`` builds the overlap
+    schedule's edge halves; with ``cache`` and ``serve_cache`` the load
+    stage gathers only the cache's misses."""
 
     def __init__(
         self,
@@ -81,7 +94,10 @@ class PlanProducer:
         num_devices: int,
         pad_multiple: int,
         assignment: np.ndarray,
+        cache: FeatureCache | None = None,
+        serve_cache: bool = True,
         device_sampler=None,  # repro_torch.sampler.DeviceSampler | None
+        with_halves: bool = False,  # build the §3a local/remote edge halves
         pin: bool = False,
         obs: Obs = NULL_OBS,
         injector=None,  # repro_torch.faults.FaultInjector | None
@@ -92,7 +108,10 @@ class PlanProducer:
         self.num_devices = num_devices
         self.pad_multiple = pad_multiple
         self.assignment = assignment
+        self.cache = cache
+        self.serve_cache = serve_cache
         self.device_sampler = device_sampler
+        self.with_halves = with_halves
         self.pin = pin
         self.obs = obs
         self.injector = injector
@@ -113,9 +132,13 @@ class PlanProducer:
                 plan = build_split_plan(
                     sample, self.assignment, self.num_devices,
                     pad_multiple=self.pad_multiple,
+                    with_halves=self.with_halves,
                 )
             with obs.span("plan/load") as sp_load:
-                feats = gather_features(plan, self.features, self.pin)
+                cache_plan, feats, breakdown = stage_host_features(
+                    plan, self.features, self.cache, self.serve_cache,
+                    self.pad_multiple, self.pin,
+                )
                 labels = load_labels(plan, self.labels)
             if self.injector is not None:
                 rows = feats.numpy()
@@ -131,8 +154,23 @@ class PlanProducer:
         return PlanBatch(
             index=index, epoch=epoch, plan=plan, feats=feats, labels=labels,
             t_sample=sp_sample.duration, t_split=sp_split.duration,
-            t_load=sp_load.duration, t_built=time.perf_counter(),
+            t_load=sp_load.duration, breakdown=breakdown,
+            cache_plan=cache_plan, t_built=time.perf_counter(),
         )
+
+
+def finalize_cache_plan(cp: CachePlan, hwm: dict, n_l: int) -> CachePlan:
+    """Grow a cache plan to the running high-water marks (``CM``/``CS``).
+
+    The single definition of the cache-plan marks, shared by the delivery
+    side (``finalize``) and the trainer's inline ``train_iter``, so the two
+    stay bit-identical. Its arrays are purely position-based, so growing
+    them only appends masked entries — unlike ``edge_src``, nothing needs
+    rebasing.
+    """
+    hwm["CM"] = max(hwm.get("CM", 0), cp.max_miss)
+    hwm["CS"] = max(hwm.get("CS", 0), cp.max_send)
+    return cp.pad_to(n_l, hwm["CM"], hwm["CS"])
 
 
 def finalize(
@@ -142,22 +180,27 @@ def finalize(
     sig_extra: tuple = (),
     obs: Obs = NULL_OBS,
 ) -> PlanBatch:
-    """Order-sensitive delivery step: repad the plan to the high-water marks,
-    pad the labels to match, and record the signature. Observability rides
-    the delivery point: the queue-dwell span (producer completion -> here),
-    the repad span, any high-water-mark growth, and the signature counters.
-    The feature block is padded on the device (``plan_io.stage_batch``)."""
+    """Order-sensitive delivery step: repad the plan (and its cache plan) to
+    the high-water marks, pad the labels to match, and record the signature.
+    Observability rides the delivery point: the queue-dwell span (producer
+    completion -> here), the repad span, any high-water-mark growth, and the
+    signature counters. The feature block is padded on the device
+    (``plan_io.stage_batch``)."""
     if batch.t_built:
         obs.record("plan/queue_dwell", batch.t_built, time.perf_counter(),
                    {"epoch": batch.epoch, "batch": batch.index})
     before = dict(hwm)
     with obs.span("plan/repad", {"epoch": batch.epoch, "batch": batch.index}) as sp:
         repad_plan(batch.plan, hwm)
+        if batch.cache_plan is not None:
+            finalize_cache_plan(
+                batch.cache_plan, hwm, batch.plan.front_ids[-1].shape[1]
+            )
         batch.labels = pad_axis(batch.labels, 1, batch.plan.front_ids[0].shape[1])
     note_hwm_growth(obs, before, hwm, f"epoch{batch.epoch}/batch{batch.index}")
     batch.t_split += sp.duration
     obs.observe("plan/repad_s", sp.duration)
-    batch.signature = plan_signature(batch.plan, extra=sig_extra)
+    batch.signature = plan_signature(batch.plan, batch.cache_plan, sig_extra)
     if sig_cache is not None:
         batch.sig_hit = sig_cache.record(batch.signature)
         obs.count("sig/hit" if batch.sig_hit else "sig/miss")

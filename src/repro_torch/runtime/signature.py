@@ -17,16 +17,15 @@ def plan_signature(plan: SplitPlan, cache_plan=None, extra: tuple = ()) -> tuple
     """The padded-shape key of a plan, equal to the JAX package's
     ``plan_signature`` of the same plan.
 
-    ``cache_plan`` (cache serving: a later slice) must be None. ``extra``
-    carries static program-structure knobs that change no array shape: the
-    trainer passes ``(wire_dtype, shuffle_chunks, shuffle_overlap)``.
+    The edge halves' widths (EL/ER, LEB/REB) are part of the key when the
+    plan carries them, and the cache plan's widths (N_L, Sc, the miss width
+    M) when serving. ``extra`` carries static program-structure knobs that
+    change no array shape: the trainer passes ``(wire_dtype,
+    shuffle_chunks, shuffle_overlap)``.
     """
-    if cache_plan is not None:
-        raise ValueError("cache serving is not ported yet (a later slice)")
     fronts = tuple(ids.shape for ids in plan.front_ids)
     # the reference's per-layer key, with its replicated-block height (0:
-    # replication is a later slice) and no edge-half widths (the blocking
-    # path builds no halves)
+    # replication is a later slice)
     layers = tuple(
         (
             lp.edge_src.shape,
@@ -35,9 +34,26 @@ def plan_signature(plan: SplitPlan, cache_plan=None, extra: tuple = ()) -> tuple
             lp.pack_perm.shape,
             0,
         )
+        + (
+            (
+                lp.ledge_src.shape,
+                lp.lpack_perm.shape,
+                lp.redge_src.shape,
+                lp.rpack_perm.shape,
+            )
+            if lp.has_halves
+            else ()
+        )
         for lp in plan.layers
     )
-    return (plan.num_devices, plan.num_layers, fronts, layers, (), extra)
+    cache = ()
+    if cache_plan is not None:
+        cache = (
+            cache_plan.local_slot.shape,
+            cache_plan.send_slot.shape,
+            cache_plan.miss_ids.shape,
+        )
+    return (plan.num_devices, plan.num_layers, fronts, layers, cache, extra)
 
 
 class SignatureCache:

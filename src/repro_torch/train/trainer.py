@@ -1,16 +1,20 @@
 """Training runtime for the split-parallel main path — the counterpart of
-``repro/train/trainer.py`` restricted to ``mode="split"`` with the blocking
-per-layer shuffle, on any of the four plan sources.
+``repro/train/trainer.py`` restricted to ``mode="split"``, on any of the four
+plan sources, with the blocking or the overlap schedule and with or without
+the device-resident feature cache.
 
 The P splits run in sim form, as a leading axis on one device. One step:
 stage a delivered plan to device tensors (``plan_io.stage_batch``: pinned,
-``non_blocking`` copies on a card); per layer, shuffle (``sim_shuffle``) and
-aggregate (the fused CUDA kernels by default); masked cross-entropy;
-backward; the repo's own Adam. The loss/accuracy transfer at the end of the
-step is its one sync point. ``train_epoch`` records the spans of the JAX
-package's loop (``step/wait``, ``step/stage``, ``step/device``) through
-``repro_torch.obs`` when ``obs_trace`` is on, and the pipelined sources run
-under the supervision of ``repro_torch.faults``.
+``non_blocking`` copies on a card); with a serving cache, assemble the input
+block from the resident block and the staged miss rows
+(``gnn_forward_cached``); per layer, shuffle (``sim_shuffle``) and aggregate
+(the fused CUDA kernels by default), or under ``shuffle_overlap`` aggregate
+the local and remote edge halves apart over a chunked exchange; masked
+cross-entropy; backward; the repo's own Adam. The loss/accuracy transfer at
+the end of the step is its one sync point. ``train_epoch`` records the spans
+of the JAX package's loop (``step/wait``, ``step/stage``, ``step/device``)
+through ``repro_torch.obs`` when ``obs_trace`` is on, and the pipelined
+sources run under the supervision of ``repro_torch.faults``.
 """
 from __future__ import annotations
 
@@ -26,16 +30,21 @@ from repro_torch.core.presample import presample
 from repro_torch.core.shuffle import WIRE_DTYPES, sim_shuffle
 from repro_torch.core.splitting import build_split_plan, repad_plan
 from repro_torch.faults.retry import RetryPolicy
+from repro_torch.graph.cache import FeatureCache, LoadBreakdown
 from repro_torch.graph.datasets import GraphDataset
 from repro_torch.graph.sampling import NeighborSampler
-from repro_torch.models.gnn.layers import GNN, GNNSpec, gnn_forward
+from repro_torch.models.gnn.layers import GNN, GNNSpec, gnn_forward, gnn_forward_cached
 from repro_torch.obs import NULL_OBS, Obs, note_hwm_growth
-from repro_torch.runtime.plan_source import PlanProducer, make_plan_source
+from repro_torch.runtime.plan_source import (
+    PlanProducer,
+    finalize_cache_plan,
+    make_plan_source,
+)
 from repro_torch.runtime.signature import SignatureCache
 from repro_torch.sampler import DeviceSampler
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train.loss import masked_accuracy, masked_softmax_xent
-from repro_torch.train.plan_io import gather_features, load_labels, stage_batch
+from repro_torch.train.plan_io import load_labels, stage_batch, stage_host_features
 
 log = logging.getLogger("repro_torch.trainer")
 
@@ -55,14 +64,22 @@ class TrainConfig:
     partition_method: str = "gsplit"  # node | edge | rand: later slice
     presample_epochs: int = 10
     pad_multiple: int = -1  # -1 = pow2 bucketing
-    cache_mode: str = "none"  # distributed | partitioned: later slice
+    cache_mode: str = "none"  # none | distributed | partitioned
+    cache_capacity_per_device: int = 0
+    # serve hits from the device-resident block (False = accounting only: a
+    # full host gather every step, the hits and misses counted)
+    cache_serve: bool = True
     # serial | pipelined | device | device_pipelined: the device kinds sample
     # on the card (repro_torch.sampler); train_iter always samples on host
     plan_source: str = "serial"
     pipeline_depth: int = 4  # max in-flight batches (pipelined sources)
     plan_workers: int = 2  # producer threads (pipelined sources)
-    shuffle_overlap: bool = False  # overlap schedule: later slice
-    shuffle_chunks: int = 1  # feature-axis shuffle tiles: later slice
+    # Overlap-aware shuffle schedule (DESIGN.md §3a). Execution knobs: the
+    # trainer copies them onto the model spec, so the layer shuffles and the
+    # cache's remote fetch agree on one wire format. fp32 wire is
+    # bit-exact; bf16/fp16 quantize only bytes on the wire.
+    shuffle_overlap: bool = False  # split local/remote aggregation per layer
+    shuffle_chunks: int = 1  # feature-axis tiles per layer exchange
     wire_dtype: str = "float32"  # float32 | bfloat16 | float16
     replication_budget: float = 0.0  # hot-vertex replication: later slice
     record_telemetry: bool = False  # edge telemetry: later slice
@@ -92,15 +109,15 @@ class TrainConfig:
     seed: int = 0
 
 
+#: feature-cache placements (``graph.cache.FeatureCache``)
+CACHE_MODES = ("none", "distributed", "partitioned")
+
 #: config values the port runs, and the slice each other value waits for
 _SLICE = {
     "mode": (("split",), "the dp and pushpull modes"),
     "partition_method": (("gsplit",), "the partitioner ablation arms"),
     "plan_source": (("serial", "pipelined", "device", "device_pipelined"),
                     "the plan sources"),
-    "cache_mode": (("none",), "cache serving"),
-    "shuffle_overlap": ((False,), "the overlap schedule"),
-    "shuffle_chunks": ((1,), "the overlap schedule"),
     "replication_budget": ((0.0,), "hot-vertex replication"),
     "record_telemetry": ((False,), "hot-vertex replication and telemetry"),
     "num_replicas": ((0,), "the 2-D (replica, split) mesh"),
@@ -121,6 +138,40 @@ def check_config(cfg: TrainConfig) -> None:
         raise ValueError(
             f"unknown wire_dtype {cfg.wire_dtype!r} (one of {WIRE_DTYPES})"
         )
+    if cfg.shuffle_chunks < 1:
+        raise ValueError("shuffle_chunks must be >= 1")
+    if cfg.cache_mode not in CACHE_MODES:
+        raise ValueError(
+            f"unknown cache_mode {cfg.cache_mode!r} (one of {CACHE_MODES})"
+        )
+
+
+#: wire bytes per element for each supported wire dtype (DESIGN.md §3a)
+_WIRE_BYTES = {"float32": 4, "bfloat16": 2, "float16": 2}
+
+
+def modeled_wire_bytes(plan, spec: GNNSpec, wire_dtype: str) -> int:
+    """Bytes the per-layer shuffles put on the wire for one plan (modeled),
+    as the JAX package's ``modeled_wire_bytes`` counts them.
+
+    Counts only *true* cross-split rows (``LayerPlan.shuffle_rows``: padding
+    slots are free on real all-to-allv hardware). Per row, the payload width
+    depends on the schedule: the blocking path ships raw activations
+    (``d_in``); the overlapped GAT path ships the transformed rows plus the
+    eagerly exchanged a_src scores (``d_out + H``).
+    """
+    size = _WIRE_BYTES[wire_dtype]
+    dims = spec.layer_dims()
+    L = spec.num_layers
+    total = 0
+    for li, lp in enumerate(plan.layers):
+        d_in, d_out = dims[L - 1 - li]
+        if spec.model == "gat" and spec.overlap:
+            per_row = d_out + spec.num_heads
+        else:
+            per_row = d_in
+        total += lp.shuffle_rows() * per_row * size
+    return total
 
 
 def resolve_device(device) -> torch.device:
@@ -149,6 +200,9 @@ class IterStats:
     t_wait: float = 0.0  # blocked on the plan source (the step's wait_s)
     t_stage: float = 0.0  # staging + enqueueing the step (stage_s)
     t_device: float = 0.0  # the step's one sync (device_s)
+    # where the input rows were served from (None without a cache)
+    load_breakdown: LoadBreakdown | None = None
+    wire_bytes: int = 0  # modeled shuffle bytes on the wire (see above)
 
 
 @dataclass
@@ -164,9 +218,13 @@ class EpochStats:
         }
         for k in (
             "t_sample", "t_split", "t_load", "t_compute", "loaded_rows",
-            "computed_edges", "shuffle_rows",
+            "computed_edges", "shuffle_rows", "wire_bytes",
         ):
             agg[k] = float(np.sum([getattr(i, k) for i in self.iters]))
+        if self.iters and self.iters[0].load_breakdown is not None:
+            for k in ("local_hit", "remote_hit", "host_miss"):
+                agg[f"load_{k}"] = int(np.sum(
+                    [getattr(i.load_breakdown, k) for i in self.iters]))
         return agg
 
 
@@ -179,6 +237,9 @@ class Trainer:
     ``device*`` plan source the batches are sampled on that device by
     ``self.device_sampler``, whose shards live there. ``injector`` (a
     ``faults.FaultInjector``) fires its schedule in the producers' builds.
+    With ``cache_mode`` set, the ``FeatureCache`` is built once from the
+    presample ranking, and when it serves, its (P, C, F) resident block is
+    put on the device once (``self.cache_block``) and never staged again.
     """
 
     def __init__(
@@ -197,7 +258,10 @@ class Trainer:
         # otherwise (one code path)
         self.obs = Obs(enabled=True) if cfg.obs_trace else NULL_OBS
         # the config's execution knobs are authoritative over the spec's
-        self.spec = spec = replace(spec, wire_dtype=cfg.wire_dtype)
+        self.spec = spec = replace(
+            spec, overlap=cfg.shuffle_overlap,
+            shuffle_chunks=cfg.shuffle_chunks, wire_dtype=cfg.wire_dtype,
+        )
         self.cfg = cfg
         self.sampler = NeighborSampler(
             dataset.graph, dataset.train_ids, list(cfg.fanouts),
@@ -217,6 +281,21 @@ class Trainer:
             weights=self.weights, seed=cfg.seed,
         )
         self.t_partition = time.perf_counter() - t0
+
+        self.cache = None
+        self.cache_block = None  # (P, C, F) device-resident rows when serving
+        if cfg.cache_mode != "none":
+            self.cache = FeatureCache(
+                dataset.graph.num_nodes, cfg.num_devices,
+                cfg.cache_capacity_per_device,
+                ranking=self.weights.vertex_weight, mode=cfg.cache_mode,
+                partition_assignment=self.partition.assignment,
+            )
+            if cfg.cache_serve and self.cache.serves:
+                self.cache_block = torch.as_tensor(
+                    self.cache.build_resident(dataset.features),
+                    device=self.device,
+                )
 
         if model is None:
             gen = torch.Generator().manual_seed(cfg.seed)
@@ -243,22 +322,34 @@ class Trainer:
             self.sampler, dataset.features, dataset.labels,
             num_devices=cfg.num_devices, pad_multiple=cfg.pad_multiple,
             assignment=self.partition.assignment,
+            cache=self.cache,
+            serve_cache=self.cache_block is not None,
             device_sampler=self.device_sampler,
+            with_halves=cfg.shuffle_overlap,
             pin=self.device.type == "cuda",
             obs=self.obs,
             injector=injector,
         )
 
     # ------------------------------------------------------------------ #
-    def _dispatch_step(self, plan, feats: torch.Tensor, labels: np.ndarray):
-        """Stage one repadded plan and enqueue one optimizer step. Returns
-        the step's device values ``(loss, acc, finite)``; ``finite`` is None
-        unless ``skip_nonfinite`` is on."""
+    def _dispatch_step(self, plan, feats: torch.Tensor, labels: np.ndarray,
+                       cache_plan=None):
+        """Stage one repadded plan and enqueue one optimizer step. With a
+        cache plan ``feats`` is the miss block and the step serves its input
+        from the resident block (the cached step: the same loss and update).
+        Returns the step's device values ``(loss, acc, finite)``; ``finite``
+        is None unless ``skip_nonfinite`` is on."""
         feats_d, plan_arrays, labels_d = stage_batch(
-            plan, feats, labels, self.device
+            plan, feats, labels, self.device, cache_plan,
+            with_halves=self.cfg.shuffle_overlap,
         )
         layers = list(self.model.layers)
-        logits = gnn_forward(self.spec, layers, feats_d, plan_arrays, sim_shuffle)
+        if cache_plan is not None:
+            logits = gnn_forward_cached(self.spec, layers, self.cache_block,
+                                        feats_d, plan_arrays, sim_shuffle)
+        else:
+            logits = gnn_forward(self.spec, layers, feats_d, plan_arrays,
+                                 sim_shuffle)
         mask = plan_arrays["target_mask"]
         loss = masked_softmax_xent(logits, labels_d, mask)
         acc = masked_accuracy(logits, labels_d, mask)
@@ -311,19 +402,21 @@ class Trainer:
             )
         return out[0], out[1]
 
-    def _step(self, plan, feats: torch.Tensor, labels: np.ndarray):
+    def _step(self, plan, feats: torch.Tensor, labels: np.ndarray,
+              cache_plan=None):
         """Stage and take one optimizer step inside the ``step`` span;
         returns ``(loss, acc, t_stage, t_device)`` on the host."""
         step_before = self.opt_state.step
         with self.obs.span("step/stage") as sp_stage:
-            loss, acc, finite = self._dispatch_step(plan, feats, labels)
+            loss, acc, finite = self._dispatch_step(plan, feats, labels,
+                                                    cache_plan)
         with self.obs.span("step/device") as sp_dev:
             loss, acc = self._sync_step(loss, acc, finite, step_before)
         self.global_step += 1
         return loss, acc, sp_stage.duration, sp_dev.duration
 
     def _iter_stats(self, plan, loss, acc, t_sample, t_split, t_load,
-                    t_stage, t_device, t_wait=0.0) -> IterStats:
+                    t_stage, t_device, t_wait=0.0, breakdown=None) -> IterStats:
         st = IterStats(
             loss=loss,
             accuracy=acc,
@@ -337,6 +430,8 @@ class Trainer:
             t_wait=t_wait,
             t_stage=t_stage,
             t_device=t_device,
+            load_breakdown=breakdown,
+            wire_bytes=modeled_wire_bytes(plan, self.spec, self.cfg.wire_dtype),
         )
         self._emit_iter_metrics(st)
         return st
@@ -348,8 +443,13 @@ class Trainer:
         if not obs.enabled:
             return
         obs.observe("step/compute_s", st.t_compute)
+        obs.count("wire/bytes", st.wire_bytes)
         obs.count("plan/loaded_rows", st.loaded_rows)
         obs.count("plan/shuffle_rows", st.shuffle_rows)
+        if st.load_breakdown is not None:
+            obs.count("cache/local_hit", st.load_breakdown.local_hit)
+            obs.count("cache/remote_hit", st.load_breakdown.remote_hit)
+            obs.count("cache/host_miss", st.load_breakdown.host_miss)
 
     def train_iter(self, targets: np.ndarray) -> IterStats:
         """One step on ``targets`` with the streamed sampler RNG (draws in
@@ -360,20 +460,29 @@ class Trainer:
         with self.obs.span("plan/split") as sp_split:
             plan = build_split_plan(
                 sample, self.partition.assignment, cfg.num_devices,
-                pad_multiple=cfg.pad_multiple,
+                pad_multiple=cfg.pad_multiple, with_halves=cfg.shuffle_overlap,
             )
             before = dict(self._pad_hwm)
             plan = repad_plan(plan, self._pad_hwm)
         note_hwm_growth(self.obs, before, self._pad_hwm, "train_iter")
         with self.obs.span("plan/load") as sp_load:
-            feats = gather_features(plan, self.ds.features, self.producer.pin)
+            cache_plan, feats, breakdown = stage_host_features(
+                plan, self.ds.features, self.cache,
+                serve_cache=self.cache_block is not None,
+                pad_multiple=cfg.pad_multiple, pin=self.producer.pin,
+            )
+            if cache_plan is not None:
+                # widths follow the same high-water marks as the plan itself
+                finalize_cache_plan(cache_plan, self._pad_hwm,
+                                    plan.front_ids[-1].shape[1])
             labels = load_labels(plan, self.ds.labels)
         with self.obs.span("step", {"wait_s": 0.0}) as step_sp:
-            loss, acc, t_stage, t_device = self._step(plan, feats, labels)
+            loss, acc, t_stage, t_device = self._step(plan, feats, labels,
+                                                      cache_plan)
             step_sp.attrs.update(stage_s=t_stage, device_s=t_device)
         return self._iter_stats(plan, loss, acc, sp_sample.duration,
                                 sp_split.duration, sp_load.duration,
-                                t_stage, t_device)
+                                t_stage, t_device, breakdown=breakdown)
 
     def plan_source_for(self, epoch: int, max_iters: int | None = None,
                         start: int = 0):
@@ -427,7 +536,8 @@ class Trainer:
                     # close the flow arrow from this plan's producer span
                     self.obs.flow_end(("plan", batch.epoch, batch.index))
                     loss, acc, t_stage, t_device = self._step(
-                        batch.plan, batch.feats, batch.labels
+                        batch.plan, batch.feats, batch.labels,
+                        batch.cache_plan,
                     )
                     step_sp.attrs.update(
                         wait_s=sp_wait.duration, stage_s=t_stage,
@@ -436,6 +546,7 @@ class Trainer:
                 stats.iters.append(self._iter_stats(
                     batch.plan, loss, acc, batch.t_sample, batch.t_split,
                     batch.t_load, t_stage, t_device, sp_wait.duration,
+                    batch.breakdown,
                 ))
         finally:
             source.close()

@@ -9,7 +9,10 @@ held bitwise against their plain versions on a CPU copy, where
 weight adjoint, which sums each head in the tree order its plain version
 states. The packed segment sum bitwise on a CPU copy, the packed softmax
 3e-5, the wavefront expansion bitwise, the shuffle adjoint bitwise on a CPU
-copy. Each kernel must also repeat bit for bit.
+copy. Each kernel must also repeat bit for bit. The overlap schedule's edge
+halves (the local rows, the recv region, a GAT head chunk) take the same
+kernels, held the same way; a zero-width half launches nothing; the served
+feature block equals the host gather.
 """
 import copy
 
@@ -308,8 +311,10 @@ def test_cuda_packed_kernels_match_plain(cuda, seed, E, W, N, keep, dtype):
     packed = ss_ops.gather_packed(x, pack["perm"]).contiguous()
     tol = TOL if dtype == torch.float32 else dict(rtol=1e-2, atol=1e-2)
     out = ss_ops.segment_sum_packed(packed, local, R, EB)
-    want = ss_ops.segment_sum_packed_ref(packed, local, R, EB)
-    torch.testing.assert_close(out.float(), want.float(), **tol)
+    # the plain version on a CPU copy: on the card its index_add_ adds in the
+    # order its atomics take, which moves a row of ~2700 slots by ~1e-5
+    want = _on_cpu(ss_ops.segment_sum_packed_ref, packed, local, R, EB)
+    torch.testing.assert_close(out.float().cpu(), want.float(), **tol)
     assert torch.equal(out, ss_ops.segment_sum_packed(packed, local, R, EB))
     alpha = es_ops.edge_softmax_packed(packed, local, R, EB)
     want = es_ops.edge_softmax_packed_ref(packed, local, R, EB)
@@ -695,3 +700,219 @@ def test_cuda_guarded_step_freezes_params_on_poison(cuda):
     assert poisoned.opt_state.step == once.opt_state.step == 1
     for a, b in zip(poisoned._opt_tensors(), once._opt_tensors(), strict=True):
         assert torch.equal(a, b)
+
+
+# --------------------------------------------------------------------- #
+# the overlap schedule's halves and cache serving
+# --------------------------------------------------------------------- #
+def _halves_plan(num_devices=4):
+    """A tiny-graph plan with edge halves, repadded after a larger batch (so
+    its half packs and its remote sources grew and were rebased), with the
+    dataset."""
+    from repro_torch.core import build_split_plan, partition_graph, presample
+    from repro_torch.core import repad_plan
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.graph.sampling import sample_minibatch
+
+    ds = make_dataset("tiny")
+    w = presample(ds.graph, ds.train_ids, [4, 4], 32, num_epochs=1)
+    part = partition_graph(ds.graph, num_devices, method="gsplit", weights=w)
+    hwm, plan = {}, None
+    for k, n in enumerate((96, 32)):
+        mb = sample_minibatch(ds.graph, ds.train_ids[:n], [4, 4],
+                              np.random.default_rng(k))
+        plan = repad_plan(build_split_plan(mb, part.assignment, num_devices,
+                                           with_halves=True), hwm)
+    return plan, ds, part, w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side", ["l", "r"])
+@pytest.mark.parametrize("layer", [0, 1])
+def test_cuda_half_kernels_match_plain(cuda, side, layer):
+    """The gather_segsum kernels on an edge half's own pack: the local half
+    over the split's rows, the remote half over the recv region (P*S rows,
+    whose height is the pack's sentinel); forward and row adjoint, unweighted
+    and weighted with a GAT head chunk (a strided slice of alpha, packed as
+    ``ops.gather_weighted_segsum`` packs it), and the weight adjoint: each
+    bitwise against its plain version on a CPU copy, each repeating."""
+    from repro_torch.kernels.gather_segsum.ops import AGG_ROWS as _R
+
+    plan, _, _, _ = _halves_plan()
+    lp = plan.layers[layer]
+    P = lp.edge_src.shape[0]
+    M = lp.n_local if side == "l" else P * lp.send_idx.shape[2]
+    num_out = lp.self_pos.shape[1]
+    src = torch.as_tensor(getattr(lp, f"{side}edge_src"), device=cuda)
+    perm = torch.as_tensor(getattr(lp, f"{side}pack_perm"), device=cuda)
+    pd = torch.as_tensor(getattr(lp, f"{side}pack_dst"), device=cuda)
+    assert src.shape[1] > 0 and M > 0
+    pack_src = ops._pack_src(src, perm, pd, M)
+    gen = torch.Generator(device=cuda).manual_seed(layer)
+    H, dh = 4, 8
+    rows = torch.randn(P, M, 2 * dh, device=cuda, generator=gen)  # 2 heads
+    g = torch.randn(P, num_out, 2 * dh, device=cuda, generator=gen)
+    alpha = torch.randn(P, src.shape[1], H, device=cuda, generator=gen)
+    chunk = alpha[:, :, 1:3]  # heads 1 and 2: a strided view
+    flat = perm.reshape(P, -1).long().clamp(0, src.shape[1] - 1)
+    valid = (pd.reshape(P, -1) < _R).float()
+    w = (torch.gather(chunk, 1, flat[:, :, None].expand(-1, -1, 2))
+         * valid[:, :, None]).contiguous()
+    for weights in (None, w):
+        out = kernel.gather_segsum_fwd(rows, pack_src, pd, weights, num_out)
+        assert torch.equal(out.cpu(), _on_cpu(
+            ref.gather_segsum_fwd_packed, rows, pack_src, pd, weights, num_out))
+        assert torch.equal(out, kernel.gather_segsum_fwd(
+            rows, pack_src, pd, weights, num_out))
+        gm = kernel.gather_segsum_bwd_mixed(g, pack_src, pd, weights, M)
+        assert torch.equal(gm.cpu(), _on_cpu(
+            ref.gather_segsum_bwd_mixed_packed, g, pack_src, pd, weights, M))
+        assert torch.equal(gm, kernel.gather_segsum_bwd_mixed(
+            g, pack_src, pd, weights, M))
+    gw = kernel.gather_segsum_bwd_w(rows, g, pack_src, pd, 2)
+    assert torch.equal(gw.cpu(), _on_cpu(
+        ref.gather_segsum_bwd_w_packed, rows, g, pack_src, pd, 2))
+    assert torch.equal(gw, kernel.gather_segsum_bwd_w(rows, g, pack_src, pd, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["sage", "gat"])
+def test_cuda_zero_width_half_gives_zeros_and_launches_nothing(cuda, model):
+    """P=1: every layer's remote half has width 0. Its partial sums are exact
+    zeros, no kernel launches for them, and the overlap forward equals the
+    blocking one within 5e-5."""
+    from dataclasses import replace
+
+    from repro_torch.models.gnn import GNN, GNNSpec, gnn_forward
+    from repro_torch.models.gnn.layers import _half_sum, _half_weighted
+    from repro_torch.train import plan_io
+
+    plan, ds, _, _ = _halves_plan(num_devices=1)
+    pa = plan_io.plan_to_device(plan, cuda, with_halves=True)
+    lp = pa["layers"][0]
+    assert lp["redge_src"].shape[1] == 0
+    spec = GNNSpec(model=model, in_dim=ds.spec.feat_dim, hidden_dim=16,
+                   out_dim=ds.spec.num_classes, num_layers=2, num_heads=2)
+    rows = torch.randn(1, 10, 8, device=cuda)
+    kernel.reset_launches()
+    for got in (_half_sum(spec, rows, lp, "r", 7),
+                _half_weighted(spec, rows, rows[:, :0, :2], lp, "r", 7, 4)):
+        assert got.shape == (1, 7, 8) and not got.any()
+    assert all(v == 0 for v in kernel.LAUNCHES.values())
+    gnn = GNN(spec, generator=torch.Generator().manual_seed(0)).to(cuda)
+    feats = torch.as_tensor(plan_io.load_features(plan, ds.features), device=cuda)
+    with torch.no_grad():
+        want = gnn_forward(spec, list(gnn.layers), feats, pa)
+        got = gnn_forward(replace(spec, overlap=True, shuffle_chunks=2),
+                          list(gnn.layers), feats, pa)
+    torch.testing.assert_close(got, want, rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,capacity", [("partitioned", 24),
+                                           ("distributed", 12),
+                                           ("distributed", 1_000_000)])
+def test_cuda_serve_features_equals_load_features(cuda, mode, capacity):
+    """The served block on the card (index_add_'s atomics in whatever order
+    they take) equals the host gather; a repeat is byte-equal."""
+    from repro_torch.core.shuffle import sim_serve_features
+    from repro_torch.graph.cache import FeatureCache
+    from repro_torch.train import plan_io
+
+    plan, ds, part, w = _halves_plan()
+    cache = FeatureCache(ds.graph.num_nodes, 4, capacity,
+                         ranking=w.vertex_weight, mode=mode,
+                         partition_assignment=part.assignment)
+    cp = cache.build_plan(plan)
+    assert (cp.breakdown().remote_hit > 0) == (mode == "distributed")
+    block = torch.as_tensor(cache.build_resident(ds.features), device=cuda)
+    miss = plan_io.gather_miss_features(cp, ds.features, pin=True).to(cuda)
+    cpd = plan_io.cache_plan_to_device(cp, cuda)
+    got = sim_serve_features(block, cpd, miss)
+    want = torch.as_tensor(plan_io.load_features(plan, ds.features))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(got, sim_serve_features(block, cpd, miss))
+
+
+def _overlap_cache_trainer(cuda, model, source, device=None, model0=None):
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    ds = make_dataset("tiny")
+    spec = GNNSpec(model=model, in_dim=ds.spec.feat_dim, hidden_dim=32,
+                   out_dim=ds.spec.num_classes, num_layers=2, num_heads=4)
+    cfg = TrainConfig(num_devices=4, fanouts=(4, 4), batch_size=16,
+                      presample_epochs=1, plan_source=source, plan_workers=2,
+                      pipeline_depth=2, stall_timeout_s=60.0, lr=5e-3,
+                      shuffle_overlap=True, shuffle_chunks=2,
+                      cache_mode="partitioned", cache_capacity_per_device=24)
+    return Trainer(ds, spec, cfg, device=device or cuda,
+                   model=copy.deepcopy(model0) if model0 is not None else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat"])
+def test_cuda_overlap_cache_trainer_matches_cpu(cuda, model):
+    """Three steps with overlap (2 chunks) and the partitioned cache on the
+    card and on the CPU from the same weights agree to rtol 1e-4, and the
+    card's run launched the kernels, the shuffle adjoint once a chunked
+    send (SAGE: the send and the self rows of layer 0; GCN: the send; GAT:
+    send, scores and self rows of both layers)."""
+    from repro_torch.models.gnn import GNN
+
+    tr = _overlap_cache_trainer(cuda, model, "serial", device="cpu")
+    model0 = GNN(tr.spec, generator=torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", cuda):
+        tr = _overlap_cache_trainer(cuda, model, "serial", dev, model0)
+        kernel.reset_launches()
+        sh_kernel.reset_launches()
+        losses[str(dev)] = [s.loss for s in tr.train_epoch(max_iters=3).iters]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert sh_kernel.LAUNCHES["shuffle_bwd"] == 3 * {"sage": 2, "gcn": 1, "gat": 6}[model]
+    assert kernel.LAUNCHES["gather_segsum_fwd"] > 0
+    assert kernel.LAUNCHES["gather_segsum_bwd_mixed"] > 0
+    assert (kernel.LAUNCHES["gather_segsum_bwd_w"] > 0) == (model == "gat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("serial,pipelined", [
+    ("serial", "pipelined"),
+    ("device", "device_pipelined"),
+])
+def test_cuda_overlap_cache_pipelined_equals_serial_bitwise(cuda, serial,
+                                                            pipelined):
+    runs = []
+    for source in (serial, pipelined):
+        tr = _overlap_cache_trainer(cuda, "gat", source)
+        runs.append([it.loss for _ in range(2) for it in tr.train_epoch(3).iters])
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_cached_overlap_window_stays_at_two_pinned_copies(cuda):
+    """``profile_step`` (a process of its own) over two pipelined steps with
+    overlap and the partitioned cache on the tiny graph: no pageable
+    host-to-device copy, two pinned ones a step (the packed plan with its
+    halves, cache plan and labels; the miss block)."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run(
+        [sys.executable, "-m", "repro_torch.profile_step", "--dataset", "tiny",
+         "--plan-source", "pipelined", "--overlap-chunks", "2",
+         "--cache-mode", "partitioned", "--cache-capacity", "24"],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, PYTHONPATH=str(root / "src")),
+    )
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    prof = json.loads(proc.stdout.strip().splitlines()[-1])["profile"]
+    copies = prof["h2d_copies"]
+    assert "pageable" not in copies, copies
+    assert copies["pinned"]["count"] == 2 * prof["steps"], copies
+    assert prof["resident_bytes"] > 0

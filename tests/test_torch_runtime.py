@@ -36,6 +36,7 @@ from repro_torch.core import build_split_plan as t_build_split_plan
 from repro_torch.core import partition_graph as t_partition_graph
 from repro_torch.core import presample as t_presample
 from repro_torch.core import repad_plan as t_repad_plan
+from repro_torch.graph.cache import FeatureCache as TFeatureCache
 from repro_torch.graph.datasets import make_dataset as t_make_dataset
 from repro_torch.graph.sampling import NeighborSampler as TNeighborSampler
 from repro_torch.models.gnn import GNNSpec as TGNNSpec
@@ -304,8 +305,14 @@ def test_plan_signature_matches_reference():
         assert sig == j_plan_signature(plan, extra=extra)
         assert ours.record(sig) == theirs.record(j_plan_signature(plan, extra=extra))
     assert ours.as_dict() == theirs.as_dict()
-    with pytest.raises(ValueError, match="cache serving"):
-        plan_signature(tplan, cache_plan=object())
+    # a cached plan keys on its cache plan's widths, as in the reference
+    ds = _plans(n=1)[0][2]
+    cache = TFeatureCache(ds.graph.num_nodes, 4, 16,
+                          ranking=np.arange(ds.graph.num_nodes, dtype=np.float64),
+                          mode="distributed")
+    cp = cache.build_plan(tplan)
+    assert plan_signature(tplan, cp, extra) == j_plan_signature(plan, cp, extra)
+    assert plan_signature(tplan, cp, extra) != plan_signature(tplan, extra=extra)
 
 
 # --------------------------------------------------------------------- #
