@@ -68,7 +68,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
 5. models  -- GCN and GAT (4 heads) take 2 steps each at the same widths.
 6. parity  -- tiny graph, 2 layers, hidden 64: 3 steps on the card (kernels)
               and on the CPU (plain versions) from the same weights agree to
-              rtol 1e-4, for all three models.
+              rtol 1e-4: split for all three models, split with replication
+              (10% of the rows) for SAGE and GAT, dp for all three.
 7. device source -- the main path's SAGE run with ``plan_source="device"``
               and ``"device_pipelined"`` (producer threads sampling on streams
               of their own): sampling on the card (the cooperative sampler and
@@ -143,14 +144,46 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               pipelined steps with overlap and the cache: no pageable
               host-to-device copy, two pinned ones a step, and the window's
               device ms and idle share.
+15. replication -- hot-vertex replication at 5% of papers-s's rows (1,638
+              rows resident, 0.84 MB), phase 4's SAGE widths. (a) The first
+              batch built with the set: its shuffle rows fall; forward, loss
+              and masked-xent gradients replicated vs unreplicated on the
+              card, bitwise for blocking SAGE and GCN, GAT within 2e-5 (loss)
+              and 5e-4 (gradients); overlap at 4 chunks with replication
+              within 5e-5 / 3e-4 of blocking with replication; the three
+              gather_segsum kernels and the walk at every layer of the
+              batch (the input layer's rows [local][recv][replicated])
+              bitwise against their plain versions on a CPU copy; the
+              host time of the four split-quality counters. (b) The serial source, 2 epochs
+              of 3 steps: losses bitwise phase 4's, ``wire_bytes`` and
+              ``cross_edge_fraction`` lower at every step. (c) device and
+              device_pipelined: bitwise equal to each other and to phase
+              7's losses. (d) With ``record_telemetry`` on the device
+              source: ``refine_partition()`` after epoch 1; the weighted cut
+              under the telemetry weights must not rise (printed before and
+              after, with the replicated rows and ``cross_edge_fraction``);
+              an epoch on the rebuilt sampler launches the wavefront kernel
+              its layers times its sampling runs, with finite losses.
+16. dp      -- ``mode="dp"`` at phase 4's widths, P = 4 micro-batches of
+              256. The first dp batch as the trainer builds it (S = 0, dp's
+              larger N): the three gather_segsum kernels and the walk at
+              every layer, and ``shuffle_bwd`` at layer 1's self rows,
+              bitwise against their plain versions on a CPU copy; the
+              trainer's first step loads its rows. Serial, pipelined and
+              ``pushpull`` 2 epochs of 3 steps,
+              bitwise equal; GCN (no shuffle adjoint at all) and GAT 2 steps;
+              ``plan_source="device"`` raises ``ValueError``. Prints the
+              loaded rows, computed edges, shuffle rows, load imbalance and
+              step ms beside phase 4's split steps.
 
 Launch counts are set to 0 just before each trainer run and the serve run
 and read just after; a kernel of the run's path that was never launched
 fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
 adjoint's ``csr_builds``) or whose shuffle-adjoint launches differ from its
-steps times the gathers a step differentiates (``SHUFFLE_BWD_PER_STEP``;
-``SHUFFLE_BWD_OVERLAP`` under the overlap schedule). The packed segment kernels run on no trainer path
+steps times the gathers a step differentiates, by mode and model
+(``SHUFFLE_BWD_PER_STEP``; ``SHUFFLE_BWD_OVERLAP`` under the overlap
+schedule: a dp step sends nothing, so only its self rows count). The packed segment kernels run on no trainer path
 (``segment_ops``'s packed backend, which the model does not call): their
 counts come from one call of ``segment_ops.segment_sum``/``edge_softmax``
 with ``backend="packed"``, driven with the counts at 0. The last lines are
@@ -158,6 +191,7 @@ the ``kernels`` JSON, the nvidia-smi line and the result line.
 """
 import contextlib
 import copy
+import gc
 import json
 import os
 import statistics
@@ -203,19 +237,30 @@ KERNELS = {
 LIBRARIES = ("gather_segsum", "wavefront_expand", "segsum_packed",
              "edge_softmax_packed", "flash_decode", "shuffle_bwd")
 FANOUTS = (15, 15, 15)
-#: ``shuffle_bwd`` launches a training step makes: the shuffle's, one a
-#: layer but the input layer's (its rows take no gradient), and the self
-#: rows' (SAGE: likewise; GAT: every layer, whose weighted rows take one)
-SHUFFLE_BWD_PER_STEP = {"sage": 2 * (len(FANOUTS) - 1), "gcn": len(FANOUTS) - 1,
-                        "gat": 2 * len(FANOUTS) - 1}
-#: under the overlap schedule GAT sends transformed rows (w takes a
+L = len(FANOUTS)
+#: ``shuffle_bwd`` launches a training step makes, by mode and model. Split:
+#: the shuffle's, one a layer but the input layer's (its rows take no
+#: gradient), and the self rows' (SAGE: likewise; GAT: every layer, whose
+#: weighted rows take one); replication changes none. dp and pushpull send
+#: nothing (S = 0: ``sim_shuffle`` returns its rows), so only the self rows'
+#: remain: SAGE L-1, GAT L, GCN none.
+SHUFFLE_BWD_PER_STEP = {
+    "split": {"sage": 2 * (L - 1), "gcn": L - 1, "gat": 2 * L - 1},
+    "dp": {"sage": L - 1, "gcn": 0, "gat": L},
+}
+SHUFFLE_BWD_PER_STEP["pushpull"] = SHUFFLE_BWD_PER_STEP["dp"]
+#: under the overlap schedule split GAT sends transformed rows (w takes a
 #: gradient at every layer) and its a_src scores: send, scores and self rows
 #: at every layer, one launch each, whatever the chunks (autograd's slice
-#: adjoint sums the chunks' cotangents); SAGE and GCN launch as blocking
-SHUFFLE_BWD_OVERLAP = {**SHUFFLE_BWD_PER_STEP, "gat": 3 * len(FANOUTS)}
+#: adjoint sums the chunks' cotangents); SAGE and GCN launch as blocking, and
+#: so does every model in dp (nothing is sent)
+SHUFFLE_BWD_OVERLAP = {**SHUFFLE_BWD_PER_STEP,
+                       "split": {**SHUFFLE_BWD_PER_STEP["split"], "gat": 3 * L}}
 OVERLAP_TOL = dict(rtol=5e-5, atol=5e-5)
 WIRE_TOL = dict(rtol=5e-2, atol=5e-2)
 CACHE_ROWS = 2048  # a quarter of papers-s's 32,768 nodes across P=4
+REP_BUDGET = 0.05  # replicated rows: 5% of papers-s's nodes (1,638)
+GAT_REP_TOL = dict(rtol=5e-4, atol=5e-4)  # GAT, replicated vs not: grads
 
 
 def counters():
@@ -374,8 +419,8 @@ def papers_first_batch(seed=0):
     # kernels of phase 3 do not read them
     plan = build_split_plan(sampler.sample_batch(targets, 0, 0),
                             part.assignment, 4, pad_multiple=-1, with_halves=True)
-    return SimpleNamespace(ds=ds, part=part, sampler=sampler, targets=targets,
-                           plan=repad_plan(plan, {}))
+    return SimpleNamespace(ds=ds, weights=w, part=part, sampler=sampler,
+                           targets=targets, plan=repad_plan(plan, {}))
 
 
 def layer_pack(lp, P, dev):
@@ -948,22 +993,27 @@ def flash_decode_phase(dev, results):
 def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
     """One trainer run of ``epochs`` epochs of ``steps`` steps, with launch
     counts set to 0 just before and read just after; fails if a kernel the
-    path needs was never launched. Returns the launches, the trainer, the
-    last epoch's stats and every step's loss."""
+    path needs was never launched. Returns the launches, the trainer, every
+    epoch's stats and every step's loss."""
     import numpy as np
     import torch
 
     from repro_torch.train.trainer import Trainer
 
+    # memory is read against what earlier runs left allocated: the trainer's
+    # resident state (weights, a replicated or cached block) and the run's peak
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     tr = Trainer(ds, spec, cfg, device=dev)
     t_setup = time.perf_counter() - t0
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated() - base
     reset_launches()
     epoch_stats = [tr.train_epoch(max_iters=steps) for _ in range(epochs)]
     launches = read_launches()
-    st = epoch_stats[-1]
     iters = [it for e in epoch_stats for it in e.iters]
     losses = [it.loss for it in iters]
     check(len(losses) == steps * epochs,
@@ -976,7 +1026,7 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
           f"{name}: {launches['src_sorted_csr']} walk builds for "
           f"{launches['gather_segsum_bwd_mixed']} row adjoints")
     per_step = (SHUFFLE_BWD_OVERLAP if cfg.shuffle_overlap
-                else SHUFFLE_BWD_PER_STEP)[spec.model]
+                else SHUFFLE_BWD_PER_STEP)[cfg.mode][spec.model]
     want = len(iters) * per_step
     check(launches["shuffle_bwd"] == want,
           f"{name}: {launches['shuffle_bwd']} shuffle_bwd launches, expected {want}")
@@ -997,7 +1047,8 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
         "stage_ms": [1e3 * it.t_stage for it in iters],
         "device_ms": [1e3 * it.t_device for it in iters],
         "epoch_wall_ms": [1e3 * e.t_wall for e in epoch_stats],
-        "max_memory_allocated": torch.cuda.max_memory_allocated(),
+        "resident_bytes": resident,
+        "peak_bytes": torch.cuda.max_memory_allocated() - base,
         "launches": launches,
         "source_stats": [e.pipeline for e in epoch_stats],
         "shuffle_overlap": cfg.shuffle_overlap,
@@ -1008,9 +1059,17 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
             None if it.load_breakdown is None else
             [it.load_breakdown.local_hit, it.load_breakdown.remote_hit,
              it.load_breakdown.host_miss] for it in iters],
+        "mode": cfg.mode,
+        "replicated_rows": tr.replication.num_replicated if tr.replication else 0,
         "loaded_rows": [it.loaded_rows for it in iters],
+        "computed_edges": [it.computed_edges for it in iters],
+        "shuffle_rows": [it.shuffle_rows for it in iters],
+        "padded_edge_slots": [it.padded_edge_slots for it in iters],
+        "busiest_edges": [it.busiest_edges for it in iters],
+        "load_imbalance": [it.load_imbalance for it in iters],
+        "cross_edge_fraction": [it.cross_edge_fraction for it in iters],
     })
-    return launches, tr, st, losses
+    return launches, tr, epoch_stats, losses
 
 
 def device_source_phase(papers, cfg, dev):
@@ -1030,13 +1089,13 @@ def device_source_phase(papers, cfg, dev):
 
     total, losses, trainers, sampler_stats = {}, {}, {}, {}
     for source in ("device", "device_pipelined"):
-        launches, trainers[source], st, losses[source] = run_trainer(
+        launches, trainers[source], stats, losses[source] = run_trainer(
             papers, GNNSpec(model="sage"), replace(cfg, plan_source=source),
             dev, 3, f"sage, {source} source",
             ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
              "shuffle_bwd", "wavefront_expand"), epochs=3,
         )
-        stats = sampler_stats[source] = st.pipeline
+        stats = sampler_stats[source] = stats[-1].pipeline
         check(stats["sampler_batches"] - stats["sampler_fallbacks"] >= 1,
               f"{source}: no batch sampled on the card without a fallback {stats}")
         # every device sampling run launches the kernel once per layer, also
@@ -1555,6 +1614,21 @@ def scaled_close(name, got, want, tol, hold=True):
             "outside_unscaled": int((diff > tol["atol"] + rel).sum())}
 
 
+def fwd_grads(spec, gnn, feats, pa, labels, rep_block=None):
+    """The target logits, the masked cross-entropy and its gradients for one
+    forward on the card."""
+    import torch
+
+    from repro_torch.models.gnn import gnn_forward
+    from repro_torch.train.loss import masked_softmax_xent
+
+    valid = pa["target_mask"]
+    out = gnn_forward(spec, list(gnn.layers), feats, pa, rep_block=rep_block)
+    loss = masked_softmax_xent(out, labels, valid)
+    grads = torch.autograd.grad(loss, list(gnn.parameters()))
+    return out.detach()[valid], loss.detach(), grads
+
+
 def overlap_parity(dev, first, plan):
     """Phase 13a: the overlap forward and gradients against the blocking
     ones on the card, the three models at full width: the target logits at
@@ -1568,25 +1642,21 @@ def overlap_parity(dev, first, plan):
 
     import torch
 
-    from repro_torch.models.gnn import GNN, GNNSpec, gnn_forward
+    from repro_torch.models.gnn import GNN, GNNSpec
     from repro_torch.train import plan_io
-    from repro_torch.train.loss import masked_softmax_xent
 
     pa = plan_io.plan_to_device(plan, dev, with_halves=True)
     feats = torch.as_tensor(plan_io.load_features(plan, first.ds.features),
                             device=dev)
     labels = torch.as_tensor(plan_io.load_labels(plan, first.ds.labels),
                              device=dev)
-    valid = pa["target_mask"]
     for model in ("sage", "gcn", "gat"):
         spec = GNNSpec(model=model, num_heads=4)
         gnn = GNN(spec, generator=torch.Generator().manual_seed(0)).to(dev)
-        params = list(gnn.parameters())
 
-        def run(s, gnn=gnn, params=params):
-            out = gnn_forward(s, list(gnn.layers), feats, pa)
-            loss = masked_softmax_xent(out, labels, valid)
-            return out.detach(), torch.autograd.grad(loss, params)
+        def run(s, gnn=gnn):
+            out, _, grads = fwd_grads(s, gnn, feats, pa, labels)
+            return out, grads
 
         ref_out, ref_g = run(spec)
         errs = {}
@@ -1596,7 +1666,7 @@ def overlap_parity(dev, first, plan):
             key = f"chunks{chunks}_{wire}"
             fp32 = wire == "float32"
             errs[key] = {"logits": scaled_close(
-                f"{model} {key} logits", out[valid], ref_out[valid],
+                f"{model} {key} logits", out, ref_out,
                 OVERLAP_TOL if fp32 else WIRE_TOL,
                 hold=fp32 or model != "gat")}
             if fp32:
@@ -1812,7 +1882,7 @@ def cache_phase(first, cfg, dev, serial, device_pipelined, total):
               "shuffle_bwd")
     runs = {}
     for source, plain in (("serial", serial), ("device_pipelined", device_pipelined)):
-        launches, _, st, runs[source] = run_trainer(
+        launches, _, stats, runs[source] = run_trainer(
             papers, spec, replace(ccfg, plan_source=source), dev, 3,
             f"sage cache, {source} source",
             expect + (("wavefront_expand",) if source != "serial" else ()),
@@ -1821,7 +1891,7 @@ def cache_phase(first, cfg, dev, serial, device_pipelined, total):
             total[k] += launches[k]
         check(runs[source] == plain[:6],
               f"cache: {source} losses {runs[source]} != uncached {plain[:6]}")
-    totals = st.totals()
+    totals = stats[-1].totals()
     emit("cache", {
         "rows_per_split": CACHE_ROWS, "cached_equals_uncached": True,
         "last_epoch_breakdown": {k: totals[k] for k in (
@@ -1869,6 +1939,368 @@ def cache_phase(first, cfg, dev, serial, device_pipelined, total):
         "wait_ms": prof["wait_ms"], "stage_ms": prof["stage_ms"],
         "device_sync_ms": prof["device_sync_ms"],
         "resident_bytes": prof["resident_bytes"],
+    })
+
+
+def replicated_first_batch(first):
+    """The first papers-s batch built with the replication set the trainer
+    selects at ``REP_BUDGET`` (the same assignment and presample weights),
+    with its edge halves, repadded from empty marks like ``first.plan``; and
+    the set."""
+    from repro_torch.core import build_split_plan, repad_plan, select_replication
+
+    rep = select_replication(first.ds.graph, 4, first.part.assignment,
+                             first.weights, REP_BUDGET)
+    plan = build_split_plan(first.sampler.sample_batch(first.targets, 0, 0),
+                            first.part.assignment, 4, pad_multiple=-1,
+                            with_halves=True, replication=rep)
+    return repad_plan(plan, {}), rep
+
+
+def replication_parity(dev, first, plan, rep):
+    """Phase 15a: the first batch with and without replication on the card:
+    blocking SAGE and GCN bitwise (logits, loss, gradients), GAT within
+    2e-5 (loss) and 5e-4 (gradients, ``scaled_close``); overlap at 4 chunks
+    with replication within 5e-5 / 3e-4 of blocking with replication."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch.models.gnn import GNN, GNNSpec
+    from repro_torch.train import plan_io
+
+    R = rep.num_replicated
+    pa0 = plan_io.plan_to_device(first.plan, dev, with_halves=True)
+    pa1 = plan_io.plan_to_device(plan, dev, with_halves=True, num_replicated=R)
+    feats = torch.as_tensor(plan_io.load_features(plan, first.ds.features),
+                            device=dev)
+    check(torch.equal(feats.cpu(), torch.as_tensor(
+        plan_io.load_features(first.plan, first.ds.features))),
+          "replication: the input rows changed")
+    labels = torch.as_tensor(plan_io.load_labels(plan, first.ds.labels),
+                             device=dev)
+    rep_block = torch.as_tensor(first.ds.features[rep.vertices], device=dev)
+    out = {}
+    for model in ("sage", "gcn", "gat"):
+        spec = GNNSpec(model=model, num_heads=4)
+        gnn = GNN(spec, generator=torch.Generator().manual_seed(0)).to(dev)
+        o0, l0, g0 = fwd_grads(spec, gnn, feats, pa0, labels)
+        o1, l1, g1 = fwd_grads(spec, gnn, feats, pa1, labels, rep_block)
+        row = {}
+        if model == "gat":
+            dl = abs(float(l1) - float(l0))
+            check(dl <= 2e-5 * max(1.0, abs(float(l0))),
+                  f"replication gat: loss {float(l1)} vs {float(l0)}")
+            row["loss_abs_diff"] = dl
+            row["grads"] = [scaled_close(f"replication gat grad {i}", a, b,
+                                         GAT_REP_TOL)
+                            for i, (a, b) in enumerate(zip(g1, g0, strict=True))]
+        else:
+            check(torch.equal(o1, o0) and torch.equal(l1, l0)
+                  and all(torch.equal(a, b) for a, b in zip(g1, g0, strict=True)),
+                  f"replication {model}: replicated and unreplicated differ")
+            row["bitwise_equal"] = True
+        o2, _, g2 = fwd_grads(replace(spec, overlap=True, shuffle_chunks=4),
+                              gnn, feats, pa1, labels, rep_block)
+        row["overlap_chunks4"] = {
+            "logits": scaled_close(f"replication {model} overlap logits", o2,
+                                   o1, OVERLAP_TOL),
+            "grads": [scaled_close(f"replication {model} overlap grad {i}",
+                                   a, b, ADJ_TOL)
+                      for i, (a, b) in enumerate(zip(g2, g1, strict=True))]}
+        out[model] = row
+    return out
+
+
+def layout_kernels(dev, plan, name):
+    """The three gather_segsum kernels (and the row adjoint's walk) at every
+    layer of ``plan``, whose mixed rows are [local][recv][replicated]
+    (M = n_local + P*S + R: S = 0 in dp, R > 0 only at a replicated input
+    layer): the unweighted forward and row adjoint at the layer's width
+    (SAGE's and GCN's: 128 at the input layer, 256 above) and GAT's at 4
+    heads x 64 (weighted forward, row and weight adjoints), bitwise against
+    their plain versions on a CPU copy."""
+    import torch
+
+    from repro_torch.kernels.gather_segsum import kernel, ops, ref
+    from repro_torch.kernels.gather_segsum.layout import AGG_ROWS as R
+
+    def on_cpu(fn, *args):
+        return fn(*(a.cpu() if isinstance(a, torch.Tensor) else a for a in args))
+
+    P, nl = plan.num_devices, plan.num_layers
+    gen = torch.Generator(device=dev).manual_seed(15)
+    H = 4
+    detail = []
+    for li, lp in enumerate(plan.layers):
+        F = 128 if li == nl - 1 else 256
+        M = lp.n_local + P * lp.send_idx.shape[2] + lp.num_replicated
+        num_out = lp.self_pos.shape[1]
+        pd = torch.as_tensor(lp.pack_dst, device=dev)
+        pack_src = ops._pack_src(torch.as_tensor(lp.edge_src, device=dev),
+                                 torch.as_tensor(lp.pack_perm, device=dev), pd, M)
+        rows = torch.randn(P, M, F, device=dev, generator=gen)
+        g_rows = torch.randn(P, num_out, F, device=dev, generator=gen)
+        wide = torch.randn(P, M, 256, device=dev, generator=gen)
+        g = torch.randn(P, num_out, 256, device=dev, generator=gen)
+        w = torch.randn(P, pd.shape[1] * pd.shape[2], H, device=dev,
+                        generator=gen)
+        csr = kernel.src_sorted_csr(pack_src, pd, M, num_out)
+        for got, want in zip(csr, on_cpu(ref.src_sorted_csr_ref, pack_src, pd,
+                                         M, num_out), strict=True):
+            check(torch.equal(got.cpu(), want),
+                  f"{name} layer {li}: walk differs")
+        checks = {
+            "gather_segsum_fwd": (
+                kernel.gather_segsum_fwd(rows, pack_src, pd, None, num_out),
+                on_cpu(ref.gather_segsum_fwd_packed, rows, pack_src, pd, None,
+                       num_out)),
+            "gather_segsum_bwd_mixed": (
+                kernel.gather_segsum_bwd_mixed(g_rows, pack_src, pd, None, M,
+                                               csr),
+                on_cpu(ref.gather_segsum_bwd_mixed_packed, g_rows, pack_src,
+                       pd, None, M)),
+            "gather_segsum_fwd, weighted": (
+                kernel.gather_segsum_fwd(wide, pack_src, pd, w, num_out),
+                on_cpu(ref.gather_segsum_fwd_packed, wide, pack_src, pd, w,
+                       num_out)),
+            "gather_segsum_bwd_mixed, weighted": (
+                kernel.gather_segsum_bwd_mixed(g, pack_src, pd, w, M, csr),
+                on_cpu(ref.gather_segsum_bwd_mixed_packed, g, pack_src, pd, w,
+                       M)),
+            "gather_segsum_bwd_w": (
+                kernel.gather_segsum_bwd_w(wide, g, pack_src, pd, H),
+                on_cpu(ref.gather_segsum_bwd_w_packed, wide, g, pack_src, pd,
+                       H)),
+        }
+        for kname, (got, want) in checks.items():
+            check(torch.equal(got.cpu(), want),
+                  f"{name} layer {li}: {kname} differs from its plain version")
+        valid = pd < R
+        detail.append({
+            "layer": li, "P": P, "M": M, "F": F, "n_local": lp.n_local,
+            "S": lp.send_idx.shape[2], "replicated_rows": lp.num_replicated,
+            "num_out": num_out, "DB": pd.shape[1], "EB": pd.shape[2],
+            "valid_slots": int(valid.sum()),
+            "replicated_slots": int(((pack_src >= M - lp.num_replicated)
+                                     & valid).sum()) if lp.num_replicated else 0,
+            "bitwise_vs_cpu": sorted(checks)})
+    emit("kernel_detail", {"name": f"{name}_layers", "layers": detail})
+
+
+def self_rows_adjoint(dev, plan, layer, name, F=256):
+    """``shuffle_bwd`` as the self rows' adjoint at ``layer`` of ``plan``
+    (one group: each split's destinations among its M mixed rows), with a
+    cotangent that is zero past each split's destination count, as on the
+    path; bitwise against its plain version on a CPU copy."""
+    import torch
+
+    from repro_torch.kernels.shuffle import kernel as sh
+    from repro_torch.kernels.shuffle import ref
+
+    lp = plan.layers[layer]
+    P, S = plan.num_devices, lp.send_idx.shape[2]
+    M = lp.n_local + P * S + lp.num_replicated
+    self_pos = torch.as_tensor(lp.self_pos, device=dev)[:, None, :].contiguous()
+    dst_count = torch.as_tensor(plan.node_count[layer],
+                                device=dev)[:, None].contiguous()
+    n_dst = self_pos.shape[2]
+    gen = torch.Generator(device=dev).manual_seed(16)
+    live = torch.arange(n_dst, device=dev)[None, None, :] < dst_count[:, :, None]
+    g = torch.randn(P, 1, n_dst, F, device=dev, generator=gen) * live[..., None]
+    got = sh.shuffle_bwd(g, self_pos, dst_count, M)
+    want = ref.shuffle_bwd(g.cpu(), self_pos.cpu(), dst_count.cpu(), M)
+    check(torch.equal(got.cpu(), want),
+          f"{name} layer {layer}: the self rows' shuffle_bwd differs from its "
+          "plain version")
+    emit("kernel_detail", {
+        "name": f"{name}_self_rows", "kernel": "shuffle_bwd", "layer": layer,
+        "P": P, "M": M, "S": S, "N": n_dst, "F": F,
+        "live_rows": int(plan.node_count[layer].sum()), "bitwise_vs_cpu": True})
+
+
+def replication_phase(dev, first, cfg, serial, split_iters, device_pipelined,
+                      total):
+    """Phase 15: hot-vertex replication at ``REP_BUDGET``. ``serial`` and
+    ``split_iters`` are phase 4's serial losses and steps, ``device_pipelined``
+    phase 7's losses; the runs' launches are added to ``total``."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.trainer import Trainer, modeled_wire_bytes
+
+    plan, rep = replicated_first_batch(first)
+    check(plan.layers[-1].num_replicated == rep.num_replicated > 0,
+          "replication: the input layer has no replicated region")
+    sage = GNNSpec(model="sage")
+    first_batch = {
+        name: {"shuffle_rows": p.shuffle_rows(),
+               "cross_edge_fraction": p.cross_edge_fraction(),
+               "wire_bytes_sage": modeled_wire_bytes(p, sage, "float32"),
+               "input_layer_send_width": p.layers[-1].send_idx.shape[2]}
+        for name, p in (("unreplicated", first.plan), ("replicated", plan))}
+    check(first_batch["replicated"]["shuffle_rows"]
+          < first_batch["unreplicated"]["shuffle_rows"],
+          f"replication: shuffle rows did not fall {first_batch}")
+    parity = replication_parity(dev, first, plan, rep)
+    layout_kernels(dev, plan, "replicated")
+    emit("replication_parity", {
+        "replicated_rows": rep.num_replicated, "budget_rows": rep.budget_rows,
+        "resident_bytes": rep.num_replicated * first.ds.features.shape[1] * 4,
+        "first_batch": first_batch, "models": parity,
+        # the split-quality counters the trainer reads after every step, on
+        # the host: one pass over the replicated first batch's edge masks
+        "edge_accounting_ms": host_ms(plan.edge_accounting, calls=20),
+        "tolerance": {"gat_loss": 2e-5, "gat_grads": GAT_REP_TOL,
+                      "overlap_logits": OVERLAP_TOL, "overlap_grads": ADJ_TOL}})
+
+    rcfg = replace(cfg, replication_budget=REP_BUDGET)
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+            "shuffle_bwd")
+    # (b) the serial source: phase 4's losses bit for bit, fewer wire bytes
+    # and a lower cross-edge fraction at every step
+    launches, tr, stats, losses = run_trainer(
+        first.ds, sage, replace(rcfg, plan_source="serial"), dev, 3,
+        "sage replication, serial source", both, epochs=2)
+    for k in total:
+        total[k] += launches[k]
+    check(tr.replication.num_replicated == rep.num_replicated,
+          "replication: the trainer selected another set")
+    check(losses == serial[:6],
+          f"replication: losses {losses} != unreplicated {serial[:6]}")
+    iters = [it for e in stats for it in e.iters]
+    for a, b in zip(iters, split_iters[:6], strict=True):
+        check(a.wire_bytes < b.wire_bytes
+              and a.cross_edge_fraction < b.cross_edge_fraction,
+              f"replication: wire {a.wire_bytes} vs {b.wire_bytes}, cross "
+              f"{a.cross_edge_fraction} vs {b.cross_edge_fraction}")
+    # (c) the device sources, bitwise equal, and equal to phase 7's losses
+    dev_losses = {}
+    for source in ("device", "device_pipelined"):
+        launches, _, _, dev_losses[source] = run_trainer(
+            first.ds, sage, replace(rcfg, plan_source=source), dev, 3,
+            f"sage replication, {source} source", both + ("wavefront_expand",),
+            epochs=2)
+        for k in total:
+            total[k] += launches[k]
+    check(dev_losses["device"] == dev_losses["device_pipelined"]
+          == device_pipelined[:6],
+          f"replication: device sources differ {dev_losses} "
+          f"(unreplicated {device_pipelined[:6]})")
+    # (d) telemetry, refinement after epoch 1, an epoch on the rebuilt sampler
+    tr = Trainer(first.ds, sage, replace(rcfg, plan_source="device",
+                                         record_telemetry=True), device=dev)
+    e1 = tr.train_epoch(max_iters=3)
+    graph = first.ds.graph
+    w_e = tr.telemetry.as_weights().edge_weight + 1e-9
+    before = {"cut": tr.partition.cut_weight(graph, w_e),
+              "replicated_rows": tr.replication.num_replicated,
+              "cross_edge_fraction": [it.cross_edge_fraction for it in e1.iters]}
+    t0 = time.perf_counter()
+    part = tr.refine_partition()
+    t_refine = time.perf_counter() - t0
+    moved = int((part.assignment != first.part.assignment).sum())
+    reset_launches()
+    e2 = tr.train_epoch(max_iters=3)
+    launches = read_launches()
+    for k in total:
+        total[k] += launches[k]
+    after = {"cut": part.cut_weight(graph, w_e),
+             "replicated_rows": tr.replication.num_replicated,
+             "cross_edge_fraction": [it.cross_edge_fraction for it in e2.iters]}
+    check(after["cut"] <= before["cut"],
+          f"refine: the weighted cut rose {before['cut']} -> {after['cut']}")
+    runs = tr.device_sampler.stats()["sampler_batches"]
+    check(runs == 3 and launches["wavefront_expand"] == L * runs,
+          f"refine: {launches['wavefront_expand']} wavefront launches for "
+          f"{runs} sampling runs")
+    losses = [it.loss for it in e2.iters]
+    check(all(np.isfinite(losses)), f"refine: non-finite losses {losses}")
+    emit("refine_partition", {
+        "before": before, "after": after, "moved_vertices": moved,
+        "refine_s": t_refine, "telemetry_batches": tr.telemetry.num_batches,
+        "epoch2_losses": losses, "epoch2_launches": launches,
+        "sampler": tr.device_sampler.stats()})
+
+
+def dp_phase(first, cfg, dev, split_iters, total):
+    """Phase 16: dp and pushpull at phase 4's widths, P = 4 micro-batches of
+    256. ``split_iters`` are phase 4's serial steps; the runs' launches are
+    added to ``total``."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.core import build_dp_plan, repad_plan
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.trainer import Trainer
+
+    papers = first.ds
+    # the first dp batch as the trainer builds it (keyed micro-batches,
+    # repadded from empty marks): the kernels at its layout (S = 0, dp's
+    # larger N), the self rows' adjoint at layer 1
+    plan = repad_plan(build_dp_plan(
+        first.sampler.sample_micro_batch(first.targets, 4, 0, 0),
+        pad_multiple=cfg.pad_multiple), {})
+    check(all(lp.send_idx.shape[2] == 0 for lp in plan.layers),
+          "dp: the first batch's plan sends rows")
+    layout_kernels(dev, plan, "dp")
+    self_rows_adjoint(dev, plan, 1, "dp")
+    dcfg = replace(cfg, mode="dp")
+    sage = GNNSpec(model="sage")
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+            "shuffle_bwd")
+    losses, iters = {}, {}
+    for name, c in (("dp, serial", dcfg),
+                    ("dp, pipelined", replace(dcfg, plan_source="pipelined")),
+                    ("pushpull, serial", replace(dcfg, mode="pushpull"))):
+        launches, _, stats, losses[name] = run_trainer(
+            papers, sage, c, dev, 3, f"sage {name} source", both, epochs=2)
+        iters[name] = [it for e in stats for it in e.iters]
+        for k in total:
+            total[k] += launches[k]
+    check(losses["dp, serial"] == losses["dp, pipelined"]
+          == losses["pushpull, serial"],
+          f"dp: serial, pipelined and pushpull losses differ {losses}")
+    for model, expect in (("gcn", both[:3]),
+                          ("gat", both + ("gather_segsum_bwd_w",))):
+        launches, _, _, _ = run_trainer(papers, GNNSpec(model=model, num_heads=4),
+                                        dcfg, dev, 2, f"{model} dp", expect)
+        for k in total:
+            total[k] += launches[k]
+        check(model != "gcn" or launches["shuffle_bwd"] == 0,
+              f"dp gcn: {launches['shuffle_bwd']} shuffle_bwd launches")
+    try:
+        Trainer(papers, sage, replace(dcfg, plan_source="device"), device=dev)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise RuntimeError("dp: plan_source='device' did not raise")
+
+    def summary(its):
+        step_ms = [1e3 * (it.t_wait + it.t_stage + it.t_device) for it in its]
+        return {k: [getattr(it, k) for it in its] for k in (
+            "loaded_rows", "computed_edges", "shuffle_rows", "load_imbalance",
+            "busiest_edges", "cross_edge_fraction")} | {"step_ms": step_ms}
+
+    dp, split = summary(iters["dp, serial"]), summary(split_iters[:6])
+    check(dp["loaded_rows"][0] == plan.loaded_feature_rows(),
+          f"dp: the first step loaded {dp['loaded_rows'][0]} rows, the held "
+          f"layout {plan.loaded_feature_rows()}")
+    check(sum(split["loaded_rows"]) < sum(dp["loaded_rows"]),
+          "dp: split loaded no fewer rows than dp")
+    check(all(r == 0 for r in dp["shuffle_rows"]), "dp: rows were shuffled")
+    emit("dp_vs_split", {
+        "micro_batch": cfg.batch_size // cfg.num_devices,
+        "serial_equals_pipelined_equals_pushpull": True,
+        "device_source_refused": refused,
+        "dp": dp, "split": split,
+        "loaded_rows_ratio": float(np.sum(dp["loaded_rows"])
+                                   / np.sum(split["loaded_rows"])),
+        "computed_edges_ratio": float(np.sum(dp["computed_edges"])
+                                      / np.sum(split["computed_edges"])),
     })
 
 
@@ -1927,11 +2359,12 @@ def main():
                       presample_epochs=2, stall_timeout_s=120.0)
     both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
             "shuffle_bwd")
-    main_losses = {}
+    main_losses, main_iters = {}, {}
     for source in ("serial", "pipelined"):
-        launches, _, _, main_losses[source] = run_trainer(
+        launches, _, stats, main_losses[source] = run_trainer(
             papers, GNNSpec(model="sage"), replace(cfg, plan_source=source),
             dev, 3, f"sage, {source} source", both, epochs=3)
+        main_iters[source] = [it for e in stats for it in e.iters]
         for k in total:
             total[k] += launches[k]
     check(main_losses["serial"] == main_losses["pipelined"],
@@ -1954,17 +2387,27 @@ def main():
     tiny = make_dataset("tiny")
     tcfg = TrainConfig(num_devices=4, fanouts=(4, 4), batch_size=16,
                        presample_epochs=2, lr=5e-3)
-    for model in ("sage", "gcn", "gat"):
-        spec = GNNSpec(model=model, in_dim=tiny.spec.feat_dim, hidden_dim=64,
-                       out_dim=tiny.spec.num_classes, num_layers=2)
-        model0 = GNN(spec, generator=torch.Generator().manual_seed(0))
-        losses = {}
-        for where in ("cpu", dev):
-            tr = Trainer(tiny, spec, tcfg, device=where, model=copy.deepcopy(model0))
-            losses[str(where)] = [it.loss for it in tr.train_epoch(max_iters=3).iters]
-        np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
-        emit("card_vs_cpu", {"model": model, "cuda": losses[str(dev)],
-                             "cpu": losses["cpu"]})
+    # split; split with replication (10% of the tiny graph's rows); dp
+    for variant, vcfg, models in (
+        ("split", tcfg, ("sage", "gcn", "gat")),
+        ("replication", replace(tcfg, replication_budget=0.1), ("sage", "gat")),
+        ("dp", replace(tcfg, mode="dp"), ("sage", "gcn", "gat")),
+    ):
+        for model in models:
+            spec = GNNSpec(model=model, in_dim=tiny.spec.feat_dim, hidden_dim=64,
+                           out_dim=tiny.spec.num_classes, num_layers=2)
+            model0 = GNN(spec, generator=torch.Generator().manual_seed(0))
+            losses = {}
+            for where in ("cpu", dev):
+                tr = Trainer(tiny, spec, vcfg, device=where,
+                             model=copy.deepcopy(model0))
+                check((tr.rep_block is not None) == (variant == "replication"),
+                      f"parity {variant}: replication block")
+                losses[str(where)] = [it.loss for it in
+                                      tr.train_epoch(max_iters=3).iters]
+            np.testing.assert_allclose(losses[str(dev)], losses["cpu"], rtol=1e-4)
+            emit("card_vs_cpu", {"model": model, "variant": variant,
+                                 "cuda": losses[str(dev)], "cpu": losses["cpu"]})
 
     # ---- 7. the device plan sources -------------------------------------
     launches, device_pipelined_losses = device_source_phase(papers, cfg, dev)
@@ -1996,6 +2439,13 @@ def main():
     # ---- 14. the feature cache --------------------------------------------
     cache_phase(first, cfg, dev, main_losses["serial"], device_pipelined_losses,
                 total)
+
+    # ---- 15. hot-vertex replication and telemetry -------------------------
+    replication_phase(dev, first, cfg, main_losses["serial"],
+                      main_iters["serial"], device_pipelined_losses, total)
+
+    # ---- 16. dp and pushpull ----------------------------------------------
+    dp_phase(first, cfg, dev, main_iters["serial"], total)
 
     for k, r in results.items():
         r["launches"] = total[k]

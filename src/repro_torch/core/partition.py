@@ -11,16 +11,26 @@ two-stage heuristic with the same objective:
      partition; greedily apply positive-gain moves that keep the
      ``(1 + eps)`` balance constraint.
 
-The weights are GSplit's: pre-sampled vertex AND edge weights
-(``method="gsplit"``, with probabilistic guarantees).
+Partitioner variants used by the paper's ablation (§7.3):
 
-A numpy copy of ``repro.core.partition`` restricted to ``partition_graph``
-with ``method="gsplit"``; the ablation's other partitioners (node, edge,
-rand), hot-vertex replication and the telemetry feedback loop come with
-later slices of the port.
+  * ``gsplit``    -- pre-sampled vertex AND edge weights (probabilistic
+                     guarantees)
+  * ``node``      -- pre-sampled vertex weights, uniform edge weights
+  * ``edge``      -- no pre-sampling: balances edges + target vertices per
+                     partition while min-cutting unweighted edges
+  * ``rand``      -- uniform random assignment
+  * ``telemetry`` -- the gsplit objective driven by *empirical* per-batch
+                     counts recorded during training (``EdgeTelemetry``)
+                     instead of the offline presample estimates
 
-Cut convention (used consistently by the multi-start ``best_cut``
-selection and ``_refine``): the cut is the sum of
+A numpy copy of ``repro.core.partition`` (the port imports nothing of the
+JAX package): the five methods, hot-vertex replication
+(``select_replication``), the telemetry accumulator and
+``refine_partition`` give bitwise-equal results for the same inputs
+(``tests/test_torch_replication.py``).
+
+Cut convention (used consistently by ``Partition.cut_weight``, the
+multi-start ``best_cut`` selection, and ``_refine``): the cut is the sum of
 ``w_E(e)`` over all *directed CSR edges* whose endpoints live on different
 partitions. Symmetrized graphs therefore count each undirected edge once per
 direction — deliberately, because the presampled ``k_e`` weights are
@@ -29,12 +39,37 @@ one undirected edge carry different weights.
 """
 from __future__ import annotations
 
+import threading
 from dataclasses import dataclass
 
 import numpy as np
 
 from repro_torch.graph.csr import CSRGraph, build_csr
 from repro_torch.core.presample import PresampleWeights
+
+#: ``partition_graph``'s methods (the module docstring describes each)
+PARTITION_METHODS = ("gsplit", "node", "edge", "rand", "telemetry")
+
+
+@dataclass
+class ReplicationSet:
+    """Hot vertices whose input features are resident on *every* split.
+
+    The communication-avoiding axis complementary to min-cut partitioning
+    (CAGNET): a replicated vertex answers every bottom-layer aggregate that
+    reads it locally, so its rows never ride the all-to-all. ``slot_of`` maps
+    a global vertex id to its row in the static ``(R, F)`` replicated feature
+    block (-1 = not replicated); the split planner reroutes edges whose src
+    has a slot into the replicated region of the mixed buffer.
+    """
+
+    vertices: np.ndarray  # (R,) int64 global ids, sorted ascending
+    slot_of: np.ndarray  # (num_nodes,) int32 row in the rep block, -1 = none
+    budget_rows: int  # rows the memory budget allowed (R <= budget_rows)
+
+    @property
+    def num_replicated(self) -> int:
+        return int(self.vertices.shape[0])
 
 
 @dataclass
@@ -44,6 +79,27 @@ class Partition:
     assignment: np.ndarray  # (num_nodes,) int32 in [0, num_parts)
     num_parts: int
     method: str
+    # optional hot-vertex replication set (select_replication); None = off
+    replication: ReplicationSet | None = None
+
+    def loads(self, vertex_weight: np.ndarray) -> np.ndarray:
+        return np.bincount(
+            self.assignment, weights=vertex_weight, minlength=self.num_parts
+        )
+
+    def cut_weight(self, graph: CSRGraph, edge_weight: np.ndarray) -> float:
+        """Weighted cut under the module's directed-CSR-sum convention.
+
+        Sums ``edge_weight`` over every directed CSR edge crossing the
+        partition — on a symmetrized graph each undirected edge contributes
+        both of its (generally unequal) per-direction weights. This is the
+        exact objective ``_refine`` descends and ``partition_graph`` uses to
+        pick the best multi-start, so the three never disagree.
+        """
+        dst = np.repeat(np.arange(graph.num_nodes), graph.degrees())
+        src = graph.indices
+        cross = self.assignment[src] != self.assignment[dst]
+        return float(edge_weight[cross].sum())
 
 
 def _edge_list(graph: CSRGraph) -> tuple[np.ndarray, np.ndarray]:
@@ -106,7 +162,7 @@ def _refine(
     ``a`` to ``q`` changes the cut by ``conn[v, a] - conn[v, q]`` where
     ``conn[v, p]`` sums the weight of *both directions* of every edge
     between ``v`` and partition ``p`` — the same double-direction counting
-    as the module's cut convention, so each applied move's gain is the true
+    as ``Partition.cut_weight``, so each applied move's gain is the true
     cut delta (no halving).
 
     Within a pass, gains are computed once against the pass-entry
@@ -246,41 +302,295 @@ def partition_graph(
     num_parts: int,
     method: str = "gsplit",
     weights: PresampleWeights | None = None,
+    train_ids: np.ndarray | None = None,
     eps: float = 0.05,
     seed: int = 0,
     refine_passes: int = 8,
     n_starts: int = 4,
+    replication_budget: float = 0.0,
 ) -> Partition:
-    """Compute the global partitioning function f_G (Eq. 2 heuristic)."""
-    if method != "gsplit":
-        raise ValueError(
-            f"partition method {method!r} is not ported yet (the node/edge/"
-            "rand ablation arms: a later slice of the port)"
+    """Compute the global partitioning function f_G (Eq. 2 heuristic).
+
+    ``replication_budget`` > 0 additionally selects a hot-vertex replication
+    set (``select_replication``) sized to that fraction of the graph's
+    feature memory and attaches it to the returned ``Partition``.
+    """
+    rng = np.random.default_rng(seed)
+    n = graph.num_nodes
+
+    if method == "rand":
+        part = Partition(
+            assignment=rng.integers(0, num_parts, size=n).astype(np.int32),
+            num_parts=num_parts,
+            method=method,
         )
-    if weights is None:
-        raise ValueError("gsplit partitioning needs presample weights")
-    # Vertex load = expected appearances (k_v) + expected sampled in-edge
-    # work: when v lands in a split, its GPU samples/aggregates its
-    # in-edges, so the per-split computation is the sum of both terms
-    # (paper §5: weights represent the computational cost incurred
-    # during split-parallel sampling and training).
-    src, dst = _edge_list(graph)
-    in_load = np.bincount(
-        dst, weights=weights.edge_weight, minlength=graph.num_nodes
-    )
-    w_v = weights.vertex_weight + in_load + 1e-9
-    w_e = weights.edge_weight + 1e-9
+        if replication_budget > 0:
+            part.replication = select_replication(
+                graph, num_parts, part.assignment, weights,
+                replication_budget,
+            )
+        return part
+
+    if method in ("gsplit", "node", "telemetry"):
+        assert weights is not None, f"{method} partitioning needs presample weights"
+        # Vertex load = expected appearances (k_v) + expected sampled in-edge
+        # work: when v lands in a split, its GPU samples/aggregates its
+        # in-edges, so the per-split computation is the sum of both terms
+        # (paper §5: weights represent the computational cost incurred
+        # during split-parallel sampling and training).
+        dst = np.repeat(
+            np.arange(graph.num_nodes, dtype=np.int64), graph.degrees()
+        )
+        in_load = np.bincount(
+            dst, weights=weights.edge_weight, minlength=graph.num_nodes
+        )
+        w_v = weights.vertex_weight + in_load + 1e-9
+        if method in ("gsplit", "telemetry"):
+            # "telemetry" is the same objective with empirical (recorded)
+            # counts in place of the presample estimates — the caller builds
+            # the weights from an EdgeTelemetry accumulator
+            w_e = weights.edge_weight + 1e-9
+        else:
+            w_e = np.ones(graph.num_edges, dtype=np.float64)
+    elif method == "edge":
+        # balance edges + target vertices, uniform edge weights (DistDGL-style)
+        deg = graph.degrees().astype(np.float64)
+        w_v = deg + 1.0
+        if train_ids is not None and len(train_ids):
+            bump = np.zeros(n)
+            bump[train_ids] = max(1.0, deg.mean())
+            w_v = w_v + bump
+        w_e = np.ones(graph.num_edges, dtype=np.float64)
+    else:
+        raise ValueError(f"unknown partition method {method!r}")
 
     # multi-start (METIS-style): keep the assignment with the best Eq. 2
     # objective (weighted cut subject to the balance constraint)
+    src, dst = _edge_list(graph)
     best, best_cut = None, np.inf
     for s in range(max(1, n_starts)):
         a = _multilevel(
             graph, w_v, w_e, num_parts, eps,
             np.random.default_rng(seed + 101 * s), refine_passes,
         )
-        # the directed-CSR-sum cut — the objective _refine descends
+        # the directed-CSR-sum cut — the same objective cut_weight reports
         cut = float(w_e[a[src] != a[dst]].sum())
         if cut < best_cut:
             best, best_cut = a, cut
-    return Partition(assignment=best, num_parts=num_parts, method=method)
+    part = Partition(assignment=best, num_parts=num_parts, method=method)
+    if replication_budget > 0:
+        part.replication = select_replication(
+            graph, num_parts, part.assignment, weights, replication_budget
+        )
+    return part
+
+
+# --------------------------------------------------------------------------- #
+# Hot-vertex replication (the CAGNET communication-avoiding axis) and the
+# telemetry feedback loop that closes the paper's presample approximation.
+# --------------------------------------------------------------------------- #
+def select_replication(
+    graph: CSRGraph,
+    num_parts: int,
+    assignment: np.ndarray,
+    weights: PresampleWeights | None = None,
+    replication_budget: float = 0.05,
+) -> ReplicationSet | None:
+    """Pick the top-k hot vertices to replicate on every split.
+
+    Score = expected number of *distinct remote splits* that need vertex
+    ``v``'s input row per mini-batch:
+
+        score(v) = sum over parts p != f_G(v) of
+                   1 - prod over edges e = (v -> d), f_G(d) = p of (1 - p_e)
+
+    with ``p_e = min(k_e, 1)`` from the presample edge weights (uniform
+    probabilities when ``weights`` is None). This targets the quantity
+    replication actually removes — send-list *rows* are deduplicated per
+    (owner, needer, vertex), so a hub needed by a split a thousand times
+    still only costs one row; scoring raw edge appearances over-ranks such
+    hubs and under-delivers wire savings.
+
+    The budget is a fraction of the graph's feature memory: each device
+    spends ``replication_budget * num_nodes * F`` extra bytes on the static
+    replicated block, i.e. ``budget_rows = floor(budget * num_nodes)`` rows.
+    Only vertices with positive score are selected, so the returned set can
+    be smaller than the budget; it is never larger. Returns None when the
+    budget or the selection is empty.
+    """
+    n = graph.num_nodes
+    budget_rows = int(replication_budget * n)
+    if budget_rows <= 0:
+        return None
+    src = graph.indices.astype(np.int64)
+    dst = np.repeat(np.arange(n, dtype=np.int64), graph.degrees())
+    if weights is not None:
+        p_e = np.minimum(weights.edge_weight, 1.0)
+    else:
+        p_e = np.ones(graph.num_edges, dtype=np.float64)
+    # log(1 - p_e), clamped so deterministically-sampled edges (p_e = 1)
+    # contribute certainty without -inf
+    log1m = np.log1p(-np.minimum(p_e, 1.0 - 1e-9))
+    score = np.zeros(n, dtype=np.float64)
+    for p in range(num_parts):
+        to_p = assignment[dst] == p
+        acc = np.zeros(n, dtype=np.float64)
+        np.add.at(acc, src[to_p], log1m[to_p])
+        prob = 1.0 - np.exp(acc)  # P(split p samples any edge out of v)
+        prob[assignment == p] = 0.0  # local to p: never on the wire
+        score += prob
+    hot = np.argsort(-score, kind="stable")[:budget_rows]
+    hot = hot[score[hot] > 0.0]
+    if hot.size == 0:
+        return None
+    vertices = np.sort(hot).astype(np.int64)
+    slot_of = np.full(n, -1, dtype=np.int32)
+    slot_of[vertices] = np.arange(vertices.shape[0], dtype=np.int32)
+    return ReplicationSet(
+        vertices=vertices, slot_of=slot_of, budget_rows=budget_rows
+    )
+
+
+class EdgeTelemetry:
+    """Thread-safe accumulator of per-batch vertex/edge appearance counts.
+
+    Records the same ``k_v``/``k_e`` statistics as the offline presample
+    stage, but from the mini-batches the trainer *actually* runs — the
+    empirical feedback the ``telemetry`` partition method and
+    ``refine_partition`` consume. ``record`` is called from plan-producer
+    threads (the pipelined sources are multi-worker), so two locks split the
+    work: the buffer lock only ever guards O(batch) list appends and pointer
+    swaps, while the O(V+E) concatenate+bincount runs outside it — one
+    producer flushing must not stall its siblings mid-epoch. The dense
+    accumulators get their own lock; merges are commutative adds, so flush
+    order across threads cannot change the totals.
+    """
+
+    _FLUSH_EVERY = 64  # buffered batches between dense bincount flushes
+
+    def __init__(self, num_nodes: int, num_edges: int):
+        self._lock = threading.Lock()  # buffers + num_batches
+        self._dense_lock = threading.Lock()  # _k_v/_k_e merges
+        self._vbuf: list[np.ndarray] = []
+        self._ebuf: list[np.ndarray] = []
+        self._k_v = np.zeros(num_nodes, dtype=np.int64)
+        self._k_e = np.zeros(num_edges, dtype=np.int64)
+        self.num_batches = 0
+
+    def record(self, sample) -> None:
+        """Accumulate one ``MiniBatchSample``'s appearance counts."""
+        with self._lock:
+            self._vbuf.extend(sample.frontiers[:-1])
+            self._ebuf.extend(layer.edge_id for layer in sample.layers)
+            self.num_batches += 1
+            if self.num_batches % self._FLUSH_EVERY != 0:
+                return
+            vbuf, self._vbuf = self._vbuf, []
+            ebuf, self._ebuf = self._ebuf, []
+        self._merge(vbuf, ebuf)
+
+    def _merge(self, vbuf: list[np.ndarray], ebuf: list[np.ndarray]) -> None:
+        """Bincount outside any lock; only the dense adds are serialized."""
+        k_v = k_e = None
+        if vbuf:
+            verts = np.concatenate(vbuf)
+            k_v = np.bincount(verts, minlength=self._k_v.shape[0])
+        if ebuf:
+            eids = np.concatenate(ebuf)
+            eids = eids[eids >= 0]  # self-loop sentinels are not CSR edges
+            k_e = np.bincount(eids, minlength=self._k_e.shape[0])
+        with self._dense_lock:
+            if k_v is not None:
+                self._k_v += k_v
+            if k_e is not None:
+                self._k_e += k_e
+
+    def counters(self) -> dict:
+        """Snapshot the dense counters (pending buffers flushed first).
+
+        The checkpoint cursor carries these so a resumed run's telemetry —
+        and therefore any later ``refine_partition`` feedback — matches an
+        uninterrupted run's. Arrays are copies; safe to hand to ``np.savez``.
+        """
+        with self._lock:
+            vbuf, self._vbuf = self._vbuf, []
+            ebuf, self._ebuf = self._ebuf, []
+            num_batches = self.num_batches
+        self._merge(vbuf, ebuf)
+        with self._dense_lock:
+            return {
+                "k_v": self._k_v.copy(),
+                "k_e": self._k_e.copy(),
+                "num_batches": num_batches,
+            }
+
+    def load_counters(self, counters: dict) -> None:
+        """Restore a ``counters()`` snapshot (checkpoint resume)."""
+        with self._lock:
+            self._vbuf = []
+            self._ebuf = []
+            self.num_batches = int(counters["num_batches"])
+        with self._dense_lock:
+            self._k_v[:] = counters["k_v"]
+            self._k_e[:] = counters["k_e"]
+
+    def as_weights(self) -> PresampleWeights:
+        """Empirical weights: per-batch appearance rates.
+
+        Only the *relative* weights matter to the partitioner (balance and
+        cut are both scale-free up to the tiny tie-break offsets), so counts
+        are normalized per recorded batch. Callers invoke this between
+        epochs (producers quiescent); a racing ``record`` would merge its
+        counts either before or after the snapshot, never partially.
+        """
+        with self._lock:
+            vbuf, self._vbuf = self._vbuf, []
+            ebuf, self._ebuf = self._ebuf, []
+            num_batches = self.num_batches
+        self._merge(vbuf, ebuf)
+        with self._dense_lock:
+            denom = float(max(num_batches, 1))
+            return PresampleWeights(
+                vertex_weight=self._k_v / denom,
+                edge_weight=self._k_e / denom,
+                num_epochs=max(num_batches, 1),
+            )
+
+
+def refine_partition(
+    graph: CSRGraph,
+    part: Partition,
+    weights: PresampleWeights,
+    eps: float = 0.05,
+    refine_passes: int = 8,
+    replication_budget: float = 0.0,
+) -> Partition:
+    """Refine an existing partition against (typically empirical) weights.
+
+    The telemetry feedback pass: re-runs the boundary refinement from the
+    current assignment with the gsplit objective under ``weights`` — usually
+    ``EdgeTelemetry.as_weights()`` recorded during training. Because
+    ``_refine`` applies only exact-positive-gain moves (move locking, see
+    its docstring), the weighted cut under ``weights`` never increases, even
+    when the starting assignment came from different (presample) weights.
+    A fresh replication set is selected against the refined assignment when
+    a budget is given.
+    """
+    dst = np.repeat(np.arange(graph.num_nodes, dtype=np.int64), graph.degrees())
+    in_load = np.bincount(
+        dst, weights=weights.edge_weight, minlength=graph.num_nodes
+    )
+    w_v = weights.vertex_weight + in_load + 1e-9
+    w_e = weights.edge_weight + 1e-9
+    assign = _refine(
+        graph, part.assignment, w_v, w_e, part.num_parts, eps,
+        max_passes=refine_passes,
+    )
+    refined = Partition(
+        assignment=assign, num_parts=part.num_parts, method="telemetry"
+    )
+    if replication_budget > 0:
+        refined.replication = select_replication(
+            graph, part.num_parts, assign, weights, replication_budget
+        )
+    return refined

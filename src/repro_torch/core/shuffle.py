@@ -8,7 +8,8 @@ transpose of the (owner, needer) axes. The mixed-frontier buffer is
 The send gather's adjoint is ``kernels/shuffle``'s (the CUDA kernel on the
 card), which reads only the valid slots of each (owner, needer) pair.
 ``chunk_slices`` tiles the overlap schedule's exchange along the feature
-axis; ``sim_serve_features`` assembles the input block from the resident
+axis; ``sim_append_replicated`` appends the static hot-vertex block past the
+recv region; ``sim_serve_features`` assembles the input block from the resident
 feature cache (its gathers and scatter-adds are plain torch ops, as the JAX
 package leaves them to XLA). The multi-GPU form (``all_to_all_single`` over
 NCCL) comes with a later slice.
@@ -72,6 +73,26 @@ def sim_shuffle(
     send = send_gather(h, send_idx, send_count)  # (P, P, S, F)
     recv = sim_alltoall(send, wire_dtype)
     return torch.cat([h, recv.reshape(P, P * S, F)], dim=1)
+
+
+def sim_append_replicated(mixed: torch.Tensor,
+                          rep_block: torch.Tensor) -> torch.Tensor:
+    """Append the static replicated block to every split's buffer (sim).
+
+    mixed     -- (P, M, F) per-split rows (a mixed buffer or a local block)
+    rep_block -- (R, F) the device-resident replicated rows: *one* copy,
+                 broadcast across the P axis (every split holds the same
+                 block by construction; no bytes travel)
+    returns   -- (P, M + R, F)
+
+    This completes the mixed-buffer layout ``[local][recv][replicated]``:
+    plan entries ``>= n_local + P*S`` index the appended region. The rows
+    are the same fp32 bits as the loaded features, so rerouted edges read
+    bit-identical values.
+    """
+    P = mixed.shape[0]
+    rep = rep_block.to(mixed.dtype).unsqueeze(0).expand(P, *rep_block.shape)
+    return torch.cat([mixed, rep], dim=1)
 
 
 def chunk_slices(width: int, chunks: int, align: int = 1) -> list[slice]:

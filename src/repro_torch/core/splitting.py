@@ -21,13 +21,18 @@ of NCCL's variable-size all-to-allv):
     via ``edge_src``. Remote rows arrive via one all-to-all of the
     ``(P, S_i, F)`` send buffer built with ``send_idx``.
 
-A numpy copy of ``repro.core.splitting`` for the split path, with the
-overlap schedule's local/remote edge halves (``split_edge_halves``,
-``build_split_plan(with_halves=True)``, their repad): the plans it builds are
+Data-parallel micro-batching (the DGL baseline, ``build_dp_plan``) is
+expressed in the *same* plan structure with all-local sources and
+``S_i = 0``, so one trainer code path serves both paradigms. With a
+``ReplicationSet`` the input layer's mixed buffer gains a third region,
+``[local][recv][replicated]``, and edges whose source is replicated never
+enter the send lists.
+
+A numpy copy of ``repro.core.splitting``: split and dp plans, with or without
+the overlap schedule's edge halves and replication, fresh and repadded, are
 field-for-field equal to the JAX package's (``tests/test_torch_trainer.py``,
-``tests/test_torch_overlap.py``). The data-parallel plan and hot-vertex
-replication (``num_replicated``, the replicated block's region) come with the
-port's later slices.
+``tests/test_torch_overlap.py``, ``tests/test_torch_replication.py``,
+``tests/test_torch_dp.py``).
 """
 from __future__ import annotations
 
@@ -119,6 +124,14 @@ class LayerPlan:
     seg_offsets: np.ndarray  # (P, N_i + 1) int32 CSR offsets, dst-sorted order
     pack_perm: np.ndarray  # (P, DB, EB) int32 slot -> edge idx (pad: E)
     pack_dst: np.ndarray  # (P, DB, EB) int32 slot -> dst - db*R (pad: R)
+    # Rows of the static replicated feature block appended to the mixed
+    # buffer *after* the recv region: ``[local (n_local)][recv (P*S)]
+    # [replicated (R)]``. Non-zero only on the input layer of plans built
+    # with a ``ReplicationSet`` — edges whose src is replicated address
+    # ``n_local + P*S + slot`` and never enter the send lists. Static per
+    # run (the full set size, not the per-batch occupancy), so repad only
+    # ever *moves* the region, never grows it.
+    num_replicated: int = 0
     # --- local/remote edge halves (DESIGN.md §3a, overlap schedule) -------
     # The same edge set partitioned by source locality, so the overlapped
     # executor can aggregate the local half from its own row block while the
@@ -188,6 +201,52 @@ class SplitPlan:
     def shuffle_rows(self) -> int:
         return sum(l.shuffle_rows() for l in self.layers)
 
+    def padded_edge_slots(self) -> int:
+        """Edge slots actually executed by the (padded, vmapped) sim step."""
+        return int(sum(l.edge_mask.size for l in self.layers))
+
+    def busiest_edges(self) -> int:
+        """True edges on the most-loaded device (the straggler's work)."""
+        return self.edge_accounting()[1]
+
+    def load_imbalance(self) -> float:
+        """max/mean edges per split across layers l>0 (paper Fig. 5 metric)."""
+        return self.edge_accounting()[2]
+
+    def cross_edge_fraction(self) -> float:
+        """Cross-split edges / total edges (paper Fig. 5 metric)."""
+        return self.edge_accounting()[3]
+
+    def edge_accounting(self) -> tuple[int, int, float, float]:
+        """``(computed_edges, busiest_edges, load_imbalance,
+        cross_edge_fraction)`` from one pass over the layers' edge masks, as
+        the trainer reads them after every step."""
+        per_dev = np.zeros(self.num_devices, dtype=np.int64)
+        cross = 0
+        for l in self.layers:
+            per_dev += l.edge_mask.sum(axis=1)
+            # an edge is cross-split iff its src addresses the recv region
+            # ``[n_local, n_local + P*S)``; the boundary is the layer's
+            # recorded n_local (== the current front width only because
+            # repad keeps the two in sync — using the front shape directly
+            # undercounted on repadded plans). Sources *beyond* the recv
+            # region address the static replicated block: they are served
+            # locally on every split and put nothing on the wire, so they do
+            # not count as cross.
+            recv_end = l.n_local + self.num_devices * l.max_send
+            cross += int(
+                (
+                    (l.edge_src >= l.n_local)
+                    & (l.edge_src < recv_end)
+                    & l.edge_mask
+                ).sum()
+            )
+        total = int(per_dev.sum())
+        busiest = int(per_dev.max())
+        mean = per_dev.mean()
+        imbalance = float(per_dev.max() / mean) if mean > 0 else 1.0
+        return total, busiest, imbalance, (cross / total if total else 0.0)
+
 
 def _group_by_owner(frontier: np.ndarray, owner_of: np.ndarray, num_devices: int):
     """Group a sorted-unique frontier by owner.
@@ -224,10 +283,10 @@ def split_edge_halves(
     kernels.
 
     ``recv_width`` bounds the recv region (``P * S``): sources at or beyond
-    ``n_local + recv_width`` address a static block after it (the JAX
-    package's replicated rows, a later slice of the port), which needs no
-    exchange — so they belong to the **local** half, with their coordinates
-    compacted onto ``concat([local rows, block rows])`` (``recv_width`` is
+    ``n_local + recv_width`` address the static *replicated* block, which is
+    device-resident — so they belong to the **local** half (they need no
+    exchange), with their coordinates compacted onto the local half's source
+    space ``concat([local rows, replicated rows])`` (i.e. ``recv_width`` is
     subtracted). ``None`` keeps the two-way split, which is identical
     whenever no source lies beyond the recv region.
     """
@@ -258,6 +317,8 @@ def split_edge_halves(
         recv_end = n_local + recv_width
         is_rep = edge_src >= recv_end
         local_sel = edge_mask & ((edge_src < n_local) | is_rep)
+        # replicated srcs compact onto [n_local, n_local + R) of the local
+        # half's concat([local rows, replicated rows]) source space
         local_vals = np.where(is_rep, edge_src - recv_width, edge_src)
         remote_sel = edge_mask & (edge_src >= n_local) & ~is_rep
     local = one_half(local_sel, local_vals)
@@ -284,13 +345,25 @@ def build_split_plan(
     num_devices: int,
     pad_multiple: int = 8,
     with_halves: bool = False,
+    replication=None,  # core.partition.ReplicationSet | None
 ) -> SplitPlan:
     """Split a sampled mini-batch with f_G = ``assignment`` (the online part).
 
     Everything here is O(|sample|) with vectorized numpy — the per-vertex
     mapping is a constant-time lookup, matching the paper's requirement that
-    splitting runs on-the-fly at every iteration. ``with_halves`` adds each
-    layer's local/remote edge halves for the overlap schedule.
+    splitting runs on-the-fly at every iteration.
+
+    With a ``replication`` set, *input-layer* edges whose src is replicated
+    are local on every split: they are dropped from the send lists (the
+    all-to-all never carries their rows) and their ``edge_src`` is rerouted
+    to the replicated region of the mixed buffer,
+    ``n_local + P*S + slot_of[src]``. The rule is uniform — owner-local
+    edges with a replicated src reroute too, which is bit-identical (the
+    replicated block holds the same fp32 rows as the loaded features) and
+    keeps the plan a pure function of (sample, assignment, replication).
+    Only the input layer qualifies: deeper frontiers carry *computed*
+    hidden activations, which a remote split could only serve by redundantly
+    recomputing the vertex's whole subtree — a net traffic loss.
     """
     P = num_devices
     L = sample.num_layers
@@ -332,8 +405,20 @@ def build_split_plan(
         src_owner, src_local = pos_of(i + 1, layer.src)
         n_local = front_size[i + 1]
 
+        # replication applies to the input layer only (depth-L sources are
+        # the statically servable feature rows); R is the *full* set size —
+        # a static region width, independent of per-batch occupancy
+        bottom = i == L - 1
+        if replication is not None and bottom:
+            rep_slot = replication.slot_of[layer.src].astype(np.int64)
+            is_rep = rep_slot >= 0
+            num_rep = replication.num_replicated
+        else:
+            is_rep = np.zeros(layer.src.shape[0], dtype=bool)
+            num_rep = 0
+
         # ---- build send lists: unique (owner q, needer p, vertex) ----------
-        remote = src_owner != dst_owner
+        remote = (src_owner != dst_owner) & ~is_rep
         r_q = src_owner[remote].astype(np.int64)
         r_p = dst_owner[remote].astype(np.int64)
         r_v = layer.src[remote]
@@ -363,6 +448,9 @@ def build_split_plan(
         if remote.any():
             recv_slot = slot[inv]  # slot of each remote edge's vertex
             src_pos[remote] = n_local + r_q * S + recv_slot
+        if is_rep.any():
+            # replicated srcs address the static block after the recv region
+            src_pos[is_rep] = n_local + P * S + rep_slot[is_rep]
         E = _roundup(max(layer.num_edges, 1), pad_multiple)
         edge_src = np.zeros((P, E), dtype=np.int32)
         edge_dst = np.zeros((P, E), dtype=np.int32)
@@ -397,6 +485,7 @@ def build_split_plan(
                 send_count=send_count,
                 self_pos=self_pos,
                 n_local=n_local,
+                num_replicated=num_rep,
                 **layer_layout(edge_dst, edge_mask, front_size[i]),
                 **(
                     split_edge_halves(
@@ -422,6 +511,91 @@ def build_split_plan(
         "loaded_rows": plan.loaded_feature_rows(),
         "edges": plan.computed_edges(),
         "shuffle_rows": plan.shuffle_rows(),
+    }
+    return plan
+
+
+def build_dp_plan(
+    samples: list[MiniBatchSample],
+    pad_multiple: int = 8,
+    with_halves: bool = False,
+) -> SplitPlan:
+    """Stack independent micro-batches into the split-plan layout.
+
+    This is the data-parallel baseline: every source is local (redundant
+    loads/compute included), ``S_i = 0`` so no shuffles are emitted.
+    """
+    P = len(samples)
+    L = samples[0].num_layers
+    assert all(s.num_layers == L for s in samples)
+
+    front_size = [
+        _roundup(max(max(s.frontiers[d].shape[0] for s in samples), 1), pad_multiple)
+        for d in range(L + 1)
+    ]
+    front_ids, node_mask, node_count = [], [], []
+    for d in range(L + 1):
+        N = front_size[d]
+        ids = np.zeros((P, N), dtype=np.int64)
+        mask = np.zeros((P, N), dtype=bool)
+        cnt = np.zeros(P, dtype=np.int32)
+        for p, s in enumerate(samples):
+            k = s.frontiers[d].shape[0]
+            ids[p, :k] = s.frontiers[d]
+            mask[p, :k] = True
+            cnt[p] = k
+        front_ids.append(ids)
+        node_mask.append(mask)
+        node_count.append(cnt)
+
+    layer_plans = []
+    for i in range(L):
+        E = _roundup(max(max(s.layers[i].num_edges for s in samples), 1), pad_multiple)
+        edge_src = np.zeros((P, E), dtype=np.int32)
+        edge_dst = np.zeros((P, E), dtype=np.int32)
+        edge_mask = np.zeros((P, E), dtype=bool)
+        self_pos = np.zeros((P, front_size[i]), dtype=np.int32)
+        for p, s in enumerate(samples):
+            layer = s.layers[i]
+            k = layer.num_edges
+            edge_src[p, :k] = np.searchsorted(s.frontiers[i + 1], layer.src)
+            edge_dst[p, :k] = np.searchsorted(s.frontiers[i], layer.dst)
+            edge_mask[p, :k] = True
+            fr = s.frontiers[i]
+            self_pos[p, : fr.shape[0]] = np.searchsorted(s.frontiers[i + 1], fr)
+        layer_plans.append(
+            LayerPlan(
+                edge_src=edge_src,
+                edge_dst=edge_dst,
+                edge_mask=edge_mask,
+                send_idx=np.zeros((P, P, 0), dtype=np.int32),
+                send_count=np.zeros((P, P), dtype=np.int32),
+                self_pos=self_pos,
+                n_local=front_size[i + 1],
+                **layer_layout(edge_dst, edge_mask, front_size[i]),
+                **(
+                    split_edge_halves(
+                        edge_src, edge_dst, edge_mask, front_size[i + 1],
+                        front_size[i], pad_multiple,
+                    )
+                    if with_halves
+                    else {}
+                ),
+            )
+        )
+
+    plan = SplitPlan(
+        num_devices=P,
+        num_layers=L,
+        front_ids=front_ids,
+        node_mask=node_mask,
+        node_count=node_count,
+        layers=layer_plans,
+    )
+    plan.stats = {
+        "loaded_rows": plan.loaded_feature_rows(),
+        "edges": plan.computed_edges(),
+        "shuffle_rows": 0,
     }
     return plan
 
@@ -470,19 +644,30 @@ def repad_plan(plan: SplitPlan, hwm: dict) -> SplitPlan:
         hwm[sk] = max(hwm.get(sk, 0), old_s)
         new_s = hwm[sk]
         # Remote edge_src entries encode ``n_local + q*S + slot`` against the
-        # pre-repad layout. Growing the local region (N_{i+1}) or the send
-        # width (S) moves the recv region, so rebase them onto the new
-        # layout — otherwise they address zeroed padding rows and split-mode
-        # aggregation silently drops every cross-split edge.
+        # pre-repad layout; replicated entries encode
+        # ``n_local + P*S + rep_slot`` just past it. Growing the local
+        # region (N_{i+1}) or the send width (S) moves both regions, so
+        # rebase each onto the new layout — otherwise they address zeroed
+        # padding rows and split-mode aggregation silently drops every
+        # cross-split (or replicated) edge. The replicated region's width R
+        # is static, so its entries only *shift* by the region's new start.
         old_n = lp.n_local
         new_n = plan.front_ids[i + 1].shape[1]  # already padded to hwm[N{i+1}]
-        if old_s > 0 and (new_n != old_n or new_s != old_s):
-            remote = lp.edge_src >= old_n
-            if remote.any():
+        num_dev = lp.edge_src.shape[0]
+        if (old_s > 0 or lp.num_replicated > 0) and (
+            new_n != old_n or new_s != old_s
+        ):
+            old_recv_end = old_n + num_dev * old_s
+            rep = lp.edge_src >= old_recv_end  # empty when num_replicated=0
+            remote = (lp.edge_src >= old_n) & ~rep
+            if old_s > 0 and remote.any():
                 q, slot = np.divmod(
                     lp.edge_src[remote].astype(np.int64) - old_n, old_s
                 )
                 lp.edge_src[remote] = (new_n + q * new_s + slot).astype(np.int32)
+            if rep.any():
+                shift = (new_n + num_dev * new_s) - old_recv_end
+                lp.edge_src[rep] += np.int32(shift)
         lp.n_local = new_n
         lp.send_idx = pad_axis(lp.send_idx, 2, new_s)
         nk = f"N{i}"
@@ -519,6 +704,14 @@ def repad_plan(plan: SplitPlan, hwm: dict) -> SplitPlan:
             if side == "r" and old_s > 0 and new_s != old_s:
                 q, slot = np.divmod(lp.redge_src.astype(np.int64), old_s)
                 lp.redge_src = (q * new_s + slot).astype(np.int32)
+            if side == "l" and lp.num_replicated > 0 and new_n != old_n:
+                # local-half sources live in concat([local rows, replicated
+                # rows]): entries >= old n_local are replicated-block rows
+                # and shift with the local region's growth (masked padding
+                # slots are zeros, hence < old_n, hence untouched)
+                lrep = lp.ledge_src >= old_n
+                if lrep.any():
+                    lp.ledge_src[lrep] += np.int32(new_n - old_n)
             for name in ("edge_src", "edge_dst", "edge_mask", "edge_ids"):
                 attr = f"{side}{name}"
                 setattr(lp, attr, pad_axis(getattr(lp, attr), 1, hwm[hk]))

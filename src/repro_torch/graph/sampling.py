@@ -134,14 +134,18 @@ def sample_minibatch(
 class NeighborSampler:
     """Epoch iterator over shuffled target batches -> MiniBatchSample.
 
-    Samples one batch of ``batch_size`` targets per step (split parallelism,
-    Table 1 "Mini"); the data-parallel micro-batch API comes with the port's
-    dp mode.
+    ``sample``/``sample_batch`` sample one batch of ``batch_size`` targets
+    (split parallelism, Table 1 "Mini"); ``sample_micro``/
+    ``sample_micro_batch`` sample ``num_devices`` independent micro-batches
+    of about ``batch_size // num_devices`` (data parallelism, Table 1
+    "Micro").
 
     Two RNG disciplines coexist:
 
-      * the legacy *streamed* API (``epoch_batches`` / ``sample``) advances one shared generator in call order, and
-      * the *keyed* API (``epoch_targets`` / ``sample_batch``) derives an independent generator from
+      * the legacy *streamed* API (``epoch_batches`` / ``sample`` /
+        ``sample_micro``) advances one shared generator in call order, and
+      * the *keyed* API (``epoch_targets`` / ``sample_batch`` /
+        ``sample_micro_batch``) derives an independent generator from
         ``(seed, epoch, batch)``, so any thread can sample any batch and get
         the same draws — the contract the pipelined runtime needs for
         serial-equals-pipelined determinism (DESIGN.md §6).
@@ -193,6 +197,15 @@ class NeighborSampler:
         """Streamed-API sampling: consumes the shared rng in call order."""
         return sample_minibatch(self.graph, targets, self.fanouts, self.rng)
 
+    def sample_micro(self, targets: np.ndarray, num_devices: int) -> list[MiniBatchSample]:
+        """Data-parallel micro-batching: partition targets, sample independently.
+
+        Streamed discipline: the ``num_devices`` micro-samples consume the
+        shared rng sequentially, so results depend on call order.
+        """
+        parts = np.array_split(targets, num_devices)
+        return [self.sample(p) for p in parts]
+
     # ---- keyed API: order-independent draws for the pipelined runtime ---- #
     def _keyed_rng(self, *key: int) -> np.random.Generator:
         """An independent generator derived from ``(seed, *key)``.
@@ -216,3 +229,15 @@ class NeighborSampler:
         """Sample one mini-batch with draws keyed by ``(seed, epoch, batch)``."""
         rng = self._keyed_rng(0x5A3, epoch, batch)
         return sample_minibatch(self.graph, targets, self.fanouts, rng)
+
+    def sample_micro_batch(
+        self, targets: np.ndarray, num_devices: int, epoch: int, batch: int
+    ) -> list[MiniBatchSample]:
+        """Keyed counterpart of ``sample_micro`` (one rng per micro-batch)."""
+        parts = np.array_split(targets, num_devices)
+        return [
+            sample_minibatch(
+                self.graph, p, self.fanouts, self._keyed_rng(0x5A3, epoch, batch, i)
+            )
+            for i, p in enumerate(parts)
+        ]

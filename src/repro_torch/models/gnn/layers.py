@@ -1,7 +1,8 @@
 """GNN layers behind the paper's layer-centric API (§6), the counterpart of
-``repro/models/gnn/layers.py`` on the split path: the blocking schedule, the
-overlap schedule (``_gnn_layer_overlap``) and the cached forward
-(``gnn_forward_cached``).
+``repro/models/gnn/layers.py`` on the split and dp paths: the blocking
+schedule, the overlap schedule (``_gnn_layer_overlap``) and the cached forward
+(``gnn_forward_cached``), each with the replicated hot-vertex block
+(``rep_block``) on the input layer.
 
 Each layer consumes the *mixed frontier* buffer (local + received rows, built
 by the shuffle) and the plan's per-edge indices, and produces the local rows of
@@ -23,6 +24,7 @@ from torch import nn
 from repro_torch.core.shuffle import (
     chunk_slices,
     sim_alltoall,
+    sim_append_replicated,
     sim_serve_features,
     sim_shuffle,
 )
@@ -297,7 +299,8 @@ def _half_weighted(spec, rows, alpha_half, lp, side, num_out, dh):
     return out.reshape(P, num_out, Fr)
 
 
-def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
+def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last,
+                       rep_block=None):
     """One GNN layer on all P splits under the overlap schedule (DESIGN.md
     §3a), the counterpart of the JAX ``_gnn_layer_overlap`` in sim form.
 
@@ -315,6 +318,12 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
     GAT exchanges *transformed* rows (``wh = h @ w``, computed on the owner)
     plus an eager exchange of the (N, H) a_src scores, so attention weights
     for all edges are available before any feature chunk lands.
+
+    ``rep_block (R, F)`` (input layer only) holds the replicated feature
+    rows: the plan's local half addresses ``concat([local rows, replicated
+    rows])``, so the block is appended to the local half's rows (a
+    broadcast, nothing on the wire) and replicated-source edges aggregate in
+    the local partial. GAT transforms and scores the block like local rows.
     """
     wire = spec.wire_dtype
     send_idx, send_count = lp["send_idx"], lp["send_count"]
@@ -324,12 +333,18 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
     split = torch.arange(P, device=h.device)[:, None]
     if spec.model in ("sage", "gcn"):
         payload = h  # rows travel as raw features, like the blocking path
+        pay_rep = rep_block  # raw features for the replicated rows too
         align = 1
     elif spec.model == "gat":
         w = layer_params["w"]  # (F_in, H, dh)
         H, dh = w.shape[1], w.shape[2]
         wh = torch.einsum("pnf,fhd->pnhd", h, w)
         payload = wh.reshape(P, N, H * dh)
+        if rep_block is not None:
+            wh_rep = torch.einsum("rf,fhd->rhd", rep_block, w)  # (R, H, dh)
+            pay_rep = wh_rep.reshape(wh_rep.shape[0], H * dh)
+        else:
+            pay_rep = None
         align = dh
     else:
         raise ValueError(spec.model)
@@ -337,13 +352,16 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
     slices = chunk_slices(F_out, spec.shuffle_chunks, align)
     has_remote = S > 0 and lp["redge_src"].shape[-1] > 0
     send = send_gather(payload, send_idx, send_count) if has_remote else None
+    # the local half's source space: [local rows][replicated rows]
+    loc_rows = (payload if pay_rep is None
+                else sim_append_replicated(payload, pay_rep))
 
     def recv_chunk(sl):
         recv = sim_alltoall(send[..., sl], wire)  # (P, P, S, Fc)
         return recv.reshape(P, P * S, sl.stop - sl.start)
 
     if spec.model in ("sage", "gcn"):
-        loc = _half_sum(spec, payload, lp, "l", num_out)
+        loc = _half_sum(spec, loc_rows, lp, "l", num_out)
         if has_remote:
             rem = torch.cat([_half_sum(spec, recv_chunk(sl), lp, "r", num_out)
                              for sl in slices], dim=-1)
@@ -369,6 +387,11 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
             s_src_mix = torch.cat([s_src_loc, s_recv], dim=1)
         else:
             s_src_mix = s_src_loc
+        if pay_rep is not None:
+            # replicated rows sit past the recv region in the mixed source
+            # space; their a_src scores are computed here like local rows'
+            s_rep = torch.einsum("rhd,hd->rh", wh_rep, layer_params["a_src"])
+            s_src_mix = sim_append_replicated(s_src_mix, s_rep)
         wh_self = self_gather(payload, self_pos, dst_count).reshape(
             P, num_out, H, dh)
         s_dst_n = torch.einsum("pnhd,hd->pnh", wh_self, layer_params["a_dst"])
@@ -383,7 +406,7 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
             logits.reshape(P * E, H), flat_dst, lp["edge_mask"].reshape(-1),
             P * num_out,
         ).reshape(P, E, H)
-        loc = _half_weighted(spec, payload, alpha[split, lp["ledge_ids"].long()],
+        loc = _half_weighted(spec, loc_rows, alpha[split, lp["ledge_ids"].long()],
                              lp, "l", num_out, dh)
         if has_remote:
             a_rem = alpha[split, lp["redge_ids"].long()]  # (P, ER, H)
@@ -403,7 +426,8 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last):
     return out
 
 
-def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle):
+def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle,
+                rep_block=None):
     """Split-parallel forward pass (Algorithm 2): shuffle -> gnn layer, per
     depth, or with ``spec.overlap`` the split local/remote schedule
     (``_gnn_layer_overlap``) on plans staged with their edge halves.
@@ -412,18 +436,26 @@ def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle):
     features); ``h_input`` is (P, N_L, F_in). Runs depths L-1 .. 0 and returns
     (P, N_0, out_dim) target logits. ``plan_arrays['layers']`` is ordered by
     dst depth (0 = targets), so it is iterated reversed.
+
+    ``rep_block (R, F_in)`` holds the replicated hot-vertex feature rows. It
+    applies to the input layer only (li == L-1): plans built with a
+    replication set address those sources past the recv region, so the
+    block is appended to the mixed buffer after the (smaller) shuffle.
     """
     h = h_input
     L = spec.num_layers
     for li in range(L - 1, -1, -1):
         lp = plan_arrays["layers"][li]
         num_out = lp["self_pos"].shape[-1]  # N_i
+        rep = rep_block if li == L - 1 else None
         if spec.overlap:
             h = _gnn_layer_overlap(spec, params[L - 1 - li], h, lp, num_out,
-                                   is_last=(li == 0))
+                                   is_last=(li == 0), rep_block=rep)
             continue
         mixed = shuffle_fn(h, lp["send_idx"], spec.wire_dtype,
                            send_count=lp["send_count"])  # (P, M, F)
+        if rep is not None:
+            mixed = sim_append_replicated(mixed, rep)
         h = gnn_layer_apply(
             spec, params[L - 1 - li], mixed, lp, num_out, is_last=(li == 0)
         )
@@ -431,7 +463,7 @@ def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle):
 
 
 def gnn_forward_cached(spec, params, cache_block, miss_feats, plan_arrays,
-                       shuffle_fn=sim_shuffle):
+                       shuffle_fn=sim_shuffle, rep_block=None):
     """Split-parallel forward with the loading stage folded into the step.
 
     Instead of a pre-gathered (P, N_L, F) block, the input features are
@@ -445,4 +477,5 @@ def gnn_forward_cached(spec, params, cache_block, miss_feats, plan_arrays,
         cache_block, plan_arrays["cache"], miss_feats,
         wire_dtype=spec.wire_dtype,
     )
-    return gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn)
+    return gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn,
+                       rep_block=rep_block)

@@ -1,5 +1,6 @@
 """Plan sources: who builds the per-iteration ``SplitPlan`` and when — the
-counterpart of ``repro/runtime/plan_source.py`` (split mode, no mesh).
+counterpart of ``repro/runtime/plan_source.py`` (split, dp and pushpull
+modes; no mesh).
 
 GSplit's cooperative pipeline (paper §5) overlaps the host stages of
 mini-batch ``k+1`` (sampling, online splitting, feature loading) with the
@@ -26,7 +27,11 @@ are bit-for-bit the same from all four sources of one sampling kind. The
 overlap schedule's edge halves are built by the producer with the plan
 (``with_halves``), and with a serving feature cache the producer compiles
 the batch's ``CachePlan`` and gathers only its miss rows; the cache plan is
-grown to its own marks (``CM``/``CS``) at delivery too.
+grown to its own marks (``CM``/``CS``) at delivery too. In split mode the
+producer records each sample in an ``EdgeTelemetry`` when given one and
+reroutes replicated sources (``replication``); dp and pushpull stack
+``num_devices`` keyed micro-batches (``build_dp_plan``) and sample on the
+host only.
 """
 from __future__ import annotations
 
@@ -37,7 +42,13 @@ from typing import Iterator
 import numpy as np
 import torch
 
-from repro_torch.core.splitting import SplitPlan, build_split_plan, pad_axis, repad_plan
+from repro_torch.core.splitting import (
+    SplitPlan,
+    build_dp_plan,
+    build_split_plan,
+    pad_axis,
+    repad_plan,
+)
 from repro_torch.graph.cache import CachePlan, FeatureCache, LoadBreakdown
 from repro_torch.faults.retry import RetryPolicy
 from repro_torch.graph.sampling import NeighborSampler
@@ -76,15 +87,22 @@ class PlanBatch:
     t_built: float = 0.0
 
 
+#: the trainer modes a producer builds plans for
+MODES = ("split", "dp", "pushpull")
+
+
 class PlanProducer:
-    """Builds one ``PlanBatch``: sample -> online split -> feature load
-    (split mode). Sampling runs on ``device_sampler`` when one is given,
-    else on the host sampler. Holds only read-only references (the cache's
-    tables included), so any thread may build any batch; repadding is left
-    to ``finalize``. With ``pin`` the feature block is gathered into pinned
-    memory, for staging to a card. ``with_halves`` builds the overlap
-    schedule's edge halves; with ``cache`` and ``serve_cache`` the load
-    stage gathers only the cache's misses."""
+    """Builds one ``PlanBatch``: sample -> online split (or dp stacking) ->
+    feature load. Sampling runs on ``device_sampler`` when one is given
+    (split mode only), else on the host sampler. Holds only references that
+    stay fixed within an epoch (the cache's tables included), so any thread
+    may build any batch; repadding is left to ``finalize``. With ``pin`` the
+    feature block is gathered into pinned memory, for staging to a card.
+    ``with_halves`` builds the overlap schedule's edge halves; with
+    ``cache`` and ``serve_cache`` the load stage gathers only the cache's
+    misses. ``assignment``, ``replication`` and ``device_sampler`` are
+    re-pointed by ``Trainer.refine_partition`` between epochs;
+    ``telemetry.record`` is thread-safe."""
 
     def __init__(
         self,
@@ -93,7 +111,7 @@ class PlanProducer:
         labels: np.ndarray,
         num_devices: int,
         pad_multiple: int,
-        assignment: np.ndarray,
+        assignment: np.ndarray | None = None,
         cache: FeatureCache | None = None,
         serve_cache: bool = True,
         device_sampler=None,  # repro_torch.sampler.DeviceSampler | None
@@ -101,7 +119,21 @@ class PlanProducer:
         pin: bool = False,
         obs: Obs = NULL_OBS,
         injector=None,  # repro_torch.faults.FaultInjector | None
+        mode: str = "split",
+        replication=None,  # core.partition.ReplicationSet | None
+        telemetry=None,  # core.partition.EdgeTelemetry | None
     ):
+        if mode not in MODES:
+            raise ValueError(f"unknown mode {mode!r} (one of {MODES})")
+        if mode == "split" and assignment is None:
+            raise ValueError("split mode needs a partition assignment")
+        if device_sampler is not None and mode != "split":
+            raise ValueError("device sampling is split-mode only")
+        if replication is not None and mode != "split":
+            raise ValueError("hot-vertex replication is split-mode only")
+        self.mode = mode
+        self.replication = replication
+        self.telemetry = telemetry
         self.sampler = sampler
         self.features = features
         self.labels = labels
@@ -126,14 +158,25 @@ class PlanProducer:
                 # both samplers are pure functions of (seed, epoch, index);
                 # the device one falls back to the host's keyed API on cap
                 # overflow
-                sampler = self.device_sampler or self.sampler
-                sample = sampler.sample_batch(targets, epoch, index)
+                if self.mode != "split":
+                    samples = self.sampler.sample_micro_batch(
+                        targets, self.num_devices, epoch, index)
+                else:
+                    sampler = self.device_sampler or self.sampler
+                    sample = sampler.sample_batch(targets, epoch, index)
             with obs.span("plan/split") as sp_split:
-                plan = build_split_plan(
-                    sample, self.assignment, self.num_devices,
-                    pad_multiple=self.pad_multiple,
-                    with_halves=self.with_halves,
-                )
+                if self.mode != "split":
+                    plan = build_dp_plan(samples, pad_multiple=self.pad_multiple,
+                                         with_halves=self.with_halves)
+                else:
+                    if self.telemetry is not None:
+                        self.telemetry.record(sample)
+                    plan = build_split_plan(
+                        sample, self.assignment, self.num_devices,
+                        pad_multiple=self.pad_multiple,
+                        with_halves=self.with_halves,
+                        replication=self.replication,
+                    )
             with obs.span("plan/load") as sp_load:
                 cache_plan, feats, breakdown = stage_host_features(
                     plan, self.features, self.cache, self.serve_cache,

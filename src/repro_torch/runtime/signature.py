@@ -24,15 +24,16 @@ def plan_signature(plan: SplitPlan, cache_plan=None, extra: tuple = ()) -> tuple
     shuffle_chunks, shuffle_overlap)``.
     """
     fronts = tuple(ids.shape for ids in plan.front_ids)
-    # the reference's per-layer key, with its replicated-block height (0:
-    # replication is a later slice)
+    # the reference's per-layer key; the replicated-block height R shifts
+    # the mixed-buffer regions the gather indices point into, so two plans
+    # that differ only in R never share a key
     layers = tuple(
         (
             lp.edge_src.shape,
             lp.send_idx.shape,
             lp.self_pos.shape,
             lp.pack_perm.shape,
-            0,
+            lp.num_replicated,
         )
         + (
             (

@@ -52,11 +52,31 @@ CACHE_KEYS = ("local_slot", "local_mask", "send_slot", "recv_pos",
               "recv_mask", "miss_pos", "miss_mask")
 
 
+def check_replicated(plan: SplitPlan, num_replicated: int) -> None:
+    """Raise unless the plan's replicated region is ``num_replicated`` rows.
+
+    A plan built with a replication set addresses sources past the recv
+    region on the assumption that exactly R replicated rows are appended to
+    the mixed buffer; a block of another height is a silent wrong gather,
+    so staging rejects the mismatch.
+    """
+    rep = plan.layers[-1].num_replicated if plan.layers else 0
+    if rep != num_replicated:
+        raise ValueError(
+            f"plan carries {rep} replicated source rows but the trainer "
+            f"serves a block of {num_replicated} — the plan builder and the "
+            "resident replication block must come from the same "
+            "ReplicationSet"
+        )
+
+
 def _plan_fields(plan: SplitPlan, cache_plan: CachePlan | None = None,
-                 with_halves: bool = False):
+                 with_halves: bool = False, num_replicated: int = 0):
     """``(place, key, array)`` for every array the step reads, as contiguous
     int32 or bool numpy arrays, in one fixed order. ``place`` is a layer's
-    index, None for the plan's top level, or ``"cache"``."""
+    index, None for the plan's top level, or ``"cache"``. Raises unless the
+    plan's replicated region is ``num_replicated`` rows high."""
+    check_replicated(plan, num_replicated)
     for i, lp in enumerate(plan.layers):
         if with_halves and not lp.has_halves:
             raise ValueError(
@@ -119,29 +139,34 @@ def cache_plan_to_device(cp: CachePlan, device) -> dict:
 
 
 def plan_to_device(plan: SplitPlan, device, cache_plan: CachePlan | None = None,
-                   with_halves: bool = False) -> dict:
+                   with_halves: bool = False, num_replicated: int = 0) -> dict:
     """A SplitPlan as a dict of device tensors (indices int32), with the JAX
     package's keys: ``layers`` (one dict per layer, by dst depth),
     ``target_mask`` and ``input_mask``, and ``cache`` with a cache plan.
     Each layer also carries the true sizes its gathers' adjoints read:
     ``send_count`` (P, P) and ``dst_count`` (P,); ``with_halves`` ships the
     local/remote edge halves the overlap schedule reads (the blocking path
-    neither builds nor stages them). One pageable ``torch.as_tensor`` copy
-    per array."""
+    neither builds nor stages them). ``num_replicated`` is the height of the
+    replicated block the step appends (0 without replication); a plan built
+    for another height raises. One pageable ``torch.as_tensor`` copy per
+    array."""
     return _assemble(plan.num_layers, (
         (place, key, torch.as_tensor(a, device=device))
-        for place, key, a in _plan_fields(plan, cache_plan, with_halves)
+        for place, key, a in _plan_fields(plan, cache_plan, with_halves,
+                                          num_replicated)
     ))
 
 
 def pack_host(plan: SplitPlan, labels: np.ndarray, pin: bool,
-              cache_plan: CachePlan | None = None, with_halves: bool = False):
+              cache_plan: CachePlan | None = None, with_halves: bool = False,
+              num_replicated: int = 0):
     """Every plan array (``plan_to_device``'s) and the labels in one host
     byte buffer (pinned when ``pin``): ``(buffer, spans)``, where each span
     ``(place, key, offset, dtype, shape)`` places one array at an
     ``ALIGN``-byte offset. The labels' span comes last, under the key
-    ``"labels"``."""
-    fields = list(_plan_fields(plan, cache_plan, with_halves))
+    ``"labels"``. A zero-size array (a dp plan's ``send_idx``) takes no
+    bytes: its span starts where the next array's does."""
+    fields = list(_plan_fields(plan, cache_plan, with_halves, num_replicated))
     fields.append((None, "labels", _host(labels, np.int32)))
     spans, at = [], 0
     for layer, key, a in fields:
@@ -175,7 +200,7 @@ def pad_rows(feats: torch.Tensor, rows: int) -> torch.Tensor:
 
 def stage_batch(plan: SplitPlan, feats: torch.Tensor, labels: np.ndarray,
                 device, cache_plan: CachePlan | None = None,
-                with_halves: bool = False) -> tuple:
+                with_halves: bool = False, num_replicated: int = 0) -> tuple:
     """One delivered batch on ``device``: ``(feats, plan dict, labels
     (P, N_0))``. ``feats`` is padded on the device to the plan's input
     height, or with a cache plan to its miss width (the (P, M, F) miss block
@@ -185,7 +210,9 @@ def stage_batch(plan: SplitPlan, feats: torch.Tensor, labels: np.ndarray,
     the packed plan, halves, cache plan and labels (``pack_host``) and one of
     the feature block, which must be pinned
     (``gather_features``/``gather_miss_features`` with ``pin=True``); a
-    pageable block raises. Elsewhere, the plain per-array copies.
+    pageable block raises. Elsewhere, the plain per-array copies. A plan
+    whose replicated region is not ``num_replicated`` rows high raises on
+    either path.
     """
     device = torch.device(device)
     if cache_plan is not None:
@@ -195,7 +222,8 @@ def stage_batch(plan: SplitPlan, feats: torch.Tensor, labels: np.ndarray,
     if device.type != "cuda":
         return (
             pad_rows(feats.to(device), rows),
-            plan_to_device(plan, device, cache_plan, with_halves),
+            plan_to_device(plan, device, cache_plan, with_halves,
+                           num_replicated),
             torch.as_tensor(labels, device=device),
         )
     # a batch whose every input row is a cache hit has an empty miss block
@@ -205,7 +233,8 @@ def stage_batch(plan: SplitPlan, feats: torch.Tensor, labels: np.ndarray,
             "(gather it with gather_features(pin=True))"
         )
     buf, spans = pack_host(plan, labels, pin=True, cache_plan=cache_plan,
-                           with_halves=with_halves)
+                           with_halves=with_halves,
+                           num_replicated=num_replicated)
     plan_arrays, labels_d = unpack(
         buf.to(device, non_blocking=True), spans, plan.num_layers
     )

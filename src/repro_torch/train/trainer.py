@@ -1,7 +1,19 @@
-"""Training runtime for the split-parallel main path — the counterpart of
-``repro/train/trainer.py`` restricted to ``mode="split"``, on any of the four
-plan sources, with the blocking or the overlap schedule and with or without
-the device-resident feature cache.
+"""Training runtime — the counterpart of ``repro/train/trainer.py`` without
+the 2-D mesh and checkpoints: one trainer, three parallelism paradigms, on
+any of the four plan sources (dp and pushpull on the host ones), with the
+blocking or the overlap schedule and with or without the device-resident
+feature cache.
+
+  * ``split``     -- the paper's split parallelism: one mini-batch, split
+                     online by f_G, per-layer all-to-all shuffles; optionally
+                     with hot-vertex replication (``replication_budget``) and
+                     edge telemetry fed back by ``refine_partition``.
+  * ``dp``        -- data parallelism (the DGL/Quiver baseline): one
+                     micro-batch per split, redundant loads and compute, no
+                     shuffles.
+  * ``pushpull``  -- the P3 hybrid; on one device its numerics equal dp's,
+                     and the port builds the same plan (as the JAX package
+                     does).
 
 The P splits run in sim form, as a leading axis on one device. One step:
 stage a delivered plan to device tensors (``plan_io.stage_batch``: pinned,
@@ -25,10 +37,15 @@ from dataclasses import dataclass, field, replace
 import numpy as np
 import torch
 
-from repro_torch.core.partition import partition_graph
+from repro_torch.core.partition import (
+    PARTITION_METHODS,
+    EdgeTelemetry,
+    partition_graph,
+)
+from repro_torch.core.partition import refine_partition as _refine_partition
 from repro_torch.core.presample import presample
 from repro_torch.core.shuffle import WIRE_DTYPES, sim_shuffle
-from repro_torch.core.splitting import build_split_plan, repad_plan
+from repro_torch.core.splitting import build_dp_plan, build_split_plan, repad_plan
 from repro_torch.faults.retry import RetryPolicy
 from repro_torch.graph.cache import FeatureCache, LoadBreakdown
 from repro_torch.graph.datasets import GraphDataset
@@ -36,6 +53,7 @@ from repro_torch.graph.sampling import NeighborSampler
 from repro_torch.models.gnn.layers import GNN, GNNSpec, gnn_forward, gnn_forward_cached
 from repro_torch.obs import NULL_OBS, Obs, note_hwm_growth
 from repro_torch.runtime.plan_source import (
+    MODES,
     PlanProducer,
     finalize_cache_plan,
     make_plan_source,
@@ -55,13 +73,14 @@ class TrainConfig:
     reference's defaults. The fields naming later slices accept only their
     off value."""
 
-    mode: str = "split"  # dp | pushpull: later slice
+    mode: str = "split"  # split | dp | pushpull
     num_devices: int = 4
     fanouts: tuple[int, ...] = (15, 15, 15)
     batch_size: int = 1024
     lr: float = 1e-3
     optimizer: str = "adam"  # adam | adamw | sgd
-    partition_method: str = "gsplit"  # node | edge | rand: later slice
+    # split mode: gsplit | node | edge | rand | telemetry
+    partition_method: str = "gsplit"
     presample_epochs: int = 10
     pad_multiple: int = -1  # -1 = pow2 bucketing
     cache_mode: str = "none"  # none | distributed | partitioned
@@ -81,8 +100,14 @@ class TrainConfig:
     shuffle_overlap: bool = False  # split local/remote aggregation per layer
     shuffle_chunks: int = 1  # feature-axis tiles per layer exchange
     wire_dtype: str = "float32"  # float32 | bfloat16 | float16
-    replication_budget: float = 0.0  # hot-vertex replication: later slice
-    record_telemetry: bool = False  # edge telemetry: later slice
+    # Hot-vertex replication: a fraction of |V| rows, the hottest
+    # cross-split sources, resident on the device as one (R, F) block
+    # appended past the recv region; their edges never enter the shuffle.
+    # Split mode only (dp and pushpull plans ignore it); 0.0 = off.
+    replication_budget: float = 0.0
+    # record every split-mode sample's frontier/edge counts
+    # (core.partition.EdgeTelemetry) for ``Trainer.refine_partition``
+    record_telemetry: bool = False
     # Tracing + metrics (repro_torch.obs): spans for every host stage,
     # flow-linked per (epoch, batch), and the metrics registry. Off by
     # default; off, the same code records nothing and adds no sync.
@@ -112,14 +137,15 @@ class TrainConfig:
 #: feature-cache placements (``graph.cache.FeatureCache``)
 CACHE_MODES = ("none", "distributed", "partitioned")
 
+#: plan sources that sample on the device (split mode only)
+DEVICE_SOURCES = ("device", "device_pipelined")
+
 #: config values the port runs, and the slice each other value waits for
 _SLICE = {
-    "mode": (("split",), "the dp and pushpull modes"),
-    "partition_method": (("gsplit",), "the partitioner ablation arms"),
-    "plan_source": (("serial", "pipelined", "device", "device_pipelined"),
+    "mode": (MODES, "the parallelism modes"),
+    "partition_method": (PARTITION_METHODS, "the partitioner's method arms"),
+    "plan_source": (("serial", "pipelined") + DEVICE_SOURCES,
                     "the plan sources"),
-    "replication_budget": ((0.0,), "hot-vertex replication"),
-    "record_telemetry": ((False,), "hot-vertex replication and telemetry"),
     "num_replicas": ((0,), "the 2-D (replica, split) mesh"),
     "ckpt_dir": ((None,), "checkpoint and resume"),
     "ckpt_every": ((0,), "checkpoint and resume"),
@@ -134,6 +160,12 @@ def check_config(cfg: TrainConfig) -> None:
                 f"({what}: a later slice of the port; the port runs "
                 f"{name} in {values!r})"
             )
+    if cfg.plan_source in DEVICE_SOURCES and cfg.mode != "split":
+        raise ValueError(
+            f"plan_source {cfg.plan_source!r} requires mode='split' (the "
+            f"device sampler splits its batch; mode={cfg.mode!r} samples "
+            "micro-batches on the host)"
+        )
     if cfg.wire_dtype not in WIRE_DTYPES:
         raise ValueError(
             f"unknown wire_dtype {cfg.wire_dtype!r} (one of {WIRE_DTYPES})"
@@ -203,6 +235,11 @@ class IterStats:
     # where the input rows were served from (None without a cache)
     load_breakdown: LoadBreakdown | None = None
     wire_bytes: int = 0  # modeled shuffle bytes on the wire (see above)
+    # the paper's split-quality counters (SplitPlan's accounting methods)
+    padded_edge_slots: int = 0  # edge slots the padded step executes
+    busiest_edges: int = 0  # true edges of the most-loaded split
+    load_imbalance: float = 1.0  # max / mean edges per split
+    cross_edge_fraction: float = 0.0  # edges reading the recv region
 
 
 @dataclass
@@ -218,9 +255,12 @@ class EpochStats:
         }
         for k in (
             "t_sample", "t_split", "t_load", "t_compute", "loaded_rows",
-            "computed_edges", "shuffle_rows", "wire_bytes",
+            "computed_edges", "shuffle_rows", "padded_edge_slots",
+            "busiest_edges", "wire_bytes",
         ):
             agg[k] = float(np.sum([getattr(i, k) for i in self.iters]))
+        for k in ("load_imbalance", "cross_edge_fraction"):
+            agg[k] = float(np.mean([getattr(i, k) for i in self.iters]))
         if self.iters and self.iters[0].load_breakdown is not None:
             for k in ("local_hit", "remote_hit", "host_miss"):
                 agg[f"load_{k}"] = int(np.sum(
@@ -229,7 +269,8 @@ class EpochStats:
 
 
 class Trainer:
-    """End-to-end split-parallel mini-batch GNN training on one device.
+    """End-to-end mini-batch GNN training with the chosen parallelism, all
+    P splits on one device.
 
     ``device=None`` is the card. ``model`` (a ``GNN``, e.g. from
     ``params_from_jax``) replaces the trainer's own initialization, which
@@ -239,7 +280,8 @@ class Trainer:
     ``faults.FaultInjector``) fires its schedule in the producers' builds.
     With ``cache_mode`` set, the ``FeatureCache`` is built once from the
     presample ranking, and when it serves, its (P, C, F) resident block is
-    put on the device once (``self.cache_block``) and never staged again.
+    put on the device once (``self.cache_block``) and never staged again;
+    likewise a replication set's (R, F) rows (``self.rep_block``).
     """
 
     def __init__(
@@ -268,19 +310,32 @@ class Trainer:
             cfg.batch_size, seed=cfg.seed,
         )
 
-        # ---- offline stage: presample + partition ------------------------
+        # ---- offline stage: presample + partition (split mode) ------------
+        self.weights = None
+        self.partition = None
         t0 = time.perf_counter()
-        self.weights = presample(
-            dataset.graph, dataset.train_ids, list(cfg.fanouts),
-            cfg.batch_size, num_epochs=cfg.presample_epochs, seed=cfg.seed + 1,
-        )
+        if cfg.mode == "split" or cfg.cache_mode != "none":
+            self.weights = presample(
+                dataset.graph, dataset.train_ids, list(cfg.fanouts),
+                cfg.batch_size, num_epochs=cfg.presample_epochs,
+                seed=cfg.seed + 1,
+            )
         self.t_presample = time.perf_counter() - t0
         t0 = time.perf_counter()
-        self.partition = partition_graph(
-            dataset.graph, cfg.num_devices, method=cfg.partition_method,
-            weights=self.weights, seed=cfg.seed,
-        )
+        if cfg.mode == "split":
+            self.partition = partition_graph(
+                dataset.graph, cfg.num_devices, method=cfg.partition_method,
+                weights=self.weights, train_ids=dataset.train_ids,
+                seed=cfg.seed, replication_budget=cfg.replication_budget,
+            )
         self.t_partition = time.perf_counter() - t0
+        # hot-vertex replication: the selected rows, resident on the device
+        # as one (R, F) block appended past the recv region
+        self._set_replication()
+        self.telemetry = None
+        if cfg.record_telemetry and cfg.mode == "split":
+            self.telemetry = EdgeTelemetry(dataset.graph.num_nodes,
+                                           dataset.graph.num_edges)
 
         self.cache = None
         self.cache_block = None  # (P, C, F) device-resident rows when serving
@@ -289,7 +344,8 @@ class Trainer:
                 dataset.graph.num_nodes, cfg.num_devices,
                 cfg.cache_capacity_per_device,
                 ranking=self.weights.vertex_weight, mode=cfg.cache_mode,
-                partition_assignment=self.partition.assignment,
+                partition_assignment=(
+                    self.partition.assignment if self.partition else None),
             )
             if cfg.cache_serve and self.cache.serves:
                 self.cache_block = torch.as_tensor(
@@ -311,17 +367,12 @@ class Trainer:
         self.injector = injector
         self.sig_cache = SignatureCache()
         self.device_sampler = None
-        if cfg.plan_source in ("device", "device_pipelined"):
-            self.device_sampler = DeviceSampler(
-                dataset.graph, self.partition.assignment, cfg.num_devices,
-                list(cfg.fanouts), cfg.seed, host_sampler=self.sampler,
-                device=self.device,
-            )
-            self.device_sampler.obs = self.obs
+        if cfg.plan_source in DEVICE_SOURCES:
+            self.device_sampler = self._make_device_sampler()
         self.producer = PlanProducer(
             self.sampler, dataset.features, dataset.labels,
             num_devices=cfg.num_devices, pad_multiple=cfg.pad_multiple,
-            assignment=self.partition.assignment,
+            assignment=self.partition.assignment if self.partition else None,
             cache=self.cache,
             serve_cache=self.cache_block is not None,
             device_sampler=self.device_sampler,
@@ -329,7 +380,37 @@ class Trainer:
             pin=self.device.type == "cuda",
             obs=self.obs,
             injector=injector,
+            mode=cfg.mode,
+            replication=self.replication,
+            telemetry=self.telemetry,
         )
+
+    def _set_replication(self) -> None:
+        """Take the partition's replication set and put its rows on the
+        device (``rep_block``, None without replication)."""
+        self.replication = self.partition.replication if self.partition else None
+        self.rep_block = None
+        if self.replication is not None:
+            self.rep_block = torch.as_tensor(
+                self.ds.features[self.replication.vertices].astype(
+                    np.float32, copy=False),
+                device=self.device,
+            )
+
+    def _num_replicated(self) -> int:
+        return self.replication.num_replicated if self.replication else 0
+
+    def _make_device_sampler(self) -> DeviceSampler:
+        """The device sampler over the current partition: its shards are
+        uploaded to the trainer's device."""
+        cfg = self.cfg
+        sampler = DeviceSampler(
+            self.ds.graph, self.partition.assignment, cfg.num_devices,
+            list(cfg.fanouts), cfg.seed, host_sampler=self.sampler,
+            device=self.device,
+        )
+        sampler.obs = self.obs
+        return sampler
 
     # ------------------------------------------------------------------ #
     def _dispatch_step(self, plan, feats: torch.Tensor, labels: np.ndarray,
@@ -342,14 +423,16 @@ class Trainer:
         feats_d, plan_arrays, labels_d = stage_batch(
             plan, feats, labels, self.device, cache_plan,
             with_halves=self.cfg.shuffle_overlap,
+            num_replicated=self._num_replicated(),
         )
         layers = list(self.model.layers)
         if cache_plan is not None:
             logits = gnn_forward_cached(self.spec, layers, self.cache_block,
-                                        feats_d, plan_arrays, sim_shuffle)
+                                        feats_d, plan_arrays, sim_shuffle,
+                                        rep_block=self.rep_block)
         else:
             logits = gnn_forward(self.spec, layers, feats_d, plan_arrays,
-                                 sim_shuffle)
+                                 sim_shuffle, rep_block=self.rep_block)
         mask = plan_arrays["target_mask"]
         loss = masked_softmax_xent(logits, labels_d, mask)
         acc = masked_accuracy(logits, labels_d, mask)
@@ -417,6 +500,7 @@ class Trainer:
 
     def _iter_stats(self, plan, loss, acc, t_sample, t_split, t_load,
                     t_stage, t_device, t_wait=0.0, breakdown=None) -> IterStats:
+        edges, busiest, imbalance, cross = plan.edge_accounting()
         st = IterStats(
             loss=loss,
             accuracy=acc,
@@ -425,13 +509,17 @@ class Trainer:
             t_load=t_load,
             t_compute=t_stage + t_device,
             loaded_rows=plan.loaded_feature_rows(),
-            computed_edges=plan.computed_edges(),
+            computed_edges=edges,
             shuffle_rows=plan.shuffle_rows(),
             t_wait=t_wait,
             t_stage=t_stage,
             t_device=t_device,
             load_breakdown=breakdown,
             wire_bytes=modeled_wire_bytes(plan, self.spec, self.cfg.wire_dtype),
+            padded_edge_slots=plan.padded_edge_slots(),
+            busiest_edges=busiest,
+            load_imbalance=imbalance,
+            cross_edge_fraction=cross,
         )
         self._emit_iter_metrics(st)
         return st
@@ -455,13 +543,23 @@ class Trainer:
         """One step on ``targets`` with the streamed sampler RNG (draws in
         call order), like the JAX ``Trainer.train_iter``."""
         cfg = self.cfg
+        dp = cfg.mode != "split"
         with self.obs.span("plan/sample") as sp_sample:
-            sample = self.sampler.sample(targets)
+            if dp:
+                samples = self.sampler.sample_micro(targets, cfg.num_devices)
+            else:
+                sample = self.sampler.sample(targets)
         with self.obs.span("plan/split") as sp_split:
-            plan = build_split_plan(
-                sample, self.partition.assignment, cfg.num_devices,
-                pad_multiple=cfg.pad_multiple, with_halves=cfg.shuffle_overlap,
-            )
+            if dp:
+                plan = build_dp_plan(samples, pad_multiple=cfg.pad_multiple,
+                                     with_halves=cfg.shuffle_overlap)
+            else:
+                plan = build_split_plan(
+                    sample, self.partition.assignment, cfg.num_devices,
+                    pad_multiple=cfg.pad_multiple,
+                    with_halves=cfg.shuffle_overlap,
+                    replication=self.replication,
+                )
             before = dict(self._pad_hwm)
             plan = repad_plan(plan, self._pad_hwm)
         note_hwm_growth(self.obs, before, self._pad_hwm, "train_iter")
@@ -558,3 +656,35 @@ class Trainer:
                 self.obs.write(self.cfg.obs_path)
         self._epoch += 1
         return stats
+
+    def refine_partition(self):
+        """Telemetry-driven partition refinement (method="telemetry"), the
+        JAX ``Trainer.refine_partition``.
+
+        Call between epochs (no producer running) with
+        ``record_telemetry=True``: the per-edge appearance rates of the
+        recorded training batches replace the presample estimates, the
+        boundary refinement re-runs from the current assignment, and the
+        replication set is selected anew under ``cfg.replication_budget``.
+        The producer, the resident block and the device sampler
+        (whose shards are uploaded anew) follow the new partition; the
+        padding high-water marks are kept. Returns the new ``Partition``.
+        """
+        if self.partition is None:
+            raise ValueError("refine_partition needs mode='split'")
+        if self.telemetry is None:
+            raise ValueError(
+                "refine_partition needs record_telemetry=True (no telemetry "
+                "was collected)"
+            )
+        self.partition = _refine_partition(
+            self.ds.graph, self.partition, self.telemetry.as_weights(),
+            replication_budget=self.cfg.replication_budget,
+        )
+        self._set_replication()
+        self.producer.assignment = self.partition.assignment
+        self.producer.replication = self.replication
+        if self.device_sampler is not None:
+            self.device_sampler = self._make_device_sampler()
+            self.producer.device_sampler = self.device_sampler
+        return self.partition

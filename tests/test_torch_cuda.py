@@ -12,7 +12,10 @@ states. The packed segment sum bitwise on a CPU copy, the packed softmax
 copy. Each kernel must also repeat bit for bit. The overlap schedule's edge
 halves (the local rows, the recv region, a GAT head chunk) take the same
 kernels, held the same way; a zero-width half launches nothing; the served
-feature block equals the host gather.
+feature block equals the host gather. So do the replicated input layer
+(``[local][recv][replicated]`` mixed rows) and the dp layout (S = 0, where
+the self rows' adjoint is a step's only shuffle adjoint); dp, pushpull and
+replicated trainers agree with the CPU.
 """
 import copy
 
@@ -916,3 +919,152 @@ def test_cuda_cached_overlap_window_stays_at_two_pinned_copies(cuda):
     assert "pageable" not in copies, copies
     assert copies["pinned"]["count"] == 2 * prof["steps"], copies
     assert prof["resident_bytes"] > 0
+
+
+# --------------------------------------------------------------------- #
+# hot-vertex replication and the dp layout
+# --------------------------------------------------------------------- #
+def _rep_and_dp_plans():
+    """A tiny-graph split plan built with a replication set (its input
+    layer's mixed rows are [local][recv][replicated]) and a dp plan of four
+    keyed micro-batches, each repadded after a larger batch; with the
+    dataset and the replication set."""
+    from repro_torch.core import (
+        build_dp_plan,
+        build_split_plan,
+        partition_graph,
+        presample,
+        repad_plan,
+    )
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.graph.sampling import NeighborSampler, sample_minibatch
+
+    ds = make_dataset("tiny")
+    w = presample(ds.graph, ds.train_ids, [4, 4], 32, num_epochs=1)
+    part = partition_graph(ds.graph, 4, method="gsplit", weights=w,
+                           replication_budget=0.1)
+    hwm, plan = {}, None
+    for k, n in enumerate((96, 32)):
+        mb = sample_minibatch(ds.graph, ds.train_ids[:n], [4, 4],
+                              np.random.default_rng(k))
+        plan = repad_plan(build_split_plan(mb, part.assignment, 4,
+                                           replication=part.replication), hwm)
+    sampler = NeighborSampler(ds.graph, ds.train_ids, [4, 4], 32, seed=1)
+    hwm, dp = {}, None
+    for k, n in enumerate((64, 32)):
+        dp = repad_plan(build_dp_plan(sampler.sample_micro_batch(
+            ds.train_ids[:n], 4, 0, k)), hwm)
+    return {"replicated": plan, "dp": dp}, ds, part.replication
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which,layer", [("replicated", 1), ("dp", 0),
+                                         ("dp", 1)])
+def test_cuda_kernels_match_plain_on_replicated_and_dp_layouts(cuda, which,
+                                                               layer):
+    """The gather_segsum kernels at the replicated input layer (M = N + P*S
+    + R mixed rows) and at a dp layout (S = 0): the walk, the forward and
+    the row adjoint (unweighted and weighted) and the weight adjoint, each
+    bitwise against its plain version on a CPU copy, each repeating."""
+    plans, _, rep = _rep_and_dp_plans()
+    lp = plans[which].layers[layer]
+    P = lp.edge_src.shape[0]
+    M = lp.n_local + P * lp.send_idx.shape[2] + lp.num_replicated
+    if which == "replicated":
+        assert lp.num_replicated == rep.num_replicated > 0
+        assert int(lp.edge_src[lp.edge_mask].max()) >= M - lp.num_replicated
+    else:
+        assert lp.send_idx.shape[2] == 0 and M == lp.n_local
+    num_out = lp.self_pos.shape[1]
+    pd = torch.as_tensor(lp.pack_dst, device=cuda)
+    pack_src = ops._pack_src(torch.as_tensor(lp.edge_src, device=cuda),
+                             torch.as_tensor(lp.pack_perm, device=cuda), pd, M)
+    gen = torch.Generator(device=cuda).manual_seed(layer)
+    H = 4
+    mixed = torch.randn(P, M, 32, device=cuda, generator=gen)
+    g = torch.randn(P, num_out, 32, device=cuda, generator=gen)
+    w = torch.randn(P, pd.shape[1] * pd.shape[2], H, device=cuda, generator=gen)
+    csr = kernel.src_sorted_csr(pack_src, pd, M, num_out)
+    for got, exp in zip(csr, _on_cpu(ref.src_sorted_csr_ref, pack_src, pd, M,
+                                     num_out), strict=True):
+        assert torch.equal(got.cpu(), exp)
+    for weights in (None, w):
+        out = kernel.gather_segsum_fwd(mixed, pack_src, pd, weights, num_out)
+        assert torch.equal(out.cpu(), _on_cpu(
+            ref.gather_segsum_fwd_packed, mixed, pack_src, pd, weights, num_out))
+        assert torch.equal(out, kernel.gather_segsum_fwd(
+            mixed, pack_src, pd, weights, num_out))
+        gm = kernel.gather_segsum_bwd_mixed(g, pack_src, pd, weights, M, csr)
+        assert torch.equal(gm.cpu(), _on_cpu(
+            ref.gather_segsum_bwd_mixed_packed, g, pack_src, pd, weights, M))
+        assert torch.equal(gm, kernel.gather_segsum_bwd_mixed(
+            g, pack_src, pd, weights, M))
+    gw = kernel.gather_segsum_bwd_w(mixed, g, pack_src, pd, H)
+    assert torch.equal(gw.cpu(), _on_cpu(
+        ref.gather_segsum_bwd_w_packed, mixed, g, pack_src, pd, H))
+    assert torch.equal(gw, kernel.gather_segsum_bwd_w(mixed, g, pack_src, pd, H))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1])
+def test_cuda_shuffle_bwd_at_dp_self_rows(cuda, layer):
+    """A dp step's only shuffle adjoint, the self rows' (one group a split):
+    bitwise against its plain version on a CPU copy, through the
+    differentiable ``self_gather``, one launch."""
+    from repro_torch.kernels.shuffle import self_gather
+
+    plans, _, _ = _rep_and_dp_plans()
+    dp = plans["dp"]
+    lp = dp.layers[layer]
+    P, N = lp.self_pos.shape[0], lp.n_local
+    self_pos = torch.as_tensor(lp.self_pos, device=cuda)
+    count = torch.as_tensor(dp.node_count[layer], device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    h = torch.randn(P, N, 24, device=cuda, generator=gen, requires_grad=True)
+    g = torch.randn(P, lp.self_pos.shape[1], 24, device=cuda, generator=gen)
+    sh_kernel.reset_launches()
+    (got,) = torch.autograd.grad(self_gather(h, self_pos, count), h, g)
+    assert sh_kernel.LAUNCHES["shuffle_bwd"] == 1
+    live = (torch.arange(g.shape[1], device=cuda)[None] < count[:, None])
+    want = sh_ref.shuffle_bwd((g * live[:, :, None])[:, None].cpu(),
+                              self_pos[:, None].cpu(), count[:, None].cpu(), N)
+    assert torch.equal(got.cpu(), want)
+
+
+#: a 2-layer step's ``shuffle_bwd`` launches: split as in
+#: ``test_cuda_trainer_matches_cpu`` (replication changes none); dp and
+#: pushpull (S = 0) only the self rows' (SAGE 1, GCN 0, GAT 2)
+_SHUFFLE_BWD = {"split": {"sage": 2, "gcn": 1, "gat": 3},
+                "dp": {"sage": 1, "gcn": 0, "gat": 2}}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,budget", [("split", 0.1), ("dp", 0.0),
+                                         ("pushpull", 0.0)])
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat"])
+def test_cuda_dp_and_replicated_trainers_match_cpu(cuda, mode, budget, model):
+    """Three steps on the card and on the CPU from the same weights agree to
+    rtol 1e-4, with replication in split mode and in dp and pushpull; the
+    card's shuffle adjoint launches follow the mode's table."""
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.models.gnn import GNN, GNNSpec
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    ds = make_dataset("tiny")
+    spec = GNNSpec(model=model, in_dim=ds.spec.feat_dim, hidden_dim=64,
+                   out_dim=ds.spec.num_classes, num_layers=2)
+    cfg = TrainConfig(mode=mode, num_devices=4, fanouts=(4, 4), batch_size=16,
+                      presample_epochs=2, lr=5e-3, replication_budget=budget)
+    model0 = GNN(spec, generator=torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", cuda):
+        tr = Trainer(ds, spec, cfg, device=dev, model=copy.deepcopy(model0))
+        assert (tr.rep_block is not None) == (mode == "split")
+        kernel.reset_launches()
+        sh_kernel.reset_launches()
+        losses[str(dev)] = [s.loss for s in tr.train_epoch(max_iters=3).iters]
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    table = _SHUFFLE_BWD["split" if mode == "split" else "dp"]
+    assert sh_kernel.LAUNCHES["shuffle_bwd"] == 3 * table[model]
+    assert kernel.LAUNCHES["gather_segsum_fwd"] > 0
+    assert (kernel.LAUNCHES["gather_segsum_bwd_w"] > 0) == (model == "gat")

@@ -8,7 +8,8 @@
   loss rtol 1e-4 atol 1e-6: the aggregation sums in another order (index_add
   vs one-hot matmul) and Adam's normalised step amplifies the difference.
 * The port imports nothing of JAX or of the JAX package; its trainer runs on
-  the card unless asked for the CPU; unported settings raise.
+  the card unless asked for the CPU; unported settings raise, ported ones
+  pass ``check_config``.
 """
 import ast
 from dataclasses import fields
@@ -18,12 +19,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro.core import build_split_plan, partition_graph, presample
+from repro.core import build_dp_plan, build_split_plan, partition_graph, presample
 from repro.core.splitting import repad_plan
 from repro.graph.datasets import make_dataset
 from repro.graph.sampling import NeighborSampler
 from repro.models.gnn import GNNSpec
 from repro.train.trainer import TrainConfig, Trainer
+from repro_torch.core import build_dp_plan as t_build_dp_plan
 from repro_torch.core import build_split_plan as t_build_split_plan
 from repro_torch.core import partition_graph as t_partition_graph
 from repro_torch.core import presample as t_presample
@@ -50,10 +52,12 @@ def _assert_same_plan(a, b):
                 assert x.dtype == y.dtype and np.array_equal(x, y), f.name
             else:
                 assert x == y, f.name
-        # replication is off; halves only on plans built with them
-        # (tests/test_torch_overlap.py holds those field by field)
-        assert la.num_replicated == 0
+        # halves only on plans built with them (tests/test_torch_overlap.py
+        # holds those field by field); num_replicated is a field above
         assert la.has_halves == lb.has_halves
+    for name in ("padded_edge_slots", "busiest_edges", "load_imbalance",
+                 "cross_edge_fraction"):
+        assert getattr(a, name)() == getattr(b, name)(), name
 
 
 @pytest.mark.parametrize("name,fanouts,batch", [
@@ -68,21 +72,42 @@ def test_host_stages_bitwise_equal(name, fanouts, batch):
     tw = t_presample(tds.graph, tds.train_ids, fanouts, batch, num_epochs=1,
                      seed=1)
     assert np.array_equal(w.edge_weight, tw.edge_weight)
-    part = partition_graph(ds.graph, 4, method="gsplit", weights=w)
-    tpart = t_partition_graph(tds.graph, 4, method="gsplit", weights=tw)
+    part = partition_graph(ds.graph, 4, method="gsplit", weights=w,
+                           replication_budget=0.05)
+    tpart = t_partition_graph(tds.graph, 4, method="gsplit", weights=tw,
+                              replication_budget=0.05)
     assert np.array_equal(part.assignment, tpart.assignment)
+    rep, trep = part.replication, tpart.replication
+    assert rep.num_replicated == trep.num_replicated > 0
+    assert np.array_equal(rep.slot_of, trep.slot_of)
     s = NeighborSampler(ds.graph, ds.train_ids, fanouts, batch, seed=3)
     ts = TNeighborSampler(tds.graph, tds.train_ids, fanouts, batch, seed=3)
-    hwm, thwm = {}, {}
+    # split plans without and with replication, and dp plans of keyed
+    # micro-batches, each against its own high-water marks
+    hwm = [{}, {}, {}]
+    thwm = [{}, {}, {}]
     for i, targets in enumerate(s.epoch_targets(0)[:3]):
-        plan = repad_plan(build_split_plan(
-            s.sample_batch(targets, 0, i), part.assignment, 4, pad_multiple=-1
-        ), hwm)
-        tplan = t_repad_plan(t_build_split_plan(
-            ts.sample_batch(targets, 0, i), tpart.assignment, 4,
-            pad_multiple=-1,
-        ), thwm)
-        _assert_same_plan(plan, tplan)
+        sample, tsample = s.sample_batch(targets, 0, i), ts.sample_batch(
+            targets, 0, i)
+        micro = s.sample_micro_batch(targets, 4, 0, i)
+        tmicro = ts.sample_micro_batch(targets, 4, 0, i)
+        plans = (
+            build_split_plan(sample, part.assignment, 4, pad_multiple=-1),
+            build_split_plan(sample, part.assignment, 4, pad_multiple=-1,
+                             replication=rep),
+            build_dp_plan(micro, pad_multiple=-1),
+        )
+        tplans = (
+            t_build_split_plan(tsample, tpart.assignment, 4, pad_multiple=-1),
+            t_build_split_plan(tsample, tpart.assignment, 4, pad_multiple=-1,
+                               replication=trep),
+            t_build_dp_plan(tmicro, pad_multiple=-1),
+        )
+        for plan, tplan, h, th in zip(plans, tplans, hwm, thwm):
+            _assert_same_plan(repad_plan(plan, h), t_repad_plan(tplan, th))
+        assert tplans[1].layers[-1].num_replicated == trep.num_replicated
+        assert tplans[1].shuffle_rows() < tplans[0].shuffle_rows()
+        assert tplans[2].shuffle_rows() == 0
     assert hwm == thwm
 
 
@@ -169,19 +194,35 @@ def test_trainer_runs_on_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("mode", "dp"),
-    ("mode", "pushpull"),
-    ("partition_method", "node"),
-    ("partition_method", "rand"),
     ("ckpt_every", 1),
-    ("record_telemetry", True),
     ("num_replicas", 1),
     ("ckpt_dir", "/tmp/ckpt"),
-    ("replication_budget", 0.05),
     ("num_replicas", 2),
     ("wire_dtype", "int8"),
 ])
 def test_unported_config_values_raise(field, value):
     cfg = t_trainer.TrainConfig(**{field: value})
     with pytest.raises(ValueError, match=field):
+        t_trainer.check_config(cfg)
+
+
+@pytest.mark.parametrize("field,value", [
+    ("mode", "dp"),
+    ("mode", "pushpull"),
+    ("partition_method", "node"),
+    ("partition_method", "rand"),
+    ("partition_method", "edge"),
+    ("partition_method", "telemetry"),
+    ("replication_budget", 0.05),
+    ("record_telemetry", True),
+])
+def test_ported_config_values_accepted(field, value):
+    t_trainer.check_config(t_trainer.TrainConfig(**{field: value}))
+
+
+@pytest.mark.parametrize("mode", ["dp", "pushpull"])
+@pytest.mark.parametrize("source", ["device", "device_pipelined"])
+def test_device_source_needs_split_mode(mode, source):
+    cfg = t_trainer.TrainConfig(mode=mode, plan_source=source)
+    with pytest.raises(ValueError, match="plan_source"):
         t_trainer.check_config(cfg)
