@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: the split-parallel
-training paths and the transformer serve path.
+training paths (the 2-D mesh in sim form included) and the transformer
+serve path.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -175,6 +176,28 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               ``plan_source="device"`` raises ``ValueError``. Prints the
               loaded rows, computed edges, shuffle rows, load imbalance and
               step ms beside phase 4's split steps.
+17. mesh    -- the 2-D (replica, split) mesh in sim form at phase 4's
+              widths (P = 4, global batch 1024), 2 epochs of 3 steps a run.
+              (a) R = 1 on the serial source: losses bitwise phase 4's.
+              (d) Replica 1's first R = 2 batch as the trainer builds it
+              (keyed chunks of 512, both parts repadded twice to shared
+              marks): the three gather_segsum kernels and the walk, and
+              ``shuffle_bwd`` for the send and the self rows, at every
+              layer, bitwise against their plain versions on a CPU copy;
+              the wavefront expansion at every hop under the replica-keyed
+              counter (``batch * R + replica``) bitwise against its plain
+              version, and the card's replica-keyed sample bitwise the CPU
+              sampler's and the flattened counter's. (b) R = 2 on all four
+              sources: serial ≡ pipelined and device ≡ device_pipelined
+              bitwise; the device sources launch the wavefront kernel
+              their layers times 2 a step; the first step loads the held
+              parts' rows. (c) R = 4 x P = 1 (256 targets a replica)
+              within rtol 2e-4 / atol 1e-5 of phase 16's dp losses.
+              ``mesh_vs_split`` prints losses, step, wait, stage and sync
+              ms, loaded and shuffle rows (summed over the parts) and
+              memory beside phase 4's and the R = 1 run's. (e) Every run
+              line gives each epoch's ``first_iter_ms`` and
+              ``steady_step_ms`` (``EpochStats.steady_step_seconds()``).
 
 Launch counts are set to 0 just before each trainer run and the serve run
 and read just after; a kernel of the run's path that was never launched
@@ -183,7 +206,8 @@ differ from its walk builds (``src_sorted_csr``, reported as the row
 adjoint's ``csr_builds``) or whose shuffle-adjoint launches differ from its
 steps times the gathers a step differentiates, by mode and model
 (``SHUFFLE_BWD_PER_STEP``; ``SHUFFLE_BWD_OVERLAP`` under the overlap
-schedule: a dp step sends nothing, so only its self rows count). The packed segment kernels run on no trainer path
+schedule: a dp step sends nothing, so only its self rows count), times R
+for a mesh step, whose P = 1 parts send nothing either. The packed segment kernels run on no trainer path
 (``segment_ops``'s packed backend, which the model does not call): their
 counts come from one call of ``segment_ops.segment_sum``/``edge_softmax``
 with ``backend="packed"``, driven with the counts at 0. The last lines are
@@ -261,6 +285,10 @@ WIRE_TOL = dict(rtol=5e-2, atol=5e-2)
 CACHE_ROWS = 2048  # a quarter of papers-s's 32,768 nodes across P=4
 REP_BUDGET = 0.05  # replicated rows: 5% of papers-s's nodes (1,638)
 GAT_REP_TOL = dict(rtol=5e-4, atol=5e-4)  # GAT, replicated vs not: grads
+#: an R x 1 mesh against dp: R per-replica means against one joint mean
+MESH_DP_TOL = dict(rtol=2e-4, atol=1e-5)
+#: each trainer run's (resident_bytes, peak_bytes), by run name
+MEMORY = {}
 
 
 def counters():
@@ -1025,11 +1053,15 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
     check(launches["src_sorted_csr"] == launches["gather_segsum_bwd_mixed"],
           f"{name}: {launches['src_sorted_csr']} walk builds for "
           f"{launches['gather_segsum_bwd_mixed']} row adjoints")
+    # a mesh step runs its R parts' adjoints; a P = 1 split sends nothing
+    # (S = 0), as dp does
+    mode = "dp" if cfg.num_devices == 1 else cfg.mode
     per_step = (SHUFFLE_BWD_OVERLAP if cfg.shuffle_overlap
-                else SHUFFLE_BWD_PER_STEP)[cfg.mode][spec.model]
-    want = len(iters) * per_step
+                else SHUFFLE_BWD_PER_STEP)[mode][spec.model]
+    want = len(iters) * per_step * max(cfg.num_replicas, 1)
     check(launches["shuffle_bwd"] == want,
           f"{name}: {launches['shuffle_bwd']} shuffle_bwd launches, expected {want}")
+    MEMORY[name] = (resident, torch.cuda.max_memory_allocated() - base)
     emit("run", {
         "name": name, "plan_source": cfg.plan_source, "setup_s": t_setup,
         "presample_s": tr.t_presample, "partition_s": tr.t_partition,
@@ -1047,8 +1079,13 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
         "stage_ms": [1e3 * it.t_stage for it in iters],
         "device_ms": [1e3 * it.t_device for it in iters],
         "epoch_wall_ms": [1e3 * e.t_wall for e in epoch_stats],
-        "resident_bytes": resident,
-        "peak_bytes": torch.cuda.max_memory_allocated() - base,
+        # each epoch's wall to the end of its first step (the pipeline
+        # fill), and its steady step: the rest of the wall over the rest
+        "first_iter_ms": [1e3 * e.t_first_iter for e in epoch_stats],
+        "steady_step_ms": [1e3 * e.steady_step_seconds() for e in epoch_stats],
+        "num_replicas": cfg.num_replicas,
+        "resident_bytes": MEMORY[name][0],
+        "peak_bytes": MEMORY[name][1],
         "launches": launches,
         "source_stats": [e.pipeline for e in epoch_stats],
         "shuffle_overlap": cfg.shuffle_overlap,
@@ -2302,6 +2339,188 @@ def dp_phase(first, cfg, dev, split_iters, total):
         "computed_edges_ratio": float(np.sum(dp["computed_edges"])
                                       / np.sum(split["computed_edges"])),
     })
+    return losses["dp, serial"]
+
+
+def send_adjoint(dev, plan, layer, name, F):
+    """``shuffle_bwd`` as the send gather's adjoint at ``layer`` of ``plan``
+    (the cotangent zero at the padding slots, as on the path), bitwise
+    against its plain version on a CPU copy."""
+    import torch
+
+    from repro_torch.kernels.shuffle import kernel as sh
+    from repro_torch.kernels.shuffle import ref
+
+    lp = plan.layers[layer]
+    P, _, S = lp.send_idx.shape
+    idx = torch.as_tensor(lp.send_idx, device=dev)
+    count = torch.as_tensor(lp.send_count, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    valid = torch.arange(S, device=dev)[None, None, :] < count[:, :, None]
+    g = torch.randn(P, P, S, F, device=dev, generator=gen) * valid[..., None]
+    got = sh.shuffle_bwd(g, idx, count, lp.n_local)
+    want = ref.shuffle_bwd(g.cpu(), idx.cpu(), count.cpu(), lp.n_local)
+    check(torch.equal(got.cpu(), want),
+          f"{name} layer {layer}: the send's shuffle_bwd differs from its "
+          "plain version")
+    emit("kernel_detail", {
+        "name": f"{name}_send", "kernel": "shuffle_bwd", "layer": layer,
+        "P": P, "N": lp.n_local, "S": S, "F": F,
+        "valid_slots": int(lp.send_count.sum()), "bitwise_vs_cpu": True})
+
+
+def replica_wavefront(dev, first, replica, R):
+    """The device sampler under the replica-keyed counter (``batch * R +
+    replica``) on replica ``replica``'s chunk of the first batch: the
+    wavefront expansion at every hop bitwise against its plain version, and
+    the card's ``sample_batch`` bitwise against a CPU sampler's and against
+    the flattened counter's draw."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sampler import DeviceSampler
+    from repro_torch.sampler import kernel as wf
+    from repro_torch.sampler import ref
+    from repro_torch.sampler.engine import _sample_device, frontier_degrees
+
+    eng = DeviceSampler(first.ds.graph, first.part.assignment, 4, FANOUTS, 0,
+                        host_sampler=first.sampler, device=dev)
+    chunk = np.array_split(first.targets, R)[replica]
+    flat = 0 * R + replica  # batch 0's flattened counter
+    t_dev, keys = eng.device_inputs(chunk, 0, flat)
+    fronts, counts, _, _ = _sample_device(
+        eng._dev, t_dev, len(chunk), keys, caps=eng.caps_tuple(),
+        fanouts=FANOUTS)
+    rows = []
+    for layer, fanout in enumerate(FANOUTS):
+        _, _, deg = frontier_degrees(eng._dev, fronts[layer], counts[layer])
+        vid, deg, key = fronts[layer].reshape(-1), deg.reshape(-1), keys[layer]
+        got = wf.wavefront_expand(vid, deg, key, fanout)
+        want = ref.expand_codes(vid, deg, key[0], key[1], fanout)
+        check(torch.equal(got, want),
+              f"mesh: wavefront_expand at hop {layer} of replica {replica} "
+              "differs from its plain version")
+        rows.append({"layer": layer, "rows": vid.numel(),
+                     "valid_rows": int((deg >= 0).sum()), "fanout": fanout})
+    cpu = DeviceSampler(first.ds.graph, first.part.assignment, 4, FANOUTS, 0,
+                        host_sampler=first.sampler, device="cpu")
+    cpu._caps = dict(eng._caps)
+    a = eng.sample_batch(chunk, 0, 0, replica=replica, num_replicas=R)
+    check(eng.stats()["sampler_fallbacks"] == 0,
+          "mesh: the replica-keyed sample fell back to the host")
+    for other in (cpu.sample_batch(chunk, 0, 0, replica=replica, num_replicas=R),
+                  eng.sample_batch(chunk, 0, flat)):
+        for la, lb in zip(a.layers, other.layers, strict=True):
+            for f in ("src", "dst", "edge_id"):
+                check(np.array_equal(getattr(la, f), getattr(lb, f)),
+                      f"mesh: replica-keyed samples differ in {f}")
+        for fa, fb in zip(a.frontiers, other.frontiers, strict=True):
+            check(np.array_equal(fa, fb), "mesh: replica-keyed frontiers differ")
+    emit("kernel_detail", {
+        "name": "mesh_wavefront_expand", "replica": replica, "R": R,
+        "key_batch": flat, "targets": len(chunk), "hops": rows,
+        "bitwise_vs_plain": True,
+        "sample_batch": "card == cpu == flattened counter, bitwise"})
+
+
+def mesh_phase(first, cfg, dev, serial, split_iters, dp_losses, total):
+    """Phase 17: the 2-D (replica, split) mesh in sim form at phase 4's
+    widths. ``serial`` and ``split_iters`` are phase 4's serial losses and
+    steps, ``dp_losses`` phase 16's serial dp losses; the runs' launches are
+    added to ``total``."""
+    from dataclasses import replace
+
+    import numpy as np
+
+    from repro_torch.core import build_split_plan, repad_plan
+    from repro_torch.models.gnn import GNNSpec
+
+    papers = first.ds
+    sage = GNNSpec(model="sage")
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+            "shuffle_bwd")
+
+    def run(c, name, expect=both):
+        launches, tr, stats, losses = run_trainer(papers, sage, c, dev, 3,
+                                                  name, expect, epochs=2)
+        for k in total:
+            total[k] += launches[k]
+        return launches, tr, [it for e in stats for it in e.iters], losses
+
+    # (a) R = 1: phase 4's serial losses bit for bit
+    _, _, r1_iters, r1 = run(replace(cfg, num_replicas=1), "sage mesh R=1, serial")
+    check(r1 == serial[:6], f"mesh R=1: losses {r1} != 1-D {serial[:6]}")
+
+    # (d) the kernels at replica 1's first R = 2 batch, as the trainer builds
+    # it: keyed chunks, both parts repadded twice from empty marks
+    plans = [build_split_plan(s, first.part.assignment, 4,
+                              pad_multiple=cfg.pad_multiple)
+             for s in first.sampler.sample_micro_batch(first.targets, 2, 0, 0)]
+    marks = {}
+    for _ in range(2):
+        for p in plans:
+            repad_plan(p, marks)
+    layout_kernels(dev, plans[1], "mesh_replica1")
+    for li in range(L):
+        F = 128 if li == L - 1 else 256
+        send_adjoint(dev, plans[1], li, "mesh_replica1", F)
+        self_rows_adjoint(dev, plans[1], li, "mesh_replica1", F)
+    replica_wavefront(dev, first, 1, 2)
+
+    # (b) R = 2, 512 targets a replica, on all four sources
+    r2_iters, r2 = {}, {}
+    for source in ("serial", "pipelined", "device", "device_pipelined"):
+        expect = both + (("wavefront_expand",) if "device" in source else ())
+        launches, tr, r2_iters[source], r2[source] = run(
+            replace(cfg, num_replicas=2, plan_source=source),
+            f"sage mesh R=2, {source}", expect)
+        if "device" in source:
+            sampled = tr.device_sampler.stats()["sampler_batches"]
+            check(sampled == 2 * 6
+                  and launches["wavefront_expand"] == L * sampled,
+                  f"mesh {source}: {launches['wavefront_expand']} wavefront "
+                  f"launches for {sampled} replica samples")
+    check(r2["serial"] == r2["pipelined"],
+          f"mesh R=2: serial and pipelined losses differ {r2}")
+    check(r2["device"] == r2["device_pipelined"],
+          f"mesh R=2: device and device_pipelined losses differ {r2}")
+    first_rows = sum(p.loaded_feature_rows() for p in plans)
+    check(r2_iters["serial"][0].loaded_rows == first_rows,
+          f"mesh R=2: the first step loaded {r2_iters['serial'][0].loaded_rows}"
+          f" rows, the held parts {first_rows}")
+
+    # (c) R x 1: R = 4 groups of P = 1, 256 targets a replica, against dp
+    # over 4 devices (the same keyed micro-batches)
+    _, _, _, rx1 = run(replace(cfg, num_replicas=4, num_devices=1),
+                       "sage mesh R=4 x P=1, serial")
+    np.testing.assert_allclose(rx1, dp_losses, **MESH_DP_TOL)
+
+    def summary(its):
+        return {k: [getattr(it, k) for it in its] for k in (
+            "loss", "loaded_rows", "shuffle_rows", "computed_edges")} | {
+            "step_ms": [1e3 * (it.t_wait + it.t_stage + it.t_device)
+                        for it in its],
+            "wait_ms": [1e3 * it.t_wait for it in its],
+            "stage_ms": [1e3 * it.t_stage for it in its],
+            "sync_ms": [1e3 * it.t_device for it in its]}
+
+    r1_rows = sum(it.loaded_rows for it in split_iters[:6])
+    emit("mesh_vs_split", {
+        "r1_equals_1d": True, "r2_serial_equals_pipelined": True,
+        "r2_device_equals_device_pipelined": True,
+        "rx1_vs_dp": {"mesh": rx1, "dp": dp_losses, "tolerance": MESH_DP_TOL,
+                      "max_abs_diff": float(np.max(np.abs(
+                          np.subtract(rx1, dp_losses))))},
+        "phase4_r0": summary(split_iters[:6]), "r1": summary(r1_iters),
+        "r2": {k: summary(v) for k, v in r2_iters.items()},
+        "loaded_rows_ratio_r2_r1": sum(it.loaded_rows for it in
+                                       r2_iters["serial"]) / r1_rows,
+        "shuffle_rows_ratio_r2_r1": sum(it.shuffle_rows for it in
+                                        r2_iters["serial"])
+        / sum(it.shuffle_rows for it in split_iters[:6]),
+        "memory": {k: v for k, v in MEMORY.items()
+                   if k.startswith("sage mesh") or k == "sage, serial source"},
+    })
 
 
 def main():
@@ -2445,7 +2664,11 @@ def main():
                       main_iters["serial"], device_pipelined_losses, total)
 
     # ---- 16. dp and pushpull ----------------------------------------------
-    dp_phase(first, cfg, dev, main_iters["serial"], total)
+    dp_losses = dp_phase(first, cfg, dev, main_iters["serial"], total)
+
+    # ---- 17. the 2-D (replica, split) mesh ---------------------------------
+    mesh_phase(first, cfg, dev, main_losses["serial"], main_iters["serial"],
+               dp_losses, total)
 
     for k, r in results.items():
         r["launches"] = total[k]

@@ -44,11 +44,17 @@ def wire_cast(send: torch.Tensor, wire_dtype: str | None):
     return send.to(getattr(torch, wire_dtype)), send.dtype
 
 
-def sim_alltoall(send: torch.Tensor, wire_dtype: str | None = None) -> torch.Tensor:
+def sim_alltoall(send: torch.Tensor, wire_dtype: str | None = None,
+                 axis: int = 0) -> torch.Tensor:
     """The fixed-size all-to-all, sim mode: ``send[p, q, ...]`` is device
-    ``p``'s block for peer ``q``; the exchange swaps that axis pair."""
+    ``p``'s block for peer ``q``; the exchange swaps that axis pair.
+
+    ``axis`` names where the split axis lives: a replica-batched tensor
+    ``send[r, p, q, ...]`` takes ``axis=1``, and swapping axes (1, 2) never
+    mixes rows across R, the sim statement of the 2-D mesh's confinement of
+    each exchange to its replica group."""
     wire, restore = wire_cast(send, wire_dtype)
-    return wire.transpose(0, 1).to(restore)
+    return wire.transpose(axis, axis + 1).to(restore)
 
 
 def sim_shuffle(

@@ -1,6 +1,6 @@
 """Plan sources: who builds the per-iteration ``SplitPlan`` and when — the
 counterpart of ``repro/runtime/plan_source.py`` (split, dp and pushpull
-modes; no mesh).
+modes, and the 2-D (replica, split) mesh).
 
 GSplit's cooperative pipeline (paper §5) overlaps the host stages of
 mini-batch ``k+1`` (sampling, online splitting, feature loading) with the
@@ -31,7 +31,9 @@ grown to its own marks (``CM``/``CS``) at delivery too. In split mode the
 producer records each sample in an ``EdgeTelemetry`` when given one and
 reroutes replicated sources (``replication``); dp and pushpull stack
 ``num_devices`` keyed micro-batches (``build_dp_plan``) and sample on the
-host only.
+host only. With ``num_replicas >= 1`` (split mode) a global batch fans out
+into R independently keyed per-replica plans over the one partition, one
+``MeshPlanBatch``, repadded at delivery to shared marks in replica order.
 """
 from __future__ import annotations
 
@@ -54,7 +56,11 @@ from repro_torch.faults.retry import RetryPolicy
 from repro_torch.graph.sampling import NeighborSampler
 from repro_torch.obs import NULL_OBS, Obs, note_hwm_growth
 from repro_torch.runtime.prefetch import OrderedPrefetcher
-from repro_torch.runtime.signature import SignatureCache, plan_signature
+from repro_torch.runtime.signature import (
+    SignatureCache,
+    mesh_signature,
+    plan_signature,
+)
 from repro_torch.train.plan_io import host_tensor, load_labels, stage_host_features
 
 
@@ -87,6 +93,31 @@ class PlanBatch:
     t_built: float = 0.0
 
 
+@dataclass
+class MeshPlanBatch:
+    """One global mini-batch fanned out across the replica axis.
+
+    ``parts[r]`` is replica ``r``'s ``PlanBatch`` (its own sample, split
+    plan, feature and label blocks) over the same P-way partition; the mesh
+    step consumes all R parts and averages their gradients. Stage times are
+    summed over the parts: the host cost of one global batch.
+    """
+
+    index: int
+    epoch: int
+    parts: list  # R PlanBatch, replica order
+    t_sample: float = 0.0
+    t_split: float = 0.0
+    t_load: float = 0.0
+    signature: tuple = ()
+    sig_hit: bool = False
+    t_built: float = 0.0
+
+    @property
+    def num_replicas(self) -> int:
+        return len(self.parts)
+
+
 #: the trainer modes a producer builds plans for
 MODES = ("split", "dp", "pushpull")
 
@@ -102,7 +133,8 @@ class PlanProducer:
     ``cache`` and ``serve_cache`` the load stage gathers only the cache's
     misses. ``assignment``, ``replication`` and ``device_sampler`` are
     re-pointed by ``Trainer.refine_partition`` between epochs;
-    ``telemetry.record`` is thread-safe."""
+    ``telemetry.record`` is thread-safe. With ``num_replicas >= 1`` (split
+    mode) ``build`` returns a ``MeshPlanBatch`` of R parts."""
 
     def __init__(
         self,
@@ -122,6 +154,7 @@ class PlanProducer:
         mode: str = "split",
         replication=None,  # core.partition.ReplicationSet | None
         telemetry=None,  # core.partition.EdgeTelemetry | None
+        num_replicas: int = 0,  # 0 = the 1-D path; >= 1 the (R, P) mesh
     ):
         if mode not in MODES:
             raise ValueError(f"unknown mode {mode!r} (one of {MODES})")
@@ -131,6 +164,11 @@ class PlanProducer:
             raise ValueError("device sampling is split-mode only")
         if replication is not None and mode != "split":
             raise ValueError("hot-vertex replication is split-mode only")
+        if num_replicas < 0:
+            raise ValueError(f"num_replicas must be >= 0, got {num_replicas}")
+        if num_replicas >= 1 and mode != "split":
+            raise ValueError("the (R, P) mesh composes with mode='split' only")
+        self.num_replicas = num_replicas
         self.mode = mode
         self.replication = replication
         self.telemetry = telemetry
@@ -148,57 +186,102 @@ class PlanProducer:
         self.obs = obs
         self.injector = injector
 
-    def build(self, epoch: int, index: int, targets: np.ndarray) -> PlanBatch:
+    def build(self, epoch: int, index: int, targets: np.ndarray):
+        """One ``PlanBatch``, or with ``num_replicas >= 1`` one
+        ``MeshPlanBatch`` whose R parts each go through the 1-D path's split
+        and load stages (spans ``plan/split`` and ``plan/load`` with a
+        ``replica`` attribute)."""
         if self.injector is not None:
             # deterministic fault hook: raises or sleeps what is scheduled
             self.injector.fire("build", epoch, index)
         obs = self.obs
+        mesh = self.num_replicas >= 1
         with obs.span("plan/build", {"epoch": epoch, "batch": index}):
             with obs.span("plan/sample") as sp_sample:
-                # both samplers are pure functions of (seed, epoch, index);
-                # the device one falls back to the host's keyed API on cap
-                # overflow
-                if self.mode != "split":
-                    samples = self.sampler.sample_micro_batch(
-                        targets, self.num_devices, epoch, index)
-                else:
-                    sampler = self.device_sampler or self.sampler
-                    sample = sampler.sample_batch(targets, epoch, index)
-            with obs.span("plan/split") as sp_split:
-                if self.mode != "split":
-                    plan = build_dp_plan(samples, pad_multiple=self.pad_multiple,
-                                         with_halves=self.with_halves)
-                else:
-                    if self.telemetry is not None:
-                        self.telemetry.record(sample)
-                    plan = build_split_plan(
-                        sample, self.assignment, self.num_devices,
-                        pad_multiple=self.pad_multiple,
-                        with_halves=self.with_halves,
-                        replication=self.replication,
-                    )
-            with obs.span("plan/load") as sp_load:
-                cache_plan, feats, breakdown = stage_host_features(
-                    plan, self.features, self.cache, self.serve_cache,
-                    self.pad_multiple, self.pin,
-                )
-                labels = load_labels(plan, self.labels)
-            if self.injector is not None:
-                rows = feats.numpy()
-                poisoned = self.injector.maybe_poison("build", epoch, index, rows)
-                if poisoned is not rows:
-                    feats = host_tensor(poisoned, self.pin)
+                samples = self._sample(epoch, index, targets)
+            parts = [
+                self._split_and_load(epoch, index, sample,
+                                     {"replica": r} if mesh else None)
+                for r, sample in enumerate(samples)
+            ]
             # the producer end of the flow arrow that lands on the consumer
             # step training on this plan
             obs.flow_start(("plan", epoch, index))
+        t_split = sum(p.t_split for p in parts)
+        t_load = sum(p.t_load for p in parts)
         obs.observe("plan/sample_s", sp_sample.duration)
-        obs.observe("plan/split_s", sp_split.duration)
-        obs.observe("plan/load_s", sp_load.duration)
+        obs.observe("plan/split_s", t_split)
+        obs.observe("plan/load_s", t_load)
+        if mesh:
+            return MeshPlanBatch(
+                index=index, epoch=epoch, parts=parts,
+                t_sample=sp_sample.duration, t_split=t_split, t_load=t_load,
+                t_built=time.perf_counter(),
+            )
+        batch = parts[0]
+        batch.t_sample = sp_sample.duration
+        batch.t_built = time.perf_counter()
+        return batch
+
+    def _sample(self, epoch: int, index: int, targets: np.ndarray) -> list:
+        """The batch's samples, one a part: both samplers are pure functions
+        of (seed, epoch, index), and the device one falls back to the
+        host's keyed API on cap overflow. dp and pushpull sample their
+        ``num_devices`` micro-batches as one part. On the mesh, R == 1 takes
+        the unsuffixed key (the 1-D draw, so the degenerate mesh is
+        bitwise the 1-D path); R > 1 keys host draws as
+        ``sample_micro_batch`` does (an R x 1 mesh samples what dp over R
+        devices samples), and the device sampler folds ``(replica, R)``
+        into its flattened batch counter."""
+        if self.mode != "split":
+            return [self.sampler.sample_micro_batch(
+                targets, self.num_devices, epoch, index)]
+        R = self.num_replicas
+        sampler = self.device_sampler or self.sampler
+        if R <= 1:
+            return [sampler.sample_batch(targets, epoch, index)]
+        if self.device_sampler is None:
+            return self.sampler.sample_micro_batch(targets, R, epoch, index)
+        return [
+            self.device_sampler.sample_batch(chunk, epoch, index, replica=r,
+                                             num_replicas=R)
+            for r, chunk in enumerate(np.array_split(targets, R))
+        ]
+
+    def _split_and_load(self, epoch: int, index: int, sample,
+                        attrs: dict | None) -> PlanBatch:
+        """Online split (or dp stacking) and the feature load of one part;
+        its ``t_sample`` and ``t_built`` are left to ``build``."""
+        obs = self.obs
+        with obs.span("plan/split", attrs) as sp_split:
+            if self.mode != "split":
+                plan = build_dp_plan(sample, pad_multiple=self.pad_multiple,
+                                     with_halves=self.with_halves)
+            else:
+                if self.telemetry is not None:
+                    self.telemetry.record(sample)
+                plan = build_split_plan(
+                    sample, self.assignment, self.num_devices,
+                    pad_multiple=self.pad_multiple,
+                    with_halves=self.with_halves,
+                    replication=self.replication,
+                )
+        with obs.span("plan/load", attrs) as sp_load:
+            cache_plan, feats, breakdown = stage_host_features(
+                plan, self.features, self.cache, self.serve_cache,
+                self.pad_multiple, self.pin,
+            )
+            labels = load_labels(plan, self.labels)
+        if self.injector is not None:
+            # the injector claims a poison once: at most one part is hit
+            rows = feats.numpy()
+            poisoned = self.injector.maybe_poison("build", epoch, index, rows)
+            if poisoned is not rows:
+                feats = host_tensor(poisoned, self.pin)
         return PlanBatch(
             index=index, epoch=epoch, plan=plan, feats=feats, labels=labels,
-            t_sample=sp_sample.duration, t_split=sp_split.duration,
-            t_load=sp_load.duration, breakdown=breakdown,
-            cache_plan=cache_plan, t_built=time.perf_counter(),
+            t_sample=0.0, t_split=sp_split.duration, t_load=sp_load.duration,
+            breakdown=breakdown, cache_plan=cache_plan,
         )
 
 
@@ -217,33 +300,52 @@ def finalize_cache_plan(cp: CachePlan, hwm: dict, n_l: int) -> CachePlan:
 
 
 def finalize(
-    batch: PlanBatch,
+    batch,
     hwm: dict,
     sig_cache: SignatureCache | None = None,
     sig_extra: tuple = (),
     obs: Obs = NULL_OBS,
-) -> PlanBatch:
+):
     """Order-sensitive delivery step: repad the plan (and its cache plan) to
     the high-water marks, pad the labels to match, and record the signature.
     Observability rides the delivery point: the queue-dwell span (producer
     completion -> here), the repad span, any high-water-mark growth, and the
     signature counters. The feature block is padded on the device
-    (``plan_io.stage_batch``)."""
+    (``plan_io.stage_batch``).
+
+    A ``MeshPlanBatch`` takes two passes over its R parts against the
+    shared marks, in replica order: the first absorbs every part's widths,
+    the second repads each part to the settled marks, so all R parts leave
+    with one padded shape (a second pass only grows to the marks, so with
+    R == 1 it changes nothing). One ``mesh_signature`` is recorded a
+    delivery: the mesh step is one program.
+    """
     if batch.t_built:
         obs.record("plan/queue_dwell", batch.t_built, time.perf_counter(),
                    {"epoch": batch.epoch, "batch": batch.index})
+    mesh = isinstance(batch, MeshPlanBatch)
+    parts = batch.parts if mesh else [batch]
     before = dict(hwm)
     with obs.span("plan/repad", {"epoch": batch.epoch, "batch": batch.index}) as sp:
-        repad_plan(batch.plan, hwm)
-        if batch.cache_plan is not None:
-            finalize_cache_plan(
-                batch.cache_plan, hwm, batch.plan.front_ids[-1].shape[1]
-            )
-        batch.labels = pad_axis(batch.labels, 1, batch.plan.front_ids[0].shape[1])
+        for _ in range(2 if mesh else 1):
+            for part in parts:
+                repad_plan(part.plan, hwm)
+                if part.cache_plan is not None:
+                    finalize_cache_plan(
+                        part.cache_plan, hwm, part.plan.front_ids[-1].shape[1]
+                    )
+        for part in parts:
+            part.labels = pad_axis(part.labels, 1,
+                                   part.plan.front_ids[0].shape[1])
     note_hwm_growth(obs, before, hwm, f"epoch{batch.epoch}/batch{batch.index}")
     batch.t_split += sp.duration
     obs.observe("plan/repad_s", sp.duration)
-    batch.signature = plan_signature(batch.plan, batch.cache_plan, sig_extra)
+    if mesh:
+        batch.signature = mesh_signature(
+            [(p.plan, p.cache_plan) for p in parts], sig_extra)
+    else:
+        batch.signature = plan_signature(batch.plan, batch.cache_plan,
+                                         sig_extra)
     if sig_cache is not None:
         batch.sig_hit = sig_cache.record(batch.signature)
         obs.count("sig/hit" if batch.sig_hit else "sig/miss")

@@ -1,5 +1,4 @@
-"""Plan shape signatures — the counterpart of ``repro/runtime/signature.py``
-(``mesh_signature`` comes with the mesh slice).
+"""Plan shape signatures — the counterpart of ``repro/runtime/signature.py``.
 
 Every delivered plan is keyed by its padded-shape tuple, and the cache
 records whether that key was seen before. The high-water-mark repad makes
@@ -55,6 +54,23 @@ def plan_signature(plan: SplitPlan, cache_plan=None, extra: tuple = ()) -> tuple
             cache_plan.miss_ids.shape,
         )
     return (plan.num_devices, plan.num_layers, fronts, layers, cache, extra)
+
+
+def mesh_signature(parts, extra: tuple = ()) -> tuple:
+    """The padded-shape key of a mesh step, equal to the JAX package's
+    ``mesh_signature``: ``parts`` is the R ``(plan, cache_plan)`` pairs of
+    one ``MeshPlanBatch`` in replica order. The ``"mesh"`` tag and R lead
+    the key (P is inside every part's ``plan_signature``), so the R = 1 mesh
+    never shares a key with the 1-D path's plan, nor R = 1 with R = 2. After
+    warm-up the parts converge to the shared high-water marks, so the count
+    of keys stays O(1) per mesh shape.
+    """
+    return (
+        "mesh",
+        len(parts),
+        tuple(plan_signature(plan, cp) for plan, cp in parts),
+        extra,
+    )
 
 
 class SignatureCache:

@@ -299,8 +299,8 @@ class DeviceSampler:
         both = torch.as_tensor(host, device=self.device)
         return both[:B].to(torch.int32), both[B:].reshape(-1, 2)
 
-    def sample_batch(self, targets: np.ndarray, epoch: int,
-                     batch: int) -> MiniBatchSample:
+    def sample_batch(self, targets: np.ndarray, epoch: int, batch: int,
+                     replica: int = 0, num_replicas: int = 1) -> MiniBatchSample:
         """Sample one mini-batch on the device, keyed by ``(seed, epoch,
         batch)``.
 
@@ -308,10 +308,21 @@ class DeviceSampler:
         keyed API (the call the host producer would make), the fallback is
         counted (``stats``), and the flagged caps are scheduled to double at
         the next ``refresh_caps``.
+
+        On the 2-D mesh each replica group samples its chunk of the global
+        batch: ``(replica, num_replicas)`` fold into the key through the
+        flattened counter ``batch * num_replicas + replica``, so the R
+        streams are disjoint and each a pure function of integers. The
+        defaults leave the key as it was.
         """
+        if not 0 <= replica < max(num_replicas, 1):
+            raise ValueError(
+                f"replica {replica} out of range for R={num_replicas}"
+            )
+        key_batch = batch * max(num_replicas, 1) + replica
         targets = np.asarray(targets, dtype=np.int64)
         caps = self.caps_tuple()
-        t_dev, keys = self.device_inputs(targets, epoch, batch)
+        t_dev, keys = self.device_inputs(targets, epoch, key_batch)
         fronts, counts, layers, flags = to_host(_sample_device(
             self._dev, t_dev, targets.shape[0], keys, caps=caps,
             fanouts=self.fanouts,
@@ -334,9 +345,9 @@ class DeviceSampler:
             self.obs.count("fault/sampler_fallback", 1)
             self.obs.instant(
                 "fault/sampler_fallback",
-                {"epoch": epoch, "batch": batch, "caps": overflowed},
+                {"epoch": epoch, "batch": key_batch, "caps": overflowed},
             )
-            return self.host.sample_batch(targets, epoch, batch)
+            return self.host.sample_batch(targets, epoch, key_batch)
         return self._assemble(targets, fronts, counts, layers)
 
     def _assemble(self, targets, fronts, counts, layers) -> MiniBatchSample:

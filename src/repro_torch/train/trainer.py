@@ -1,13 +1,13 @@
 """Training runtime — the counterpart of ``repro/train/trainer.py`` without
-the 2-D mesh and checkpoints: one trainer, three parallelism paradigms, on
-any of the four plan sources (dp and pushpull on the host ones), with the
-blocking or the overlap schedule and with or without the device-resident
-feature cache.
+checkpoints: one trainer, three parallelism paradigms, on any of the four
+plan sources (dp and pushpull on the host ones), with the blocking or the
+overlap schedule and with or without the device-resident feature cache.
 
   * ``split``     -- the paper's split parallelism: one mini-batch, split
                      online by f_G, per-layer all-to-all shuffles; optionally
                      with hot-vertex replication (``replication_budget``) and
-                     edge telemetry fed back by ``refine_partition``.
+                     edge telemetry fed back by ``refine_partition``; and
+                     the 2-D (replica, split) mesh (``num_replicas``).
   * ``dp``        -- data parallelism (the DGL/Quiver baseline): one
                      micro-batch per split, redundant loads and compute, no
                      shuffles.
@@ -22,11 +22,14 @@ block from the resident block and the staged miss rows
 (``gnn_forward_cached``); per layer, shuffle (``sim_shuffle``) and aggregate
 (the fused CUDA kernels by default), or under ``shuffle_overlap`` aggregate
 the local and remote edge halves apart over a chunked exchange; masked
-cross-entropy; backward; the repo's own Adam. The loss/accuracy transfer at
-the end of the step is its one sync point. ``train_epoch`` records the spans
-of the JAX package's loop (``step/wait``, ``step/stage``, ``step/device``)
-through ``repro_torch.obs`` when ``obs_trace`` is on, and the pipelined
-sources run under the supervision of ``repro_torch.faults``.
+cross-entropy; backward; the repo's own Adam. A mesh step runs the R
+replica parts' forward and backward one after another through the same
+code and averages their gradients, in replica order, before one update.
+The loss/accuracy transfer at the end of the step is its one sync point.
+``train_epoch`` records the spans of the JAX package's loop
+(``step/wait``, ``step/stage``, ``step/device``) through
+``repro_torch.obs`` when ``obs_trace`` is on, and the pipelined sources run
+under the supervision of ``repro_torch.faults``.
 """
 from __future__ import annotations
 
@@ -54,6 +57,8 @@ from repro_torch.models.gnn.layers import GNN, GNNSpec, gnn_forward, gnn_forward
 from repro_torch.obs import NULL_OBS, Obs, note_hwm_growth
 from repro_torch.runtime.plan_source import (
     MODES,
+    MeshPlanBatch,
+    PlanBatch,
     PlanProducer,
     finalize_cache_plan,
     make_plan_source,
@@ -115,7 +120,13 @@ class TrainConfig:
     # with obs_trace, train_epoch rewrites this path with the cumulative
     # Chrome trace (metrics snapshot included) at every epoch end
     obs_path: str | None = None
-    num_replicas: int = 0  # 2-D (replica, split) mesh: later slice
+    # 2-D (replica, split) mesh: 0 = the 1-D P-way split path (default);
+    # R >= 1 runs R replica groups of ``num_devices`` splits each: every
+    # global batch fans out into R independently sampled per-replica plans
+    # over the *same* partition, and the mesh step runs R split-local
+    # forward/backwards and averages the gradients across the replica axis.
+    # R = 1 is the degenerate mesh, bitwise the 1-D path. Split mode only.
+    num_replicas: int = 0
     ckpt_dir: str | None = None  # checkpointing: later slice
     ckpt_every: int = 0  # checkpointing: later slice
     # Supervised producers (pipelined sources): a transient build failure
@@ -146,7 +157,6 @@ _SLICE = {
     "partition_method": (PARTITION_METHODS, "the partitioner's method arms"),
     "plan_source": (("serial", "pipelined") + DEVICE_SOURCES,
                     "the plan sources"),
-    "num_replicas": ((0,), "the 2-D (replica, split) mesh"),
     "ckpt_dir": ((None,), "checkpoint and resume"),
     "ckpt_every": ((0,), "checkpoint and resume"),
 }
@@ -160,6 +170,13 @@ def check_config(cfg: TrainConfig) -> None:
                 f"({what}: a later slice of the port; the port runs "
                 f"{name} in {values!r})"
             )
+    if cfg.num_replicas < 0:
+        raise ValueError("num_replicas must be >= 0 (0 = 1D split path)")
+    if cfg.num_replicas >= 1 and cfg.mode != "split":
+        raise ValueError(
+            "the (R, P) mesh composes with mode='split' only — dp and "
+            "pushpull are already replica-style baselines"
+        )
     if cfg.plan_source in DEVICE_SOURCES and cfg.mode != "split":
         raise ValueError(
             f"plan_source {cfg.plan_source!r} requires mode='split' (the "
@@ -245,8 +262,16 @@ class IterStats:
 @dataclass
 class EpochStats:
     iters: list[IterStats] = field(default_factory=list)
-    t_wall: float = 0.0  # consumer wall time for the whole epoch
     pipeline: dict = field(default_factory=dict)  # plan source's stats()
+    t_wall: float = 0.0  # consumer wall time for the whole epoch
+    t_first_iter: float = 0.0  # to the end of the first step (pipeline fill)
+
+    def steady_step_seconds(self) -> float:
+        """Per-step wall time without the first step (the pipeline fill)."""
+        n = len(self.iters)
+        if n <= 1:
+            return self.t_wall / max(n, 1)
+        return (self.t_wall - self.t_first_iter) / (n - 1)
 
     def totals(self) -> dict:
         agg = {
@@ -383,6 +408,7 @@ class Trainer:
             mode=cfg.mode,
             replication=self.replication,
             telemetry=self.telemetry,
+            num_replicas=cfg.num_replicas,
         )
 
     def _set_replication(self) -> None:
@@ -413,20 +439,18 @@ class Trainer:
         return sampler
 
     # ------------------------------------------------------------------ #
-    def _dispatch_step(self, plan, feats: torch.Tensor, labels: np.ndarray,
-                       cache_plan=None):
-        """Stage one repadded plan and enqueue one optimizer step. With a
-        cache plan ``feats`` is the miss block and the step serves its input
-        from the resident block (the cached step: the same loss and update).
-        Returns the step's device values ``(loss, acc, finite)``; ``finite``
-        is None unless ``skip_nonfinite`` is on."""
+    def _replica_grads(self, part):
+        """Stage one part (a ``PlanBatch``: the 1-D step's batch or one
+        replica's) and run its forward, masked loss and gradients. With a
+        cache plan ``feats`` is the miss block and the input is served from
+        the one resident block; every part shares the one ``rep_block``."""
         feats_d, plan_arrays, labels_d = stage_batch(
-            plan, feats, labels, self.device, cache_plan,
+            part.plan, part.feats, part.labels, self.device, part.cache_plan,
             with_halves=self.cfg.shuffle_overlap,
             num_replicated=self._num_replicated(),
         )
         layers = list(self.model.layers)
-        if cache_plan is not None:
+        if part.cache_plan is not None:
             logits = gnn_forward_cached(self.spec, layers, self.cache_block,
                                         feats_d, plan_arrays, sim_shuffle,
                                         rep_block=self.rep_block)
@@ -436,13 +460,37 @@ class Trainer:
         mask = plan_arrays["target_mask"]
         loss = masked_softmax_xent(logits, labels_d, mask)
         acc = masked_accuracy(logits, labels_d, mask)
-        grads = torch.autograd.grad(loss, self.params)
+        return loss, acc, torch.autograd.grad(loss, self.params)
+
+    def _dispatch_step(self, parts: list):
+        """Enqueue one optimizer step over ``parts``: the 1-D step's one
+        batch, or a mesh batch's R replica parts. Each part runs the same
+        ``_replica_grads``; the gradients, losses and accuracies are summed
+        left to right in replica order and divided by R (the sim statement
+        of the spmd psum's fixed order), then one update. A sum of one term
+        and a division by 1 are exact, so the R = 1 mesh is bitwise the 1-D
+        step; the division is skipped there. Returns the step's device
+        values ``(loss, acc, finite)``; ``finite`` is None unless
+        ``skip_nonfinite`` is on."""
+        grads = loss = acc = None
+        for part in parts:
+            loss_r, acc_r, grads_r = self._replica_grads(part)
+            if grads is None:
+                loss, acc, grads = loss_r, acc_r, grads_r
+            else:
+                loss, acc = loss + loss_r, acc + acc_r
+                grads = [a + b for a, b in zip(grads, grads_r)]
+        if len(parts) > 1:
+            num = len(parts)
+            loss, acc = loss / num, acc / num
+            grads = [g / num for g in grads]
         if not self.cfg.skip_nonfinite:
             self.params, self.opt_state = self.opt.update(
                 grads, self.opt_state, self.params
             )
             return loss, acc, None
-        # the guarded step: one isfinite reduction on the device, and the
+        # the guarded step: one isfinite reduction on the device over the
+        # (averaged) gradient, any replica's NaN poisoning it, and the
         # update kept or dropped by a select, with no host round trip
         with torch.no_grad():
             finite = torch.isfinite(loss)
@@ -485,22 +533,37 @@ class Trainer:
             )
         return out[0], out[1]
 
-    def _step(self, plan, feats: torch.Tensor, labels: np.ndarray,
-              cache_plan=None):
-        """Stage and take one optimizer step inside the ``step`` span;
-        returns ``(loss, acc, t_stage, t_device)`` on the host."""
+    def _step(self, parts: list):
+        """Stage and take one optimizer step over ``parts`` inside the
+        ``step`` span; returns ``(loss, acc, t_stage, t_device)`` on the
+        host."""
         step_before = self.opt_state.step
         with self.obs.span("step/stage") as sp_stage:
-            loss, acc, finite = self._dispatch_step(plan, feats, labels,
-                                                    cache_plan)
+            loss, acc, finite = self._dispatch_step(parts)
         with self.obs.span("step/device") as sp_dev:
             loss, acc = self._sync_step(loss, acc, finite, step_before)
         self.global_step += 1
         return loss, acc, sp_stage.duration, sp_dev.duration
 
-    def _iter_stats(self, plan, loss, acc, t_sample, t_split, t_load,
-                    t_stage, t_device, t_wait=0.0, breakdown=None) -> IterStats:
-        edges, busiest, imbalance, cross = plan.edge_accounting()
+    def _iter_stats(self, parts, loss, acc, t_sample, t_split, t_load,
+                    t_stage, t_device, t_wait=0.0) -> IterStats:
+        """One step's ``IterStats`` over its parts (one on the 1-D path).
+        The work counters (loaded rows, edges, shuffle rows, padded slots,
+        wire bytes, the load breakdown) are summed over the parts, the real
+        work of the global batch; ``busiest_edges`` is the max (all R*P
+        splits run at once, so the busiest is the critical path); the
+        balance ratios are means."""
+        plans = [p.plan for p in parts]
+        # one pass over each part's edge masks for the four split counters
+        acct = [plan.edge_accounting() for plan in plans]
+        breakdowns = [p.breakdown for p in parts]
+        breakdown = None
+        if all(b is not None for b in breakdowns):
+            breakdown = LoadBreakdown(
+                local_hit=sum(b.local_hit for b in breakdowns),
+                remote_hit=sum(b.remote_hit for b in breakdowns),
+                host_miss=sum(b.host_miss for b in breakdowns),
+            )
         st = IterStats(
             loss=loss,
             accuracy=acc,
@@ -508,18 +571,19 @@ class Trainer:
             t_split=t_split,
             t_load=t_load,
             t_compute=t_stage + t_device,
-            loaded_rows=plan.loaded_feature_rows(),
-            computed_edges=edges,
-            shuffle_rows=plan.shuffle_rows(),
+            loaded_rows=sum(p.loaded_feature_rows() for p in plans),
+            computed_edges=sum(a[0] for a in acct),
+            shuffle_rows=sum(p.shuffle_rows() for p in plans),
             t_wait=t_wait,
             t_stage=t_stage,
             t_device=t_device,
             load_breakdown=breakdown,
-            wire_bytes=modeled_wire_bytes(plan, self.spec, self.cfg.wire_dtype),
-            padded_edge_slots=plan.padded_edge_slots(),
-            busiest_edges=busiest,
-            load_imbalance=imbalance,
-            cross_edge_fraction=cross,
+            wire_bytes=sum(modeled_wire_bytes(p, self.spec, self.cfg.wire_dtype)
+                           for p in plans),
+            padded_edge_slots=sum(p.padded_edge_slots() for p in plans),
+            busiest_edges=max(a[1] for a in acct),
+            load_imbalance=float(np.mean([a[2] for a in acct])),
+            cross_edge_fraction=float(np.mean([a[3] for a in acct])),
         )
         self._emit_iter_metrics(st)
         return st
@@ -541,46 +605,66 @@ class Trainer:
 
     def train_iter(self, targets: np.ndarray) -> IterStats:
         """One step on ``targets`` with the streamed sampler RNG (draws in
-        call order), like the JAX ``Trainer.train_iter``."""
+        call order), like the JAX ``Trainer.train_iter``. On the mesh the R
+        replica chunks (``[targets]`` for R == 1) draw from the shared
+        generator in replica order, as ``sample_micro`` does for dp; two
+        repad passes against the shared marks leave the R plans of one
+        shape (the delivery side's discipline, ``plan_source.finalize``)."""
         cfg = self.cfg
-        dp = cfg.mode != "split"
+        R = cfg.num_replicas
         with self.obs.span("plan/sample") as sp_sample:
-            if dp:
-                samples = self.sampler.sample_micro(targets, cfg.num_devices)
+            if cfg.mode != "split":
+                samples = [self.sampler.sample_micro(targets, cfg.num_devices)]
             else:
-                sample = self.sampler.sample(targets)
+                chunks = [targets] if R <= 1 else np.array_split(targets, R)
+                samples = [self.sampler.sample(c) for c in chunks]
+        passes = 2 if R >= 1 else 1
         with self.obs.span("plan/split") as sp_split:
-            if dp:
-                plan = build_dp_plan(samples, pad_multiple=cfg.pad_multiple,
-                                     with_halves=cfg.shuffle_overlap)
+            if cfg.mode != "split":
+                plans = [build_dp_plan(samples[0], pad_multiple=cfg.pad_multiple,
+                                       with_halves=cfg.shuffle_overlap)]
             else:
-                plan = build_split_plan(
-                    sample, self.partition.assignment, cfg.num_devices,
-                    pad_multiple=cfg.pad_multiple,
-                    with_halves=cfg.shuffle_overlap,
-                    replication=self.replication,
-                )
+                plans = [
+                    build_split_plan(
+                        s, self.partition.assignment, cfg.num_devices,
+                        pad_multiple=cfg.pad_multiple,
+                        with_halves=cfg.shuffle_overlap,
+                        replication=self.replication,
+                    )
+                    for s in samples
+                ]
             before = dict(self._pad_hwm)
-            plan = repad_plan(plan, self._pad_hwm)
+            for _ in range(passes):
+                for plan in plans:
+                    repad_plan(plan, self._pad_hwm)
         note_hwm_growth(self.obs, before, self._pad_hwm, "train_iter")
         with self.obs.span("plan/load") as sp_load:
-            cache_plan, feats, breakdown = stage_host_features(
-                plan, self.ds.features, self.cache,
-                serve_cache=self.cache_block is not None,
-                pad_multiple=cfg.pad_multiple, pin=self.producer.pin,
-            )
-            if cache_plan is not None:
-                # widths follow the same high-water marks as the plan itself
-                finalize_cache_plan(cache_plan, self._pad_hwm,
-                                    plan.front_ids[-1].shape[1])
-            labels = load_labels(plan, self.ds.labels)
+            parts = []
+            for plan in plans:
+                cache_plan, feats, breakdown = stage_host_features(
+                    plan, self.ds.features, self.cache,
+                    serve_cache=self.cache_block is not None,
+                    pad_multiple=cfg.pad_multiple, pin=self.producer.pin,
+                )
+                parts.append(PlanBatch(
+                    index=0, epoch=0, plan=plan, feats=feats,
+                    labels=load_labels(plan, self.ds.labels), t_sample=0.0,
+                    t_split=0.0, t_load=0.0, breakdown=breakdown,
+                    cache_plan=cache_plan,
+                ))
+            # cache widths follow the same marks as the plans, settled over
+            # all R parts
+            for _ in range(passes):
+                for part in parts:
+                    if part.cache_plan is not None:
+                        finalize_cache_plan(part.cache_plan, self._pad_hwm,
+                                            part.plan.front_ids[-1].shape[1])
         with self.obs.span("step", {"wait_s": 0.0}) as step_sp:
-            loss, acc, t_stage, t_device = self._step(plan, feats, labels,
-                                                      cache_plan)
+            loss, acc, t_stage, t_device = self._step(parts)
             step_sp.attrs.update(stage_s=t_stage, device_s=t_device)
-        return self._iter_stats(plan, loss, acc, sp_sample.duration,
+        return self._iter_stats(parts, loss, acc, sp_sample.duration,
                                 sp_split.duration, sp_load.duration,
-                                t_stage, t_device, breakdown=breakdown)
+                                t_stage, t_device)
 
     def plan_source_for(self, epoch: int, max_iters: int | None = None,
                         start: int = 0):
@@ -633,19 +717,19 @@ class Trainer:
                 ) as step_sp:
                     # close the flow arrow from this plan's producer span
                     self.obs.flow_end(("plan", batch.epoch, batch.index))
-                    loss, acc, t_stage, t_device = self._step(
-                        batch.plan, batch.feats, batch.labels,
-                        batch.cache_plan,
-                    )
+                    parts = (batch.parts if isinstance(batch, MeshPlanBatch)
+                             else [batch])
+                    loss, acc, t_stage, t_device = self._step(parts)
                     step_sp.attrs.update(
                         wait_s=sp_wait.duration, stage_s=t_stage,
                         device_s=t_device,
                     )
                 stats.iters.append(self._iter_stats(
-                    batch.plan, loss, acc, batch.t_sample, batch.t_split,
+                    parts, loss, acc, batch.t_sample, batch.t_split,
                     batch.t_load, t_stage, t_device, sp_wait.duration,
-                    batch.breakdown,
                 ))
+                if stats.t_first_iter == 0.0:
+                    stats.t_first_iter = time.perf_counter() - t_epoch
         finally:
             source.close()
         stats.pipeline = source.stats()

@@ -15,7 +15,8 @@ kernels, held the same way; a zero-width half launches nothing; the served
 feature block equals the host gather. So do the replicated input layer
 (``[local][recv][replicated]`` mixed rows) and the dp layout (S = 0, where
 the self rows' adjoint is a step's only shuffle adjoint); dp, pushpull and
-replicated trainers agree with the CPU.
+replicated trainers agree with the CPU, and so does an R = 2 mesh, whose
+pipelined sources train bit for bit as its inline ones.
 """
 import copy
 
@@ -1068,3 +1069,48 @@ def test_cuda_dp_and_replicated_trainers_match_cpu(cuda, mode, budget, model):
     assert sh_kernel.LAUNCHES["shuffle_bwd"] == 3 * table[model]
     assert kernel.LAUNCHES["gather_segsum_fwd"] > 0
     assert (kernel.LAUNCHES["gather_segsum_bwd_w"] > 0) == (model == "gat")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["sage", "gcn", "gat"])
+def test_cuda_mesh_trainer_matches_cpu(cuda, model):
+    """An R = 2 mesh (2 replica groups of P = 4) on the card and on the CPU
+    from the same weights: 2 epochs of 2 steps agree to rtol 1e-4; a mesh
+    step launches the shuffle adjoint R times a 1-D step's count."""
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.models.gnn import GNN, GNNSpec
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    ds = make_dataset("tiny")
+    spec = GNNSpec(model=model, in_dim=ds.spec.feat_dim, hidden_dim=64,
+                   out_dim=ds.spec.num_classes, num_layers=2)
+    cfg = TrainConfig(num_devices=4, fanouts=(4, 4), batch_size=32,
+                      presample_epochs=2, lr=5e-3, num_replicas=2)
+    model0 = GNN(spec, generator=torch.Generator().manual_seed(0))
+    losses = {}
+    for dev in ("cpu", cuda):
+        tr = Trainer(ds, spec, cfg, device=dev, model=copy.deepcopy(model0))
+        sh_kernel.reset_launches()
+        losses[str(dev)] = [s.loss for _ in range(2)
+                            for s in tr.train_epoch(max_iters=2).iters]
+    assert len(losses["cpu"]) == 4
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    assert sh_kernel.LAUNCHES["shuffle_bwd"] == 4 * 2 * _SHUFFLE_BWD["split"][model]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("serial,pipelined", [
+    ("serial", "pipelined"),
+    ("device", "device_pipelined"),
+])
+def test_cuda_mesh_pipelined_equals_serial_bitwise(cuda, serial, pipelined):
+    """At R = 2 on the card, pipelined delivery trains bit for bit as serial
+    does: the keyed per-replica draws (the device sampler's flattened
+    counter on the producers' own streams) and the shared-mark repad."""
+    runs = []
+    for source in (serial, pipelined):
+        tr = _tiny_trainer(cuda, source, num_replicas=2, batch_size=32)
+        losses = [it.loss for _ in range(2) for it in tr.train_epoch(3).iters]
+        runs.append((losses, [p.detach().cpu() for p in tr.params]))
+    assert len(runs[0][0]) > 2 and runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))

@@ -195,9 +195,7 @@ def test_trainer_runs_on_the_card_unless_asked(monkeypatch):
 
 @pytest.mark.parametrize("field,value", [
     ("ckpt_every", 1),
-    ("num_replicas", 1),
     ("ckpt_dir", "/tmp/ckpt"),
-    ("num_replicas", 2),
     ("wire_dtype", "int8"),
 ])
 def test_unported_config_values_raise(field, value):
@@ -215,6 +213,8 @@ def test_unported_config_values_raise(field, value):
     ("partition_method", "telemetry"),
     ("replication_budget", 0.05),
     ("record_telemetry", True),
+    ("num_replicas", 1),
+    ("num_replicas", 2),
 ])
 def test_ported_config_values_accepted(field, value):
     t_trainer.check_config(t_trainer.TrainConfig(**{field: value}))
