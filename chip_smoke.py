@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: the split-parallel
-training paths (the 2-D mesh in sim form included) and the transformer
-serve path.
+training paths (the 2-D mesh in sim form, and checkpoint and resume,
+included) and the transformer serve path.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -66,7 +66,8 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               falls in it or if a step makes other than two pinned ones;
               emits the pinned copies' count and device ms a step, and the
               window's device idle share.
-5. models  -- GCN and GAT (4 heads) take 2 steps each at the same widths.
+5. models  -- GCN and GAT (4 heads) at the same widths: GCN one epoch of 2
+              steps, GAT two (phase 18 resumes inside its second).
 6. parity  -- tiny graph, 2 layers, hidden 64: 3 steps on the card (kernels)
               and on the CPU (plain versions) from the same weights agree to
               rtol 1e-4: split for all three models, split with replication
@@ -198,6 +199,30 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               memory beside phase 4's and the R = 1 run's. (e) Every run
               line gives each epoch's ``first_iter_ms`` and
               ``steady_step_ms`` (``EpochStats.steady_step_seconds()``).
+18. checkpoint -- checkpoint and resume at phase 4's widths, a checkpoint
+              every step (``ckpt_every=1``) into a temporary directory, 3
+              steps an epoch. (a) On each of the four sources a run killed
+              by ``FaultAction("kill", epoch=1, batch=1)`` is resumed by a
+              fresh ``Trainer`` at (epoch 1, batch 1) (a device sampler's
+              state right after ``resume()`` is the saved one); its steps to
+              the end of epoch 2 are bitwise the clean suffix (phase 4's
+              serial losses for the host sources, phase 7's for the device
+              ones), and on serial and pipelined its final params and Adam
+              slots are bitwise phase 4's serial run's. (b) R = 2, serial:
+              kill and resume bitwise phase 17's R = 2 losses. (c) GAT (4
+              heads), serial, 2 steps an epoch: kill and resume bitwise
+              phase 5's GAT losses. (d) The serial run's newest checkpoint
+              corrupted (``corrupt_checkpoint``): ``resume()`` falls back to
+              the one before, and its one step and final state are still
+              phase 4's; every checkpoint truncated: ``resume()`` raises
+              ``CheckpointError``. (e) ``checkpoint`` prints the card, the
+              ``params.npz`` bytes, each save's ms (median, max) and one
+              save's parts (D2H, ``np.savez``, sha256, write + fsync), each
+              resume's ms, the runs' step ms, the phase's wall and launches,
+              and ``presample`` seconds at
+              ``presample_workers`` 1 and 4 on papers-s (2 epochs): the two
+              weight vectors differ (other streams) and 4 workers repeat
+              bitwise.
 
 Launch counts are set to 0 just before each trainer run and the serve run
 and read just after; a kernel of the run's path that was never launched
@@ -221,6 +246,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 from types import SimpleNamespace
@@ -289,6 +315,9 @@ GAT_REP_TOL = dict(rtol=5e-4, atol=5e-4)  # GAT, replicated vs not: grads
 MESH_DP_TOL = dict(rtol=2e-4, atol=1e-5)
 #: each trainer run's (resident_bytes, peak_bytes), by run name
 MEMORY = {}
+#: the card's nvidia-smi name and power limit (phase 1), printed beside
+#: phase 18's host-clock numbers
+CARD = None
 
 
 def counters():
@@ -1018,6 +1047,26 @@ def flash_decode_phase(dev, results):
                           fd.DTYPES[q.dtype], D, D) else "fma"})
 
 
+def check_launches(name, launches, expect, cfg, model, steps):
+    """Fail unless every kernel in ``expect`` was launched, the row
+    adjoint's walk was built once per row adjoint, and the shuffle adjoint
+    ran the mode's count for ``steps`` optimizer steps."""
+    for k in expect:
+        check(launches[k] > 0, f"{name}: kernel {k} was never launched")
+    # the row adjoint's walk is built by its kernels once per adjoint launch
+    check(launches["src_sorted_csr"] == launches["gather_segsum_bwd_mixed"],
+          f"{name}: {launches['src_sorted_csr']} walk builds for "
+          f"{launches['gather_segsum_bwd_mixed']} row adjoints")
+    # a mesh step runs its R parts' adjoints; a P = 1 split sends nothing
+    # (S = 0), as dp does
+    mode = "dp" if cfg.num_devices == 1 else cfg.mode
+    per_step = (SHUFFLE_BWD_OVERLAP if cfg.shuffle_overlap
+                else SHUFFLE_BWD_PER_STEP)[mode][model]
+    want = steps * per_step * max(cfg.num_replicas, 1)
+    check(launches["shuffle_bwd"] == want,
+          f"{name}: {launches['shuffle_bwd']} shuffle_bwd launches, expected {want}")
+
+
 def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
     """One trainer run of ``epochs`` epochs of ``steps`` steps, with launch
     counts set to 0 just before and read just after; fails if a kernel the
@@ -1047,20 +1096,7 @@ def run_trainer(ds, spec, cfg, dev, steps, name, expect, epochs=1):
     check(len(losses) == steps * epochs,
           f"{name}: {len(losses)} steps, expected {steps * epochs}")
     check(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
-    for k in expect:
-        check(launches[k] > 0, f"{name}: kernel {k} was never launched")
-    # the row adjoint's walk is built by its kernels once per adjoint launch
-    check(launches["src_sorted_csr"] == launches["gather_segsum_bwd_mixed"],
-          f"{name}: {launches['src_sorted_csr']} walk builds for "
-          f"{launches['gather_segsum_bwd_mixed']} row adjoints")
-    # a mesh step runs its R parts' adjoints; a P = 1 split sends nothing
-    # (S = 0), as dp does
-    mode = "dp" if cfg.num_devices == 1 else cfg.mode
-    per_step = (SHUFFLE_BWD_OVERLAP if cfg.shuffle_overlap
-                else SHUFFLE_BWD_PER_STEP)[mode][spec.model]
-    want = len(iters) * per_step * max(cfg.num_replicas, 1)
-    check(launches["shuffle_bwd"] == want,
-          f"{name}: {launches['shuffle_bwd']} shuffle_bwd launches, expected {want}")
+    check_launches(name, launches, expect, cfg, spec.model, len(iters))
     MEMORY[name] = (resident, torch.cuda.max_memory_allocated() - base)
     emit("run", {
         "name": name, "plan_source": cfg.plan_source, "setup_s": t_setup,
@@ -2521,6 +2557,247 @@ def mesh_phase(first, cfg, dev, serial, split_iters, dp_losses, total):
         "memory": {k: v for k, v in MEMORY.items()
                    if k.startswith("sage mesh") or k == "sage, serial source"},
     })
+    return r2["serial"]
+
+
+def checkpoint_phase(first, cfg, dev, clean, final, mesh_r2, gat, total):
+    """Phase 18: checkpoint and resume at phase 4's widths. ``clean`` holds
+    the clean losses by source (phase 4's and phase 7's, 3 epochs of 3
+    steps), ``final`` phase 4's serial run's final params and Adam slots on
+    the host, ``mesh_r2`` phase 17's R = 2 serial losses (2 epochs of 3) and
+    ``gat`` phase 5's GAT losses (2 epochs of 2); every run's launches are
+    checked and added to ``total``."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core.presample import presample
+    from repro_torch.faults import (
+        CheckpointError,
+        FaultAction,
+        FaultInjected,
+        FaultInjector,
+        corrupt_checkpoint,
+        truncate_checkpoint,
+    )
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.checkpoint import list_checkpoints
+    from repro_torch.train.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    papers = first.ds
+    sage, gat_spec = GNNSpec(model="sage"), GNNSpec(model="gat", num_heads=4)
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+            "shuffle_bwd")
+    saves_ms, resumes_ms, steps_ms, trainers = [], [], [], []
+    phase_launches = dict.fromkeys(total, 0)
+
+    def timed_saves(tr):
+        """Time each of ``tr``'s saves (D2H, npz, sha256, two fsyncs and
+        renames) on the host clock."""
+        save = tr.save_checkpoint
+
+        def timed(**kw):
+            t0 = time.perf_counter()
+            path = save(**kw)
+            saves_ms.append(1e3 * (time.perf_counter() - t0))
+            return path
+
+        tr.save_checkpoint = timed
+        return tr
+
+    def counted(tr, name, spec, expect, fn):
+        """Run ``fn`` on ``tr`` with the launch counts at 0, check them
+        against the optimizer steps it took and add them to ``total``."""
+        reset_launches()
+        step0 = tr.global_step
+        out = fn()
+        launches = read_launches()
+        check_launches(name, launches, expect, tr.cfg, spec.model,
+                       tr.global_step - step0)
+        for k in total:
+            total[k] += launches[k]
+            phase_launches[k] += launches[k]
+        return out
+
+    def kill_and_resume(c, spec, name, expect, steps, kill_epoch=1):
+        """A run killed at (``kill_epoch``, 1) and a fresh trainer resumed
+        from its checkpoints; returns the resumed trainer and checkpoint."""
+        trainers.append(name)
+        inj = FaultInjector([FaultAction("kill", epoch=kill_epoch, batch=1)])
+        tr = timed_saves(Trainer(papers, spec, c, device=dev, injector=inj))
+
+        def until_killed():
+            for _ in range(kill_epoch):
+                tr.train_epoch(max_iters=steps)
+            try:
+                tr.train_epoch(max_iters=steps)
+            except FaultInjected:
+                return True
+            return False
+
+        check(counted(tr, f"{name} killed", spec, expect, until_killed),
+              f"checkpoint {name}: the kill at ({kill_epoch}, 1) did not fire")
+        del tr
+        trainers.append(name)
+        tr = timed_saves(Trainer(papers, spec, c, device=dev))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck = tr.resume()
+        torch.cuda.synchronize()
+        resumes_ms.append(1e3 * (time.perf_counter() - t0))
+        check(ck is not None and (tr._epoch, tr._start_iter) == (kill_epoch, 1),
+              f"checkpoint {name}: resumed at ({tr._epoch}, {tr._start_iter})")
+        if tr.device_sampler is not None:
+            check(tr.device_sampler.export_state() == ck.cursor["sampler"],
+                  f"checkpoint {name}: the sampler state was not restored")
+        return tr, ck
+
+    def resumed_losses(tr, name, spec, expect, steps, epochs):
+        def run():
+            its = [it for _ in range(epochs)
+                   for it in tr.train_epoch(max_iters=steps).iters]
+            steps_ms.extend(1e3 * (it.t_wait + it.t_stage + it.t_device)
+                            for it in its)
+            return [it.loss for it in its]
+        return counted(tr, f"{name} resumed", spec, expect, run)
+
+    def final_state_equal(tr):
+        return all(torch.equal(a.cpu(), b) for a, b in
+                   zip(tr._opt_tensors(), final, strict=True))
+
+    def save_breakdown(tr, root, repeats=5):
+        """A save's parts on the host clock, each the median of
+        ``repeats``: the D2H reads, ``np.savez`` into memory, the sha256
+        of its bytes, and writing them to a file with the ``fsync``."""
+        import hashlib
+        import io
+
+        from repro_torch.train.checkpoint import _flatten, _to_numpy
+
+        tree = [tr._param_tree(), tr._opt_tree()]
+        parts = {"d2h": [], "savez": [], "sha256": [], "write_fsync": []}
+        for i in range(repeats):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            flat = {k: _to_numpy(v) for k, v in _flatten(tree).items()}
+            t1 = time.perf_counter()
+            buf = io.BytesIO()
+            np.savez(buf, **flat)
+            t2 = time.perf_counter()
+            hashlib.sha256(buf.getbuffer()).hexdigest()
+            t3 = time.perf_counter()
+            with open(os.path.join(root, f"breakdown.{i}"), "wb") as f:
+                f.write(buf.getbuffer())
+                f.flush()
+                os.fsync(f.fileno())
+            t4 = time.perf_counter()
+            for k, a, b in (("d2h", t0, t1), ("savez", t1, t2),
+                            ("sha256", t2, t3), ("write_fsync", t3, t4)):
+                parts[k].append(1e3 * (b - a))
+        return {k: statistics.median(v) for k, v in parts.items()}
+
+    out = {"sources": {}}
+    with tempfile.TemporaryDirectory() as root:
+        # (a) the four sources: kill at (1, 1), resume, two more epochs' worth
+        for source in ("serial", "pipelined", "device", "device_pipelined"):
+            expect = both + (("wavefront_expand",) if "device" in source else ())
+            c = replace(cfg, plan_source=source,
+                        ckpt_dir=os.path.join(root, source), ckpt_every=1)
+            tr, ck = kill_and_resume(c, sage, source, expect, 3)
+            losses = resumed_losses(tr, source, sage, expect, 3, 2)
+            want = clean[source][4:]
+            check(losses == want,
+                  f"checkpoint {source}: resumed losses {losses} != {want}")
+            bitwise_final = None
+            if source in ("serial", "pipelined"):
+                bitwise_final = final_state_equal(tr)
+                check(bitwise_final, f"checkpoint {source}: final params and "
+                      "Adam slots differ from phase 4's serial run")
+            out["sources"][source] = {
+                "resumed_from": os.path.basename(ck.path),
+                "losses": losses, "bitwise_clean_suffix": True,
+                "final_state_bitwise_phase4": bitwise_final,
+                "sampler_state_restored": "device" in source,
+            }
+            del tr
+        serial_dir = os.path.join(root, "serial")
+        out["params_npz_bytes"] = os.path.getsize(
+            os.path.join(list_checkpoints(serial_dir)[-1][1], "params.npz"))
+
+        # (b) the R = 2 mesh on the serial source
+        c = replace(cfg, num_replicas=2, ckpt_dir=os.path.join(root, "mesh"),
+                    ckpt_every=1)
+        tr, _ = kill_and_resume(c, sage, "mesh R=2", both, 3)
+        losses = resumed_losses(tr, "mesh R=2", sage, both, 3, 1)
+        check(losses == mesh_r2[4:],
+              f"checkpoint mesh R=2: {losses} != phase 17's {mesh_r2[4:]}")
+        out["mesh_r2"] = {"losses": losses, "bitwise_clean_suffix": True}
+        del tr
+
+        # (c) GAT, 2 steps an epoch: the weight adjoint on the resumed path
+        gat_expect = both + ("gather_segsum_bwd_w",)
+        c = replace(cfg, ckpt_dir=os.path.join(root, "gat"), ckpt_every=1)
+        tr, _ = kill_and_resume(c, gat_spec, "gat", gat_expect, 2)
+        losses = resumed_losses(tr, "gat", gat_spec, gat_expect, 2, 1)
+        check(losses == gat[3:],
+              f"checkpoint gat: {losses} != phase 5's {gat[3:]}")
+        out["gat"] = {"losses": losses, "bitwise_clean_suffix": True}
+        del tr
+
+        # (d) corruption: the serial run's newest checkpoint, then all of them
+        ckpts = list_checkpoints(serial_dir)
+        corrupt_checkpoint(ckpts[-1][1])
+        trainers.append("corrupt")
+        tr = Trainer(papers, sage, replace(cfg, ckpt_dir=serial_dir), device=dev)
+        ck = tr.resume()
+        check(ck.step == ckpts[-2][0],
+              f"checkpoint corrupt: resumed step {ck.step}, not {ckpts[-2][0]}")
+        want = clean["serial"][ck.step:]
+        losses = resumed_losses(tr, "corrupt", sage, both, 3, 1)
+        check(losses == want and final_state_equal(tr),
+              f"checkpoint corrupt: losses {losses} != {want} or final state")
+        for _, path in ckpts:
+            truncate_checkpoint(path)
+        try:
+            tr.resume()
+        except CheckpointError as e:
+            all_corrupt = str(e)[:160]
+        else:
+            raise RuntimeError("checkpoint: every checkpoint truncated and "
+                               "resume() did not raise")
+        out["corrupt_newest"] = {"fell_back_to_step": ck.step,
+                                 "losses": losses, "bitwise": True}
+        out["all_truncated"] = {"raised": "CheckpointError",
+                                "message": all_corrupt}
+        out["save_breakdown_ms"] = save_breakdown(tr, root)
+        del tr
+
+    # (e) presample at 1 and 4 workers: other streams, each reproducible
+    args = (papers.graph, papers.train_ids, list(FANOUTS), cfg.batch_size)
+    presample_s, weights = {}, {}
+    for workers in (1, 4, 4):
+        t0 = time.perf_counter()
+        w = presample(*args, num_epochs=2, seed=cfg.seed + 1, workers=workers)
+        presample_s.setdefault(workers, []).append(time.perf_counter() - t0)
+        weights.setdefault(workers, []).append(w.edge_weight)
+    check(not np.array_equal(weights[1][0], weights[4][0]),
+          "presample: 1 and 4 workers drew the same weights")
+    check(np.array_equal(weights[4][0], weights[4][1]),
+          "presample: 4 workers did not repeat bitwise")
+    emit("checkpoint", out | {
+        "card": CARD, "trainers": len(trainers),
+        "wall_s": time.perf_counter() - t_phase, "launches": phase_launches,
+        "save_ms": {"median": statistics.median(saves_ms),
+                    "max": max(saves_ms), "count": len(saves_ms),
+                    "all": saves_ms},
+        "resume_ms": resumes_ms,
+        "step_ms": {"median": statistics.median(steps_ms), "all": steps_ms},
+        "presample_s": {"workers_1": presample_s[1], "workers_4": presample_s[4],
+                        "epochs": 2, "weights_differ": True,
+                        "workers_4_bitwise_repeat": True},
+    })
 
 
 def main():
@@ -2543,6 +2820,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
+    global CARD
+    CARD = smi
     print(smi, flush=True)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
@@ -2580,10 +2859,13 @@ def main():
             "shuffle_bwd")
     main_losses, main_iters = {}, {}
     for source in ("serial", "pipelined"):
-        launches, _, stats, main_losses[source] = run_trainer(
+        launches, tr, stats, main_losses[source] = run_trainer(
             papers, GNNSpec(model="sage"), replace(cfg, plan_source=source),
             dev, 3, f"sage, {source} source", both, epochs=3)
         main_iters[source] = [it for e in stats for it in e.iters]
+        if source == "serial":  # phase 18 ends in this state
+            main_final = [t.detach().cpu() for t in tr._opt_tensors()]
+        del tr
         for k in total:
             total[k] += launches[k]
     check(main_losses["serial"] == main_losses["pipelined"],
@@ -2596,11 +2878,14 @@ def main():
     staging_phase()
 
     # ---- 5. the other models -------------------------------------------
-    for model, expect in (("gcn", both), ("gat", both + ("gather_segsum_bwd_w",))):
-        launches, _, _, _ = run_trainer(papers, GNNSpec(model=model, num_heads=4),
-                                        cfg, dev, 2, model, expect)
+    for model, expect, epochs in (
+            ("gcn", both, 1), ("gat", both + ("gather_segsum_bwd_w",), 2)):
+        launches, _, _, model_losses = run_trainer(
+            papers, GNNSpec(model=model, num_heads=4), cfg, dev, 2, model,
+            expect, epochs=epochs)
         for k in total:
             total[k] += launches[k]
+    gat_losses = model_losses
 
     # ---- 6. card vs CPU on a small graph --------------------------------
     tiny = make_dataset("tiny")
@@ -2667,8 +2952,15 @@ def main():
     dp_losses = dp_phase(first, cfg, dev, main_iters["serial"], total)
 
     # ---- 17. the 2-D (replica, split) mesh ---------------------------------
-    mesh_phase(first, cfg, dev, main_losses["serial"], main_iters["serial"],
-               dp_losses, total)
+    mesh_r2 = mesh_phase(first, cfg, dev, main_losses["serial"],
+                         main_iters["serial"], dp_losses, total)
+
+    # ---- 18. checkpoint and resume -----------------------------------------
+    checkpoint_phase(first, cfg, dev, {
+        "serial": main_losses["serial"], "pipelined": main_losses["serial"],
+        "device": device_pipelined_losses,
+        "device_pipelined": device_pipelined_losses,
+    }, main_final, mesh_r2, gat_losses, total)
 
     for k, r in results.items():
         r["launches"] = total[k]

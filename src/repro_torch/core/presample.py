@@ -15,6 +15,7 @@ sufficient (§7.3); that is our default.
 """
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -72,23 +73,50 @@ def presample(
     batch_size: int,
     num_epochs: int = 10,
     seed: int = 0,
+    workers: int = 1,
 ) -> PresampleWeights:
     """Accumulate k_v / k_e over ``num_epochs`` of simulated sampling.
 
-    Replays the JAX package's single-generator stream (its ``workers=1``
-    default; the threaded keyed variant draws other streams and is not
-    ported). Epochs are sliced as training slices them: the trailing
-    remainder batch contributes no counts unless the whole training set fits
-    in one (short) batch — matching what the trainer will actually sample,
-    which is the load the partitioner should balance.
+    ``workers == 1`` replays the historical single-generator stream.
+    ``workers > 1`` parallelizes across epochs with the sampler's keyed RNG
+    API — each epoch's draws depend only on ``(seed, epoch, batch)``, so the
+    result is deterministic and independent of scheduling (integer counts
+    summed in epoch order, no shared mutable state). Both paths are
+    individually reproducible, but they draw *different* streams: flipping
+    the knob changes the weights (hence the partition and downstream
+    trajectories). Keep it fixed within any experiment being compared.
+
+    Both paths iterate epochs with ``drop_last=True`` batch slicing (the
+    training default): the trailing remainder batch contributes no counts
+    unless the whole training set fits in one (short) batch — matching what
+    the trainer will actually sample, which is the load the partitioner
+    should balance.
     """
     sampler = NeighborSampler(graph, train_ids, fanouts, batch_size, seed=seed)
     k_v = np.zeros(graph.num_nodes, dtype=np.int64)
     k_e = np.zeros(graph.num_edges, dtype=np.int64)
-    for _ in range(num_epochs):
-        _accumulate(
-            k_v, k_e, (sampler.sample(t) for t in sampler.epoch_batches())
-        )
+    if workers <= 1:
+        for _ in range(num_epochs):
+            _accumulate(
+                k_v, k_e, (sampler.sample(t) for t in sampler.epoch_batches())
+            )
+    else:
+        def one_epoch(epoch: int):
+            ev = np.zeros(graph.num_nodes, dtype=np.int64)
+            ee = np.zeros(graph.num_edges, dtype=np.int64)
+            _accumulate(
+                ev, ee,
+                (
+                    sampler.sample_batch(t, epoch, i)
+                    for i, t in enumerate(sampler.epoch_targets(epoch))
+                ),
+            )
+            return ev, ee
+
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            for ev, ee in pool.map(one_epoch, range(num_epochs)):
+                k_v += ev
+                k_e += ee
     n = float(num_epochs)
     return PresampleWeights(
         vertex_weight=k_v / n, edge_weight=k_e / n, num_epochs=num_epochs

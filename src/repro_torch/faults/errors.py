@@ -2,7 +2,7 @@
 the counterpart of ``repro/faults/errors.py``.
 
 Stdlib only: ``runtime.prefetch`` imports from here, and this module never
-imports back. ``CheckpointError`` comes with the checkpoint slice.
+imports back.
 """
 from __future__ import annotations
 
@@ -64,6 +64,18 @@ class PipelineStallError(RuntimeError):
             f"reorder-queue occupancy {occupancy}, claim cursor at "
             f"{next_claim}, {delivered} delivered so far"
         )
+
+
+class CheckpointError(RuntimeError):
+    """A checkpoint failed an integrity check (never silently ignored).
+
+    Raised for: content-checksum mismatch, truncated/unreadable arrays, a
+    manifest whose ``treedef`` does not match the restore template, a key
+    set that differs from the template's, or a missing/garbled manifest.
+    ``load_latest_checkpoint`` catches this per-directory and falls back to
+    the previous good checkpoint; a direct ``load_checkpoint`` call
+    propagates it.
+    """
 
 
 class FaultInjected(Exception):

@@ -21,12 +21,13 @@ Action kinds
   ``poison``     write NaN into one feature entry via ``maybe_poison``, so
                  the gradients go non-finite (for ``skip_nonfinite``).
 
-The checkpoint corruption helpers (``corrupt_checkpoint``,
-``truncate_checkpoint``) serve only the checkpoint module and come with the
-checkpoint slice.
+``corrupt_checkpoint`` and ``truncate_checkpoint`` damage a written
+checkpoint's files directly (no schedule needed), for the checkpoint
+module's integrity checks.
 """
 from __future__ import annotations
 
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -115,3 +116,31 @@ class FaultInjector:
                 feats = np.array(feats, copy=True)
                 feats.reshape(-1)[0] = np.nan
         return feats
+
+
+# --------------------------------------------------------------------- #
+# checkpoint corruption (file-level chaos, no schedule needed)
+# --------------------------------------------------------------------- #
+def corrupt_checkpoint(ckpt_dir: str, filename: str = "params.npz") -> None:
+    """Flip one byte in the middle of a checkpoint payload file.
+
+    Leaves the file length intact: only the content checksum can catch
+    this, which is exactly what the detection gate asserts.
+    """
+    path = os.path.join(ckpt_dir, filename)
+    size = os.path.getsize(path)
+    if size == 0:
+        raise ValueError(f"{path} is empty — nothing to corrupt")
+    with open(path, "r+b") as f:
+        f.seek(size // 2)
+        b = f.read(1)
+        f.seek(size // 2)
+        f.write(bytes([b[0] ^ 0xFF]))
+
+
+def truncate_checkpoint(ckpt_dir: str, filename: str = "params.npz") -> None:
+    """Truncate a checkpoint payload to half its length (torn write)."""
+    path = os.path.join(ckpt_dir, filename)
+    size = os.path.getsize(path)
+    with open(path, "r+b") as f:
+        f.truncate(size // 2)

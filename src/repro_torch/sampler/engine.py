@@ -387,6 +387,34 @@ class DeviceSampler:
             self._pending.clear()
             self._epoch_base = (self.batches, self.fallbacks)
 
+    def export_state(self) -> dict:
+        """JSON-able capacity/counter state for the checkpoint cursor.
+
+        Caps, pending growth, and the fallback bookkeeping are part of the
+        resume contract on the device sources: which batches overflow (and
+        so fall back to the host sampler) depends on the capacity table, so
+        a bit-exact resume restores it rather than recalibrating.
+        """
+        with self._lock:
+            return {
+                "caps": {k: int(v) for k, v in self._caps.items()},
+                "pending": {k: int(v) for k, v in self._pending.items()},
+                "hwm": {k: int(v) for k, v in self.hwm.items()},
+                "batches": int(self.batches),
+                "fallbacks": int(self.fallbacks),
+                "epoch_base": list(self._epoch_base),
+            }
+
+    def load_state(self, state: dict) -> None:
+        """Restore ``export_state`` output (checkpoint resume)."""
+        with self._lock:
+            self._caps = {k: int(v) for k, v in state["caps"].items()}
+            self._pending = {k: int(v) for k, v in state["pending"].items()}
+            self.hwm = {k: int(v) for k, v in state["hwm"].items()}
+            self.batches = int(state["batches"])
+            self.fallbacks = int(state["fallbacks"])
+            self._epoch_base = tuple(int(x) for x in state["epoch_base"])
+
     def stats(self) -> dict:
         """Counters and capacity state. ``sampler_batches`` (device sampling
         runs, fallbacks included) and ``sampler_fallbacks`` are

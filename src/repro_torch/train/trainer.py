@@ -1,7 +1,8 @@
-"""Training runtime — the counterpart of ``repro/train/trainer.py`` without
-checkpoints: one trainer, three parallelism paradigms, on any of the four
-plan sources (dp and pushpull on the host ones), with the blocking or the
-overlap schedule and with or without the device-resident feature cache.
+"""Training runtime — the counterpart of ``repro/train/trainer.py``: one
+trainer, three parallelism paradigms, on any of the four plan sources (dp
+and pushpull on the host ones), with the blocking or the overlap schedule,
+with or without the device-resident feature cache, and with crash-consistent
+checkpoints and bit-exact mid-epoch resume (``train/checkpoint.py``).
 
   * ``split``     -- the paper's split parallelism: one mini-batch, split
                      online by f_G, per-layer all-to-all shuffles; optionally
@@ -30,10 +31,19 @@ The loss/accuracy transfer at the end of the step is its one sync point.
 (``step/wait``, ``step/stage``, ``step/device``) through
 ``repro_torch.obs`` when ``obs_trace`` is on, and the pipelined sources run
 under the supervision of ``repro_torch.faults``.
+
+A checkpoint (``save_checkpoint``, every ``ckpt_every`` steps of
+``train_epoch``) holds the params, the optimizer state and the resume
+cursor: the next batch's (epoch, index), the padding high-water marks, the
+device sampler's capacity table and the telemetry counters. ``resume``
+copies the arrays into the trainer's own parameter and slot tensors in
+place: the model's forward, the gradient and the in-place optimizer all hold
+those tensors, so rebinding them would split the three apart.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 from dataclasses import dataclass, field, replace
 
@@ -66,6 +76,8 @@ from repro_torch.runtime.plan_source import (
 from repro_torch.runtime.signature import SignatureCache
 from repro_torch.sampler import DeviceSampler
 from repro_torch.train import optimizer as opt_lib
+from repro_torch.train.checkpoint import checkpoint_name, load_latest_checkpoint
+from repro_torch.train.checkpoint import save_checkpoint as _save_checkpoint
 from repro_torch.train.loss import masked_accuracy, masked_softmax_xent
 from repro_torch.train.plan_io import load_labels, stage_batch, stage_host_features
 
@@ -75,8 +87,7 @@ log = logging.getLogger("repro_torch.trainer")
 @dataclass
 class TrainConfig:
     """The JAX package's ``TrainConfig`` fields that the port runs, with the
-    reference's defaults. The fields naming later slices accept only their
-    off value."""
+    reference's defaults."""
 
     mode: str = "split"  # split | dp | pushpull
     num_devices: int = 4
@@ -87,6 +98,9 @@ class TrainConfig:
     # split mode: gsplit | node | edge | rand | telemetry
     partition_method: str = "gsplit"
     presample_epochs: int = 10
+    # presample threads: 1 replays the single-generator stream; more run
+    # the epochs keyed, in parallel — another stream, other weights
+    presample_workers: int = 1
     pad_multiple: int = -1  # -1 = pow2 bucketing
     cache_mode: str = "none"  # none | distributed | partitioned
     cache_capacity_per_device: int = 0
@@ -127,8 +141,13 @@ class TrainConfig:
     # forward/backwards and averages the gradients across the replica axis.
     # R = 1 is the degenerate mesh, bitwise the 1-D path. Split mode only.
     num_replicas: int = 0
-    ckpt_dir: str | None = None  # checkpointing: later slice
-    ckpt_every: int = 0  # checkpointing: later slice
+    # Crash-consistent checkpointing: with ckpt_dir set and ckpt_every > 0,
+    # train_epoch writes a versioned checkpoint (params + optimizer state +
+    # the full resume cursor) every ckpt_every optimizer steps;
+    # Trainer.resume() restarts from the newest valid one mid-epoch,
+    # bit-for-bit against an uninterrupted run.
+    ckpt_dir: str | None = None
+    ckpt_every: int = 0  # optimizer steps between checkpoints (0 = off)
     # Supervised producers (pipelined sources): a transient build failure
     # (faults.RetryableError) retries in place up to plan_retries times with
     # exponential backoff; a delivery blocked longer than stall_timeout_s
@@ -151,24 +170,21 @@ CACHE_MODES = ("none", "distributed", "partitioned")
 #: plan sources that sample on the device (split mode only)
 DEVICE_SOURCES = ("device", "device_pipelined")
 
-#: config values the port runs, and the slice each other value waits for
-_SLICE = {
-    "mode": (MODES, "the parallelism modes"),
-    "partition_method": (PARTITION_METHODS, "the partitioner's method arms"),
-    "plan_source": (("serial", "pipelined") + DEVICE_SOURCES,
-                    "the plan sources"),
-    "ckpt_dir": ((None,), "checkpoint and resume"),
-    "ckpt_every": ((0,), "checkpoint and resume"),
+#: the values each enumerated config field takes
+_CHOICES = {
+    "mode": MODES,
+    "partition_method": PARTITION_METHODS,
+    "plan_source": ("serial", "pipelined") + DEVICE_SOURCES,
 }
 
+
 def check_config(cfg: TrainConfig) -> None:
-    """Raise ``ValueError`` for a value the port does not run yet."""
-    for name, (values, what) in _SLICE.items():
+    """Raise ``ValueError`` for a config the trainer cannot run."""
+    for name, values in _CHOICES.items():
         if getattr(cfg, name) not in values:
             raise ValueError(
-                f"TrainConfig.{name}={getattr(cfg, name)!r} is not ported yet "
-                f"({what}: a later slice of the port; the port runs "
-                f"{name} in {values!r})"
+                f"unknown TrainConfig.{name}={getattr(cfg, name)!r} (one of "
+                f"{values!r})"
             )
     if cfg.num_replicas < 0:
         raise ValueError("num_replicas must be >= 0 (0 = 1D split path)")
@@ -343,7 +359,7 @@ class Trainer:
             self.weights = presample(
                 dataset.graph, dataset.train_ids, list(cfg.fanouts),
                 cfg.batch_size, num_epochs=cfg.presample_epochs,
-                seed=cfg.seed + 1,
+                seed=cfg.seed + 1, workers=cfg.presample_workers,
             )
         self.t_presample = time.perf_counter() - t0
         t0 = time.perf_counter()
@@ -387,7 +403,8 @@ class Trainer:
         self.opt_state = self.opt.init(self.params)
         self._pad_hwm: dict = {}  # high-water-mark padding (stable shapes)
         self._epoch = 0  # epochs consumed via train_epoch (keyed RNG input)
-        self.global_step = 0  # optimizer steps taken
+        self._start_iter = 0  # resume cursor: first batch of the next epoch
+        self.global_step = 0  # optimizer steps taken (checkpoint naming)
         self.nonfinite_skips = 0  # steps whose update the guard skipped
         self.injector = injector
         self.sig_cache = SignatureCache()
@@ -699,8 +716,14 @@ class Trainer:
         """One epoch through the configured plan source: batches keyed by
         ``(seed, epoch, index)``, repadded at delivery. With a pipelined
         source the producers build ahead behind a bounded queue and the
-        consumer pays only its wait, the staging and the step."""
-        source = self.plan_source_for(self._epoch, max_iters)
+        consumer pays only its wait, the staging and the step. With
+        ``ckpt_dir`` and ``ckpt_every`` a checkpoint is written every
+        ``ckpt_every`` optimizer steps, naming the next batch."""
+        # mid-epoch resume: the cursor's batch offset applies to exactly one
+        # epoch (the one the checkpoint was taken in), then clears
+        start, self._start_iter = self._start_iter, 0
+        source = self.plan_source_for(self._epoch, max_iters, start=start)
+        n_batches = start + len(source.batches)  # this epoch's global count
         stats = EpochStats()
         t_epoch = time.perf_counter()
         try:
@@ -728,6 +751,15 @@ class Trainer:
                     parts, loss, acc, batch.t_sample, batch.t_split,
                     batch.t_load, t_stage, t_device, sp_wait.duration,
                 ))
+                cfg = self.cfg
+                if (cfg.ckpt_dir and cfg.ckpt_every > 0
+                        and self.global_step % cfg.ckpt_every == 0):
+                    next_batch = batch.index + 1
+                    epoch, next_batch = (
+                        (self._epoch + 1, 0) if next_batch >= n_batches
+                        else (self._epoch, next_batch)
+                    )
+                    self.save_checkpoint(epoch=epoch, next_batch=next_batch)
                 if stats.t_first_iter == 0.0:
                     stats.t_first_iter = time.perf_counter() - t_epoch
         finally:
@@ -740,6 +772,142 @@ class Trainer:
                 self.obs.write(self.cfg.obs_path)
         self._epoch += 1
         return stats
+
+    # ------------------------------------------------------------------ #
+    def _param_tree(self) -> list[dict]:
+        """The parameters as the reference's tree, ``[{name: tensor}]`` a
+        layer, named by ``model.named_parameters()`` (``layers.<i>.<name>``):
+        the checkpoint keys are ``params/<i>/<name>``."""
+        tree: list[dict] = [{} for _ in self.model.layers]
+        for qual, p in self.model.named_parameters():
+            _, i, name = qual.split(".")
+            tree[int(i)][name] = p
+        return tree
+
+    def _opt_tree(self):
+        """The optimizer state as the reference's tree: the step as an int32
+        scalar (``opt/0``) and each slot list as a per-layer tree like the
+        parameters' (``opt/1/m/<i>/<name>``; SGD has no slots). The slot
+        tensors are the live ones, the i-th slot belonging to
+        ``self.params[i]``."""
+        slots = self.opt_state.slots
+        if isinstance(slots, dict):
+            index = {id(p): i for i, p in enumerate(self.params)}
+            tree = self._param_tree()
+            slots = {
+                kind: [{name: tensors[index[id(p)]] for name, p in layer.items()}
+                       for layer in tree]
+                for kind, tensors in slots.items()
+            }
+        return opt_lib.OptimizerState(np.int32(self.opt_state.step), slots)
+
+    def save_checkpoint(
+        self,
+        root: str | None = None,
+        epoch: int | None = None,
+        next_batch: int = 0,
+    ) -> str:
+        """Write one crash-consistent checkpoint (params + optimizer state +
+        the full resume cursor) under ``root``/``cfg.ckpt_dir``.
+
+        The cursor pins everything a bit-exact mid-epoch resume needs: the
+        (epoch, batch) coordinate of the *next* batch, the global step, the
+        seed, the padding high-water marks, the device sampler's capacity
+        table (device sources), and the telemetry counters (as aux arrays).
+        ``train_epoch`` calls this every ``ckpt_every`` steps, after the
+        step's sync; it is also safe to call between epochs.
+        """
+        root = root if root is not None else self.cfg.ckpt_dir
+        if not root:
+            raise ValueError("no checkpoint directory (cfg.ckpt_dir unset)")
+        cursor = {
+            "epoch": int(self._epoch if epoch is None else epoch),
+            "batch": int(next_batch),
+            "global_step": int(self.global_step),
+            "seed": int(self.cfg.seed),
+            "hwm": {k: int(v) for k, v in self._pad_hwm.items()},
+            "nonfinite_skips": int(self.nonfinite_skips),
+            "sampler": (
+                self.device_sampler.export_state()
+                if self.device_sampler is not None
+                else None
+            ),
+        }
+        aux = {}
+        if self.telemetry is not None:
+            c = self.telemetry.counters()
+            aux = {
+                "telemetry_k_v": c["k_v"],
+                "telemetry_k_e": c["k_e"],
+                "telemetry_num_batches": np.asarray(c["num_batches"]),
+            }
+        path = os.path.join(root, checkpoint_name(self.global_step))
+        _save_checkpoint(
+            path, self._param_tree(), self.global_step,
+            opt_state=self._opt_tree(), cursor=cursor, aux_arrays=aux,
+        )
+        self.obs.count("fault/checkpoints_written", 1)
+        return path
+
+    def resume(self, root: str | None = None):
+        """Restore the newest valid checkpoint under ``root``/``cfg.ckpt_dir``.
+
+        Rebuilds the mid-run state the cursor pinned — params, optimizer
+        state, epoch/batch position, padding marks, sampler caps, telemetry
+        counters — so the continued trajectory is bit-for-bit the
+        uninterrupted one. The arrays are copied into the existing parameter
+        and slot tensors on ``self.device``. Corrupt newest checkpoints are
+        skipped with a warning (previous-good fallback). Returns the loaded
+        ``Checkpoint``, or None when the directory holds no checkpoint at
+        all (fresh start).
+        """
+        root = root if root is not None else self.cfg.ckpt_dir
+        if not root:
+            raise ValueError("no checkpoint directory (cfg.ckpt_dir unset)")
+        params_like, opt_like = self._param_tree(), self._opt_tree()
+        ck = load_latest_checkpoint(root, params_like, opt_like)
+        if ck is None:
+            return None
+        cur = ck.cursor
+        if "seed" in cur and int(cur["seed"]) != self.cfg.seed:
+            log.warning(
+                "resuming with seed %d but checkpoint was written with seed "
+                "%d — the continued trajectory will NOT match the original",
+                self.cfg.seed, int(cur["seed"]),
+            )
+        trees = [(params_like, ck.params)]
+        if isinstance(opt_like.slots, dict):
+            trees += [(opt_like.slots[k], ck.opt_state.slots[k])
+                      for k in opt_like.slots]
+        with torch.no_grad():
+            for live_tree, saved_tree in trees:
+                for live, saved in zip(live_tree, saved_tree, strict=True):
+                    for name, t in live.items():
+                        t.copy_(torch.from_numpy(saved[name]))
+        self.opt_state = self.opt_state._replace(step=int(ck.opt_state.step))
+        self.global_step = int(cur.get("global_step", ck.step))
+        self._epoch = int(cur.get("epoch", 0))
+        self._start_iter = int(cur.get("batch", 0))
+        self.nonfinite_skips = int(cur.get("nonfinite_skips", 0))
+        # cleared and refilled in place: the producer holds this dict
+        self._pad_hwm.clear()
+        self._pad_hwm.update(
+            {k: int(v) for k, v in cur.get("hwm", {}).items()}
+        )
+        if self.device_sampler is not None and cur.get("sampler"):
+            self.device_sampler.load_state(cur["sampler"])
+        if self.telemetry is not None and "telemetry_k_v" in ck.aux:
+            self.telemetry.load_counters({
+                "k_v": ck.aux["telemetry_k_v"],
+                "k_e": ck.aux["telemetry_k_e"],
+                "num_batches": int(ck.aux["telemetry_num_batches"]),
+            })
+        self.obs.count("fault/resumes", 1)
+        log.info(
+            "resumed from %s at step %d (epoch %d, batch %d)",
+            ck.path, self.global_step, self._epoch, self._start_iter,
+        )
+        return ck
 
     def refine_partition(self):
         """Telemetry-driven partition refinement (method="telemetry"), the

@@ -1114,3 +1114,47 @@ def test_cuda_mesh_pipelined_equals_serial_bitwise(cuda, serial, pipelined):
         runs.append((losses, [p.detach().cpu() for p in tr.params]))
     assert len(runs[0][0]) > 2 and runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resume_is_the_clean_suffix(cuda, tmp_path):
+    """On ``device_pipelined``, a run killed at (epoch 1, batch 2) with a
+    checkpoint every step, resumed on the card by a fresh trainer, trains
+    the clean run's remaining steps bit for bit and ends in its params and
+    Adam slots."""
+    from repro_torch.faults import FaultAction, FaultInjected, FaultInjector
+
+    clean = _tiny_trainer(cuda, "device_pipelined")
+    traj = [it.loss for _ in range(2) for it in clean.train_epoch(4).iters]
+    over = dict(ckpt_dir=str(tmp_path), ckpt_every=1)
+    inj = FaultInjector([FaultAction("kill", epoch=1, batch=2)])
+    tr = _tiny_trainer(cuda, "device_pipelined", injector=inj, **over)
+    tr.train_epoch(4)
+    with pytest.raises(FaultInjected):
+        tr.train_epoch(4)
+    tr = _tiny_trainer(cuda, "device_pipelined", **over)
+    ck = tr.resume()
+    assert ck is not None and (tr._epoch, tr._start_iter) == (1, 2)
+    assert tr.params[0].device.type == "cuda"
+    assert tr.device_sampler.export_state() == ck.cursor["sampler"]
+    assert [it.loss for it in tr.train_epoch(4).iters] == traj[6:]
+    assert all(torch.equal(a, b) for a, b in zip(tr._opt_tensors(),
+                                                 clean._opt_tensors(),
+                                                 strict=True))
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_resumes_on_cpu(cuda, tmp_path):
+    """A checkpoint written on the card resumes in a CPU trainer: the next
+    epoch's losses agree with the card run's within rtol 1e-4."""
+    over = dict(ckpt_dir=str(tmp_path), ckpt_every=3)
+    card = _tiny_trainer(cuda, "device_pipelined", **over)
+    card.train_epoch(3)
+    host = _tiny_trainer("cpu", "device_pipelined", **over)
+    ck = host.resume()
+    assert ck.step == 3 and (host._epoch, host._start_iter) == (1, 0)
+    assert host.params[0].device.type == "cpu"
+    got = [it.loss for it in host.train_epoch(3).iters]
+    want = [it.loss for it in card.train_epoch(3).iters]
+    assert len(got) == 3
+    np.testing.assert_allclose(got, want, rtol=1e-4)

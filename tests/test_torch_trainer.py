@@ -8,7 +8,7 @@
   loss rtol 1e-4 atol 1e-6: the aggregation sums in another order (index_add
   vs one-hot matmul) and Adam's normalised step amplifies the difference.
 * The port imports nothing of JAX or of the JAX package; its trainer runs on
-  the card unless asked for the CPU; unported settings raise, ported ones
+  the card unless asked for the CPU; unknown settings raise, ported ones
   pass ``check_config``.
 """
 import ast
@@ -194,8 +194,6 @@ def test_trainer_runs_on_the_card_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("ckpt_every", 1),
-    ("ckpt_dir", "/tmp/ckpt"),
     ("wire_dtype", "int8"),
 ])
 def test_unported_config_values_raise(field, value):
@@ -215,6 +213,9 @@ def test_unported_config_values_raise(field, value):
     ("record_telemetry", True),
     ("num_replicas", 1),
     ("num_replicas", 2),
+    ("ckpt_every", 1),
+    ("ckpt_dir", "/tmp/ckpt"),
+    ("presample_workers", 4),
 ])
 def test_ported_config_values_accepted(field, value):
     t_trainer.check_config(t_trainer.TrainConfig(**{field: value}))
