@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: the split-parallel
-training paths (the 2-D mesh in sim form, and checkpoint and resume,
-included) and the transformer serve path.
+training paths (the 2-D mesh in sim form, checkpoint and resume, and the
+spmd form over torch.distributed included) and the transformer serve path.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -223,10 +223,32 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               ``presample_workers`` 1 and 4 on papers-s (2 epochs): the two
               weight vectors differ (other streams) and 4 workers repeat
               bitwise.
+19. spmd    -- the spmd form of split parallelism over torch.distributed
+              (``repro_torch.launch``): one rank spawned by
+              ``spmd.launch`` on the card at world size 1, NCCL, a
+              ``FileStore`` rendezvous (an NCCL failure fails the phase).
+              (a) ``spmd_alltoall`` at a full-width block (8192 x 256, fp32
+              and a bf16 wire) bitwise ``sim_alltoall``, forward and
+              adjoint, and ``replica_grad_mean`` at R = 1 the identity.
+              (b) ``SpmdTrainer`` (``train_rank``), SAGE and GAT (4 heads)
+              at phase 4's widths and fan-outs with ``num_devices=1``, 3
+              steps: losses bitwise the sim ``Trainer``'s at
+              ``num_devices=1`` (one split sends nothing, S = 0; the
+              gradient and loss all-reduces run over NCCL); the rank's
+              launch counts (gss_fwd, the row adjoint and its walk,
+              gss_bwd_w for GAT, shuffle_bwd at the self rows) are checked
+              as a step's and printed, with its step ms beside the sim
+              step's. (c) ``sample_minibatch_spmd`` on the first batch's
+              targets at P = 1, bitwise the device sampler's loop, with
+              one ``wavefront_expand`` launch a hop. (d) A rehearsal on
+              the CPU, labelled ``"device": "cpu"``: four gloo ranks,
+              SAGE at P = 4 and GAT on the 2 x 2 (replica, split) mesh,
+              3 steps on the tiny graph, within rtol 1e-4 of the port's
+              sim ``Trainer``, every rank with the same losses.
 
 Launch counts are set to 0 just before each trainer run and the serve run
-and read just after; a kernel of the run's path that was never launched
-fails the script, and so does a trainer run whose row-adjoint launches
+and read just after (phase 19's in its rank's own process); a kernel of
+the run's path that was never launched fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
 adjoint's ``csr_builds``) or whose shuffle-adjoint launches differ from its
 steps times the gathers a step differentiates, by mode and model
@@ -2800,6 +2822,253 @@ def checkpoint_phase(first, cfg, dev, clean, final, mesh_r2, gat, total):
     })
 
 
+def counted(device, fn, args):
+    """A rank task for ``launch``: ``fn(device, *args)`` with the launch
+    counts set to 0 just before and read just after, in the rank's own
+    process: ``(result, launches)``."""
+    reset_launches()
+    out = fn(device, *args)
+    return out, read_launches()
+
+
+def alltoall_rank(device, send, cot, wires, grads):
+    """A rank task for phase 19 (a), at world size 1: ``spmd_alltoall`` of
+    ``send`` (1, 1, ...) under each wire of ``wires`` with the adjoint of
+    ``<out, cot>``, and ``replica_grad_mean`` of ``grads`` at R = 1; host
+    arrays ``({wire: (out, adjoint)}, mean)``."""
+    from repro_torch.core.shuffle import replica_grad_mean, spmd_alltoall
+    from repro_torch.launch.sharding import make_split_mesh
+
+    mesh = make_split_mesh(1, 1)
+    out = {}
+    for wire in wires:
+        s = send.to(device, copy=True).requires_grad_(True)
+        y = spmd_alltoall(s[0], mesh.split_group, wire)[None]
+        (y * cot.to(device)).sum().backward()
+        out[wire] = (y.detach().cpu().numpy(), s.grad.cpu().numpy())
+    mean = replica_grad_mean([g.to(device) for g in grads],
+                             mesh.replica_group, 1)
+    return out, [g.cpu().numpy() for g in mean]
+
+
+def blocks_equal(a, b):
+    """Two samplers' host blocks ``(fronts, counts, layers, flags)`` bit
+    for bit."""
+    import numpy as np
+
+    return (all(np.array_equal(x, y) for x, y in zip(a[0], b[0], strict=True))
+            and all(np.array_equal(x, y)
+                    for x, y in zip(a[1], b[1], strict=True))
+            and all(np.array_equal(x[k], y[k])
+                    for x, y in zip(a[2], b[2], strict=True) for k in y)
+            and a[3] == b[3])
+
+
+def spmd_wavefront(dev, first, sampler):
+    """Phase 19 (c)'s checks of the one-split device sampler at the first
+    batch: ``wavefront_expand`` at every hop bitwise against its plain
+    version, and the card's sample bitwise against ``_sample_device`` on a
+    CPU copy of the shards with the same caps. Returns the card's host
+    blocks and the hops' shapes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.sampler import DeviceSampler
+    from repro_torch.sampler import kernel as wf
+    from repro_torch.sampler import ref
+    from repro_torch.sampler.engine import (_sample_device, frontier_degrees,
+                                            to_host)
+
+    t_dev, keys = sampler.device_inputs(first.targets, 0, 0)
+    caps = sampler.caps_tuple()
+    out = _sample_device(sampler._dev, t_dev, len(first.targets), keys,
+                         caps=caps, fanouts=FANOUTS)
+    fronts, counts = out[0], out[1]
+    hops = []
+    for layer, fanout in enumerate(FANOUTS):
+        _, _, deg = frontier_degrees(sampler._dev, fronts[layer],
+                                     counts[layer])
+        vid, deg, key = fronts[layer].reshape(-1), deg.reshape(-1), keys[layer]
+        check(torch.equal(wf.wavefront_expand(vid, deg, key, fanout),
+                          ref.expand_codes(vid, deg, key[0], key[1], fanout)),
+              f"spmd: wavefront_expand at hop {layer} of the one-split "
+              "sampler differs from its plain version")
+        hops.append({"layer": layer, "rows": vid.numel(),
+                     "valid_rows": int((deg >= 0).sum()), "fanout": fanout})
+    card = to_host(out)
+    cpu = DeviceSampler(first.ds.graph, np.zeros(first.ds.graph.num_nodes,
+                                                 np.int32),
+                        1, list(FANOUTS), 0, host_sampler=first.sampler,
+                        device="cpu")
+    cpu._caps = dict(sampler._caps)
+    t_cpu, keys_cpu = cpu.device_inputs(first.targets, 0, 0)
+    check(blocks_equal(card, to_host(_sample_device(
+        cpu._dev, t_cpu, len(first.targets), keys_cpu, caps=caps,
+        fanouts=FANOUTS))),
+        "spmd: the card's one-split sample differs from the CPU's")
+    return card, hops
+
+
+def spmd_phase(first, cfg, dev, total):
+    """Phase 19: the spmd form of split parallelism over torch.distributed.
+    (a)-(c) run in one rank spawned by ``repro_torch.launch.spmd.launch`` on
+    the card at world size 1 over NCCL (a ``FileStore`` rendezvous), its
+    tasks' launches counted in its own process and added to ``total``; the
+    sim references run here. The kernels are held against their plain
+    versions at the one-split batch's layout (``layout_kernels``, the self
+    rows' adjoint, the sampler's hops). (d) rehearses four gloo ranks on
+    the CPU."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_split_plan, repad_plan
+    from repro_torch.core.shuffle import sim_alltoall
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.launch import spmd
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.sampler import DeviceSampler
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    t_phase = time.perf_counter()
+    papers = first.ds
+    gen = torch.Generator().manual_seed(19)
+    # (a) the exchange at a full-width block: 8192 rows of 256 columns
+    send = torch.randn(1, 1, 8192, 256, generator=gen)
+    cot = torch.randn(1, 1, 8192, 256, generator=gen)
+    grads = [torch.randn(256, 256, generator=gen), torch.randn(256, generator=gen)]
+    wires = (None, "bfloat16")
+    # (b) SAGE and GAT at phase 4's widths and fan-outs, one split
+    cfg1 = replace(cfg, num_devices=1)
+    specs = {"sage": GNNSpec(model="sage"),
+             "gat": GNNSpec(model="gat", num_heads=4)}
+    # (c) the cooperative sampler at P = 1 on the first batch's targets
+    sampler = DeviceSampler(papers.graph, np.zeros(papers.graph.num_nodes,
+                                                   np.int32),
+                            1, list(FANOUTS), 0, host_sampler=first.sampler,
+                            device=dev)
+    t_dev, keys = sampler.device_inputs(first.targets, 0, 0)
+    caps = sampler.caps_tuple()
+    sample_case = {"shards": sampler.shards, "targets": t_dev.cpu().numpy(),
+                   "n_targets": len(first.targets),
+                   "layer_keys": keys.cpu().numpy(), "fanouts": list(FANOUTS),
+                   "caps": caps}
+    tasks = [(counted, (alltoall_rank, (send, cot, wires, grads)))]
+    tasks += [(counted, (spmd.train_rank, (papers, spec, cfg1, 1, 3)))
+              for spec in specs.values()]
+    tasks.append((counted, (spmd.sample_rank, (1, [sample_case]))))
+    t0 = time.perf_counter()
+    (res,) = spmd.launch(tasks, world=1, timeout_s=600.0)
+    t_launch = time.perf_counter() - t0
+    ((prim_out, mean), prim_l), *train, (sample_out, sample_l) = res
+
+    # (a) at world 1 the exchange is its own sim form, bit for bit; the
+    # replica mean at R = 1 is the identity
+    lines = {}
+    check(all(np.array_equal(a, b.numpy())
+              for a, b in zip(mean, grads, strict=True)),
+          "spmd: replica_grad_mean at R = 1 is not the identity")
+    lines["replica_grad_mean"] = {"bitwise": True}
+    for wire in wires:
+        got, got_adj = prim_out[wire]
+        s = send.to(dev, copy=True).requires_grad_(True)
+        want = sim_alltoall(s, wire)
+        (want * cot.to(dev)).sum().backward()
+        check(np.array_equal(got, want.detach().cpu().numpy())
+              and np.array_equal(got_adj, s.grad.cpu().numpy()),
+              f"spmd: spmd_alltoall ({wire}) != sim_alltoall")
+        lines[f"alltoall_{wire or 'float32'}"] = {
+            "bitwise": True, "bytes": send.numel() * (2 if wire else 4)}
+
+    # (b) the spmd steps bitwise the sim Trainer at num_devices=1
+    runs = {}
+    expect = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+              "shuffle_bwd")
+    for (model, spec), (out, launches) in zip(specs.items(), train,
+                                               strict=True):
+        tr = Trainer(papers, spec, cfg1, device=dev)
+        sim = tr.train_epoch(max_iters=3).iters
+        if model == "sage":
+            # the first one-split batch as the trainer builds it (repadded
+            # from empty marks): M and the edge counts of a whole batch on
+            # one split, which no other phase gives the kernels
+            plan1 = repad_plan(build_split_plan(
+                tr.sampler.sample_batch(tr.sampler.epoch_targets(0)[0], 0, 0),
+                tr.partition.assignment, 1, pad_multiple=cfg1.pad_multiple),
+                {})
+        sim_losses = [it.loss for it in sim]
+        check(out["losses"] == sim_losses,
+              f"spmd {model}: NCCL losses {out['losses']} != sim {sim_losses}")
+        check_launches(f"spmd {model}", launches,
+                       expect + (("gather_segsum_bwd_w",) if model == "gat"
+                                 else ()), cfg1, model, 3)
+        for k in total:
+            total[k] += launches[k]
+        runs[model] = {
+            "losses": out["losses"], "bitwise_sim": True,
+            "step_ms": [1e3 * s for s in out["step_s"]],
+            "sim_step_ms": [1e3 * (it.t_wait + it.t_stage + it.t_device)
+                            for it in sim],
+            "launches": {k: v for k, v in launches.items() if v}}
+        del tr
+    check(all(lp.send_idx.shape[2] == 0 for lp in plan1.layers),
+          "spmd: the one-split plan sends rows")
+    layout_kernels(dev, plan1, "spmd")
+    self_rows_adjoint(dev, plan1, 1, "spmd")
+
+    # (c) the spmd sampler bitwise the device sampler's loop at P = 1, which
+    # is bitwise a CPU copy's; the kernel bitwise its plain version per hop
+    want, hops = spmd_wavefront(dev, first, sampler)
+    check(blocks_equal(sample_out[0]["blocks"], want),
+          "spmd: sample_minibatch_spmd != the device sampler's loop")
+    check(sample_out[0]["overflow"] == [], "spmd: the sampler overflowed")
+    check(sample_l["wavefront_expand"] == L,
+          f"spmd: {sample_l['wavefront_expand']} wavefront launches, "
+          f"expected {L}")
+    for k in total:
+        total[k] += prim_l[k] + sample_l[k]
+
+    # (d) the CPU rehearsal: four gloo ranks at P = 4 and on the 2 x 2 mesh
+    tiny = make_dataset("tiny")
+    rehearsal = {}
+    tcfg = TrainConfig(num_devices=4, fanouts=(4, 4), batch_size=16,
+                       presample_epochs=2, lr=5e-3)
+    cases = {"sage P=4": ("sage", tcfg),
+             "gat 2x2": ("gat", replace(tcfg, num_devices=2, num_replicas=2))}
+    tasks = []
+    for model, c in cases.values():
+        spec = GNNSpec(model=model, in_dim=tiny.spec.feat_dim, hidden_dim=64,
+                       out_dim=tiny.spec.num_classes, num_layers=2)
+        tasks.append((spmd.train_rank, (tiny, spec, c, 1, 3)))
+    t0 = time.perf_counter()
+    ranks = spmd.launch(tasks, world=4, device="cpu", timeout_s=300.0)
+    t_cpu = time.perf_counter() - t0
+    for i, (name, (model, c)) in enumerate(cases.items()):
+        spec = tasks[i][1][1]
+        sim = [it.loss for it in
+               Trainer(tiny, spec, c, device="cpu").train_epoch(max_iters=3).iters]
+        got = ranks[0][i]["losses"]
+        np.testing.assert_allclose(got, sim, rtol=1e-4, atol=1e-6)
+        check(all(r[i]["losses"] == got for r in ranks),
+              f"spmd rehearsal {name}: the ranks' losses differ")
+        rehearsal[name] = {"spmd": got, "sim": sim,
+                           "max_abs_diff": float(np.max(np.abs(
+                               np.subtract(got, sim))))}
+    emit("spmd", {
+        "card": CARD, "backend": "nccl", "world": 1, "primitives": lines,
+        "train": runs, "sampler": {
+            "bitwise_device_loop": True, "card_vs_cpu": "bitwise equal",
+            "hops": hops, "wavefront_bitwise_vs_plain": True,
+            "wavefront_launches": sample_l["wavefront_expand"]},
+        "launch_s": t_launch,
+        "rehearsal": {"device": "cpu", "backend": "gloo", "world": 4,
+                      "torch": torch.__version__, "runs": rehearsal,
+                      "launch_s": t_cpu},
+        "phase_s": time.perf_counter() - t_phase,
+    })
+
+
 def main():
     import torch
 
@@ -2961,6 +3230,9 @@ def main():
         "device": device_pipelined_losses,
         "device_pipelined": device_pipelined_losses,
     }, main_final, mesh_r2, gat_losses, total)
+
+    # ---- 19. the spmd path over torch.distributed ---------------------------
+    spmd_phase(first, cfg, dev, total)
 
     for k, r in results.items():
         r["launches"] = total[k]

@@ -9,9 +9,16 @@ from repro_torch.core.partition import (
 )
 from repro_torch.core.presample import PresampleWeights, presample
 from repro_torch.core.shuffle import (
+    SimComm,
+    SpmdComm,
+    replica_grad_mean,
     sim_alltoall,
     sim_append_replicated,
     sim_shuffle,
+    spmd_alltoall,
+    spmd_append_replicated,
+    spmd_serve_features,
+    spmd_shuffle,
     wire_cast,
 )
 from repro_torch.core.splitting import (
@@ -39,5 +46,12 @@ __all__ = [
     "sim_alltoall",
     "sim_append_replicated",
     "sim_shuffle",
+    "spmd_alltoall",
+    "spmd_append_replicated",
+    "spmd_serve_features",
+    "spmd_shuffle",
+    "SimComm",
+    "SpmdComm",
+    "replica_grad_mean",
     "wire_cast",
 ]

@@ -4,9 +4,10 @@ from repro_torch.models.gnn.layers import (
     GNNSpec,
     gnn_forward,
     gnn_forward_cached,
+    gnn_forward_spmd,
     gnn_layer_apply,
     params_from_jax,
 )
 
 __all__ = ["GNN", "GNNSpec", "gnn_forward", "gnn_forward_cached",
-           "gnn_layer_apply", "params_from_jax"]
+           "gnn_forward_spmd", "gnn_layer_apply", "params_from_jax"]

@@ -2,13 +2,15 @@
 ``repro/models/gnn/layers.py`` on the split and dp paths: the blocking
 schedule, the overlap schedule (``_gnn_layer_overlap``) and the cached forward
 (``gnn_forward_cached``), each with the replicated hot-vertex block
-(``rep_block``) on the input layer.
+(``rep_block``) on the input layer; in sim form (``gnn_forward``) and in spmd
+form, one split a rank over ``torch.distributed`` (``gnn_forward_spmd``).
 
 Each layer consumes the *mixed frontier* buffer (local + received rows, built
 by the shuffle) and the plan's per-edge indices, and produces the local rows of
 the next depth. The JAX layer runs on one split and is vmapped over P; here
 every tensor keeps its leading P axis, so the fused kernels take all splits in
-one launch.
+one launch. A spmd rank keeps that axis with length 1: the same layers run on
+its one split, and only the exchange (``core.shuffle.SpmdComm``) differs.
 
 Supported models: GraphSAGE (mean), GAT (multi-head attention), GCN.
 """
@@ -22,11 +24,12 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.shuffle import (
+    SimComm,
+    SpmdComm,
     chunk_slices,
-    sim_alltoall,
+    serve_features,
+    shuffle,
     sim_append_replicated,
-    sim_serve_features,
-    sim_shuffle,
 )
 from repro_torch.kernels import segment_ops
 from repro_torch.kernels.gather_segsum import ops as gather_ops
@@ -299,10 +302,12 @@ def _half_weighted(spec, rows, alpha_half, lp, side, num_out, dh):
     return out.reshape(P, num_out, Fr)
 
 
-def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last,
+def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last, comm,
                        rep_block=None):
     """One GNN layer on all P splits under the overlap schedule (DESIGN.md
-    §3a), the counterpart of the JAX ``_gnn_layer_overlap`` in sim form.
+    §3a), the counterpart of the JAX ``_gnn_layer_overlap``; ``comm``
+    (``SimComm`` or ``SpmdComm``) is the exchange, and on a spmd rank the
+    leading axis is its one split.
 
     Split aggregation: the local-src half of the edge set is aggregated from
     each split's own rows ``h (P, N, F)``, the remote half from the received
@@ -357,8 +362,7 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last,
                 else sim_append_replicated(payload, pay_rep))
 
     def recv_chunk(sl):
-        recv = sim_alltoall(send[..., sl], wire)  # (P, P, S, Fc)
-        return recv.reshape(P, P * S, sl.stop - sl.start)
+        return comm.exchange(send[..., sl], wire)  # (P, P*S, Fc)
 
     if spec.model in ("sage", "gcn"):
         loc = _half_sum(spec, loc_rows, lp, "l", num_out)
@@ -382,8 +386,8 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last,
             # eager score exchange: H columns per row against H*dh for the
             # features — the small price that lets every feature chunk
             # aggregate independently (alpha is feature-independent)
-            s_recv = sim_alltoall(send_gather(s_src_loc, send_idx, send_count),
-                                  wire).reshape(P, P * S, H)
+            s_recv = comm.exchange(
+                send_gather(s_src_loc, send_idx, send_count), wire)
             s_src_mix = torch.cat([s_src_loc, s_recv], dim=1)
         else:
             s_src_mix = s_src_loc
@@ -426,7 +430,7 @@ def _gnn_layer_overlap(spec, layer_params, h, lp, num_out, is_last,
     return out
 
 
-def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle,
+def gnn_forward(spec, params, h_input, plan_arrays, comm=None,
                 rep_block=None):
     """Split-parallel forward pass (Algorithm 2): shuffle -> gnn layer, per
     depth, or with ``spec.overlap`` the split local/remote schedule
@@ -435,25 +439,28 @@ def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle,
     ``params`` is a list of per-layer dicts (``params[0]`` consumes the input
     features); ``h_input`` is (P, N_L, F_in). Runs depths L-1 .. 0 and returns
     (P, N_0, out_dim) target logits. ``plan_arrays['layers']`` is ordered by
-    dst depth (0 = targets), so it is iterated reversed.
+    dst depth (0 = targets), so it is iterated reversed. ``comm`` is the
+    exchange of both schedules: ``SimComm()`` (the default) for all P splits
+    on one device, ``SpmdComm`` on one rank (``gnn_forward_spmd``).
 
     ``rep_block (R, F_in)`` holds the replicated hot-vertex feature rows. It
     applies to the input layer only (li == L-1): plans built with a
     replication set address those sources past the recv region, so the
     block is appended to the mixed buffer after the (smaller) shuffle.
     """
-    h = h_input
+    comm = SimComm() if comm is None else comm
     L = spec.num_layers
+    h = h_input
     for li in range(L - 1, -1, -1):
         lp = plan_arrays["layers"][li]
         num_out = lp["self_pos"].shape[-1]  # N_i
         rep = rep_block if li == L - 1 else None
         if spec.overlap:
             h = _gnn_layer_overlap(spec, params[L - 1 - li], h, lp, num_out,
-                                   is_last=(li == 0), rep_block=rep)
+                                   is_last=(li == 0), comm=comm, rep_block=rep)
             continue
-        mixed = shuffle_fn(h, lp["send_idx"], spec.wire_dtype,
-                           send_count=lp["send_count"])  # (P, M, F)
+        mixed = shuffle(h, lp["send_idx"], comm, spec.wire_dtype,
+                        send_count=lp["send_count"])  # (P, M, F)
         if rep is not None:
             mixed = sim_append_replicated(mixed, rep)
         h = gnn_layer_apply(
@@ -463,19 +470,41 @@ def gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn=sim_shuffle,
 
 
 def gnn_forward_cached(spec, params, cache_block, miss_feats, plan_arrays,
-                       shuffle_fn=sim_shuffle, rep_block=None):
+                       comm=None, rep_block=None):
     """Split-parallel forward with the loading stage folded into the step.
 
     Instead of a pre-gathered (P, N_L, F) block, the input features are
     assembled on the device from the resident cache block ``(P, C, F)`` and
-    the compacted miss rows ``(P, M, F)`` (``core.shuffle.sim_serve_features``
+    the compacted miss rows ``(P, M, F)`` (``core.shuffle.serve_features``
     over ``plan_arrays["cache"]``): the same numbers as
     ``gnn_forward(load_features(...))``, while the host link carried only
     the misses.
     """
-    h_input = sim_serve_features(
-        cache_block, plan_arrays["cache"], miss_feats,
-        wire_dtype=spec.wire_dtype,
-    )
-    return gnn_forward(spec, params, h_input, plan_arrays, shuffle_fn,
+    comm = SimComm() if comm is None else comm
+    h_input = serve_features(cache_block, plan_arrays["cache"], miss_feats,
+                             comm, spec.wire_dtype)
+    return gnn_forward(spec, params, h_input, plan_arrays, comm,
+                       rep_block=rep_block)
+
+
+def gnn_forward_spmd(spec, params, h_input, plan_arrays, group,
+                     cache_local=None, rep_block=None):
+    """The forward on one rank of ``group`` (its split group), the
+    counterpart of the JAX ``gnn_forward_spmd``: ``gnn_forward`` (or, with
+    ``cache_local``, ``gnn_forward_cached``) over ``SpmdComm(group)``, the
+    same math on the rank's split.
+
+    ``h_input`` is the rank's (1, N_L, F_in) input rows, or with
+    ``cache_local`` (its (1, C, F) resident block) its (1, M, F) miss rows;
+    ``plan_arrays`` holds the rank's slice of every plan array
+    (``launch.sharding.plan_slice``). ``rep_block`` is the whole replicated
+    block, the same on every rank. Returns the rank's (1, N_0, out_dim)
+    target logits. Every rank of the group must call it with plans of one
+    shape: each layer's exchange is a collective.
+    """
+    comm = SpmdComm(group)
+    if cache_local is not None:
+        return gnn_forward_cached(spec, params, cache_local, h_input,
+                                  plan_arrays, comm, rep_block=rep_block)
+    return gnn_forward(spec, params, h_input, plan_arrays, comm,
                        rep_block=rep_block)

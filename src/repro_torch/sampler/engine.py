@@ -1,5 +1,5 @@
 """The cooperative sampling loop and its producer-facing facade — the
-counterpart of ``repro/sampler/engine.py`` (sim mode).
+counterpart of ``repro/sampler/engine.py``.
 
 ``_sample_device`` is the steady-state path, a plain function on tensors
 with the P splits as the leading axis. Per GNN layer it
@@ -12,8 +12,15 @@ with the P splits as the leading axis. Per GNN layer it
      (``frontier.sorted_unique_capped``),
   4. routes newly discovered remote vertices to their owning split through
      the fixed-size all-to-all (``frontier.bucket_by_owner`` builds the
-     (P, P, X) send buffer; ``core.shuffle.sim_alltoall`` exchanges it), and
+     (P, P, X) send buffer; ``core.shuffle.SimComm`` exchanges it), and
   5. merges received and locally owned candidates into the next frontier.
+
+``sample_minibatch_spmd`` is the same loop on one rank's CSR shard, over
+``torch.distributed``: the rank keeps a leading split axis of length 1, its
+targets are the sorted unique ones it owns, and the exchange is
+``core.shuffle.SpmdComm`` (the counts ride an all-to-all of their own). Its
+overflow flags are the rank's own; ``spmd_overflow`` reduces them over the
+split group, so that every rank keeps or discards the batch together.
 
 Every capacity is static; exceeding one raises an overflow flag instead of
 truncating. Nothing in the loop syncs the host: ``DeviceSampler`` uploads
@@ -32,7 +39,9 @@ import threading
 import numpy as np
 import torch
 
-from repro_torch.core.shuffle import sim_alltoall
+import torch.distributed as dist
+
+from repro_torch.core.shuffle import SimComm, SpmdComm
 from repro_torch.graph.csr import CSRGraph
 from repro_torch.graph.sampling import (
     LayerSample,
@@ -105,20 +114,63 @@ def _sample_device(dev, targets, n_targets: int, layer_keys, *, caps, fanouts):
     owner = dev["owner"]
     P = dev["indptr"].shape[0]
     V = owner.shape[0]
-    device = owner.device
-    tvalid = torch.arange(targets.shape[0], device=device) < n_targets
+    tvalid = torch.arange(targets.shape[0], device=owner.device) < n_targets
     front, cnt, of0 = bucket_by_owner(targets, tvalid, owner, P, caps["N0"], V)
+    splits = torch.arange(P, device=owner.device)[:, None]
+    return _cooperative_loop(dev, front, cnt, of0, layer_keys, caps, fanouts,
+                             splits, P, SimComm())
+
+
+def sample_minibatch_spmd(dev_local, targets, n_targets: int, layer_keys, *,
+                          caps, fanouts, group, num_parts: int):
+    """The cooperative loop on one rank of ``group`` (its split group), the
+    counterpart of the JAX ``sample_minibatch_spmd``.
+
+    dev_local -- the rank's slice of ``shards_to_device``
+    (``launch.sharding.sampler_shard_slice``: its (1, V_cap + 1) ``indptr``
+    and (1, E_cap) ``indices``/``edge_id``; ``owner``/``local_row`` whole);
+    targets, n_targets, layer_keys as ``_sample_device`` (the full target
+    list on every rank); ``num_parts`` P. Its targets are the sorted unique
+    ones it owns (``sorted_unique_capped`` under an owner mask, as the JAX
+    spmd form has them); the rest is ``_sample_device``'s loop with the
+    exchange over ``group``. Returns the rank's ``(fronts, counts, layers,
+    flags)`` with a leading axis of 1: split p's rows of ``_sample_device``.
+    The flags are this rank's: reduce them with ``spmd_overflow`` before
+    deciding to keep the batch (a flagged output is truncated).
+    """
+    caps = dict(caps)
+    owner = dev_local["owner"]
+    V = owner.shape[0]
+    p = dist.get_rank(group)
+    tvalid = (torch.arange(targets.shape[0], device=owner.device) < n_targets) & (
+        take(owner, targets.clamp(0, V - 1)) == p)
+    front, cnt, of0 = sorted_unique_capped(targets[None], tvalid[None],
+                                           caps["N0"], V)
+    splits = torch.full((1, 1), p, dtype=owner.dtype, device=owner.device)
+    return _cooperative_loop(dev_local, front, cnt, of0.any(), layer_keys,
+                             caps, fanouts, splits, num_parts, SpmdComm(group))
+
+
+def _cooperative_loop(dev, front, cnt, of0, layer_keys, caps, fanouts, splits,
+                      num_parts, comm):
+    """The per-layer loop from the (S, N0) target fronts of the S splits
+    held here (all P in sim form, one on a spmd rank): ``splits`` (S, 1)
+    their ids, ``comm`` the frontier exchange."""
+    owner = dev["owner"]
+    V = owner.shape[0]
+    P = num_parts
+    device = owner.device
     fronts, counts, layers = [front], [cnt], []
     flags = {"N0": of0}
-    splits = torch.arange(P, device=device)[:, None]
     for l, fanout in enumerate(fanouts):
         front, cnt = fronts[-1], counts[-1]
-        N = front.shape[1]
+        S, N = front.shape
         fvalid, start, deg = frontier_degrees(dev, front, cnt)
-        # one flat launch for all P splits: draws key on global vertex id
+        # one flat launch for all splits held here: draws key on global
+        # vertex id
         codes = wavefront_expand(
             front.reshape(-1), deg.reshape(-1), layer_keys[l], fanout
-        ).reshape(P, N, fanout)
+        ).reshape(S, N, fanout)
         dst, src, eid, evalid = _decode_edges(
             front, start, codes, dev["indices"], dev["edge_id"]
         )
@@ -132,10 +184,13 @@ def _sample_device(dev, targets, n_targets: int, layer_keys, *, caps, fanouts):
         uvalid = torch.arange(C, device=device)[None] < ucnt[:, None]
         mine = take(owner, uniq.clamp(0, V - 1)) == splits
         send, scnt, ofx = bucket_by_owner(uniq, uvalid & ~mine, owner, P, X, V)
-        recv = sim_alltoall(send)  # (P, P, X): recv[q, p] = p's block for q
-        rvalid = torch.arange(X, device=device)[None, None] < scnt.T[:, :, None]
-        merged = torch.cat([uniq, recv.reshape(P, P * X)], dim=1)
-        mvalid = torch.cat([uvalid & mine, rvalid.reshape(P, P * X)], dim=1)
+        # (S, P*X): the ids each owner found for this split; the counts ride
+        # the same exchange, (S, P)
+        recv = comm.exchange(send)
+        rcnt = comm.exchange(scnt[:, :, None])
+        rvalid = torch.arange(X, device=device)[None, None] < rcnt[:, :, None]
+        merged = torch.cat([uniq, recv], dim=1)
+        mvalid = torch.cat([uvalid & mine, rvalid.reshape(S, P * X)], dim=1)
         nf, ncnt, ofn = sorted_unique_capped(merged, mvalid, N1, V)
         flags[f"C{l}"] = ofc.any()
         flags[f"X{l}"] = ofx.any()
@@ -143,6 +198,17 @@ def _sample_device(dev, targets, n_targets: int, layer_keys, *, caps, fanouts):
         fronts.append(nf)
         counts.append(ncnt)
     return fronts, counts, layers, flags
+
+
+def spmd_overflow(flags: dict, group) -> list:
+    """The caps that overflowed on any rank of ``group``: the ranks' flags
+    reduced by ``all_reduce(MAX)``, so that every rank takes the same
+    keep-or-discard decision (a rank that discarded a batch alone would
+    leave its peers waiting in their next collective)."""
+    keys = sorted(flags)
+    t = torch.stack([flags[k].reshape(()).to(torch.int32) for k in keys])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+    return [k for k, f in zip(keys, t.tolist()) if f]
 
 
 def to_host(out):

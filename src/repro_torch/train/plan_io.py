@@ -157,6 +157,16 @@ def plan_to_device(plan: SplitPlan, device, cache_plan: CachePlan | None = None,
     ))
 
 
+def batch_fields(plan: SplitPlan, labels: np.ndarray,
+                 cache_plan: CachePlan | None = None, with_halves: bool = False,
+                 num_replicated: int = 0) -> list:
+    """``(place, key, array)`` for every array ``stage_batch`` stages: the
+    plan's (``plan_to_device``'s), then the labels under ``"labels"``."""
+    fields = list(_plan_fields(plan, cache_plan, with_halves, num_replicated))
+    fields.append((None, "labels", _host(labels, np.int32)))
+    return fields
+
+
 def pack_host(plan: SplitPlan, labels: np.ndarray, pin: bool,
               cache_plan: CachePlan | None = None, with_halves: bool = False,
               num_replicated: int = 0):
@@ -166,8 +176,11 @@ def pack_host(plan: SplitPlan, labels: np.ndarray, pin: bool,
     ``ALIGN``-byte offset. The labels' span comes last, under the key
     ``"labels"``. A zero-size array (a dp plan's ``send_idx``) takes no
     bytes: its span starts where the next array's does."""
-    fields = list(_plan_fields(plan, cache_plan, with_halves, num_replicated))
-    fields.append((None, "labels", _host(labels, np.int32)))
+    return _pack(batch_fields(plan, labels, cache_plan, with_halves,
+                              num_replicated), pin)
+
+
+def _pack(fields: list, pin: bool):
     spans, at = [], 0
     for layer, key, a in fields:
         spans.append((layer, key, at, a.dtype, a.shape))
@@ -214,29 +227,42 @@ def stage_batch(plan: SplitPlan, feats: torch.Tensor, labels: np.ndarray,
     whose replicated region is not ``num_replicated`` rows high raises on
     either path.
     """
-    device = torch.device(device)
+    return stage_fields(
+        batch_fields(plan, labels, cache_plan, with_halves, num_replicated),
+        feats, staged_rows(plan, cache_plan), device, plan.num_layers,
+    )
+
+
+def staged_rows(plan: SplitPlan, cache_plan: CachePlan | None = None) -> int:
+    """The height ``stage_batch`` pads the feature block to: the plan's
+    input height, or with a cache plan its miss width."""
     if cache_plan is not None:
-        rows = cache_plan.max_miss
-    else:
-        rows = plan.front_ids[-1].shape[1]
+        return cache_plan.max_miss
+    return plan.front_ids[-1].shape[1]
+
+
+def stage_fields(fields: list, feats: torch.Tensor, rows: int, device,
+                 num_layers: int) -> tuple:
+    """``stage_batch`` on its ``batch_fields`` (or any slice of each, as a
+    spmd rank stages its split): ``(feats padded to rows, plan dict,
+    labels)`` on ``device``, by the two pinned copies on a card and the
+    plain per-array copies elsewhere."""
+    device = torch.device(device)
     if device.type != "cuda":
-        return (
-            pad_rows(feats.to(device), rows),
-            plan_to_device(plan, device, cache_plan, with_halves,
-                           num_replicated),
-            torch.as_tensor(labels, device=device),
-        )
+        items = [(place, key, torch.as_tensor(a, device=device))
+                 for place, key, a in fields]
+        labels_d = items.pop()[2]
+        return (pad_rows(feats.to(device), rows),
+                _assemble(num_layers, items), labels_d)
     # a batch whose every input row is a cache hit has an empty miss block
     if feats.numel() and not feats.is_pinned():
         raise RuntimeError(
             "stage_batch: the feature block is not in pinned memory "
             "(gather it with gather_features(pin=True))"
         )
-    buf, spans = pack_host(plan, labels, pin=True, cache_plan=cache_plan,
-                           with_halves=with_halves,
-                           num_replicated=num_replicated)
+    buf, spans = _pack(fields, pin=True)
     plan_arrays, labels_d = unpack(
-        buf.to(device, non_blocking=True), spans, plan.num_layers
+        buf.to(device, non_blocking=True), spans, num_layers
     )
     return (
         pad_rows(feats.to(device, non_blocking=True), rows),

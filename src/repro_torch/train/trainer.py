@@ -16,7 +16,10 @@ checkpoints and bit-exact mid-epoch resume (``train/checkpoint.py``).
                      and the port builds the same plan (as the JAX package
                      does).
 
-The P splits run in sim form, as a leading axis on one device. One step:
+The P splits run in sim form, as a leading axis on one device; the spmd
+form, one split a process over ``torch.distributed``, is this trainer with
+its step's gradients taken on the rank's split
+(``launch.spmd.SpmdTrainer``). One step:
 stage a delivered plan to device tensors (``plan_io.stage_batch``: pinned,
 ``non_blocking`` copies on a card); with a serving cache, assemble the input
 block from the resident block and the staged miss rows
@@ -57,7 +60,7 @@ from repro_torch.core.partition import (
 )
 from repro_torch.core.partition import refine_partition as _refine_partition
 from repro_torch.core.presample import presample
-from repro_torch.core.shuffle import WIRE_DTYPES, sim_shuffle
+from repro_torch.core.shuffle import WIRE_DTYPES
 from repro_torch.core.splitting import build_dp_plan, build_split_plan, repad_plan
 from repro_torch.faults.retry import RetryPolicy
 from repro_torch.graph.cache import FeatureCache, LoadBreakdown
@@ -469,26 +472,24 @@ class Trainer:
         layers = list(self.model.layers)
         if part.cache_plan is not None:
             logits = gnn_forward_cached(self.spec, layers, self.cache_block,
-                                        feats_d, plan_arrays, sim_shuffle,
+                                        feats_d, plan_arrays,
                                         rep_block=self.rep_block)
         else:
             logits = gnn_forward(self.spec, layers, feats_d, plan_arrays,
-                                 sim_shuffle, rep_block=self.rep_block)
+                                 rep_block=self.rep_block)
         mask = plan_arrays["target_mask"]
         loss = masked_softmax_xent(logits, labels_d, mask)
         acc = masked_accuracy(logits, labels_d, mask)
         return loss, acc, torch.autograd.grad(loss, self.params)
 
-    def _dispatch_step(self, parts: list):
-        """Enqueue one optimizer step over ``parts``: the 1-D step's one
-        batch, or a mesh batch's R replica parts. Each part runs the same
-        ``_replica_grads``; the gradients, losses and accuracies are summed
-        left to right in replica order and divided by R (the sim statement
-        of the spmd psum's fixed order), then one update. A sum of one term
-        and a division by 1 are exact, so the R = 1 mesh is bitwise the 1-D
-        step; the division is skipped there. Returns the step's device
-        values ``(loss, acc, finite)``; ``finite`` is None unless
-        ``skip_nonfinite`` is on."""
+    def _step_grads(self, parts: list):
+        """The step's ``(loss, acc, grads)`` over ``parts``: the 1-D step's
+        one batch, or a mesh batch's R replica parts. Each part runs the
+        same ``_replica_grads``; the gradients, losses and accuracies are
+        summed left to right in replica order and divided by R (the sim
+        statement of the spmd psum's fixed order). A sum of one term and a
+        division by 1 are exact, so the R = 1 mesh is bitwise the 1-D step;
+        the division is skipped there."""
         grads = loss = acc = None
         for part in parts:
             loss_r, acc_r, grads_r = self._replica_grads(part)
@@ -501,6 +502,14 @@ class Trainer:
             num = len(parts)
             loss, acc = loss / num, acc / num
             grads = [g / num for g in grads]
+        return loss, acc, grads
+
+    def _dispatch_step(self, parts: list):
+        """Enqueue one optimizer step over ``parts``: the gradients of
+        ``_step_grads``, then one update. Returns the step's device values
+        ``(loss, acc, finite)``; ``finite`` is None unless ``skip_nonfinite``
+        is on."""
+        loss, acc, grads = self._step_grads(parts)
         if not self.cfg.skip_nonfinite:
             self.params, self.opt_state = self.opt.update(
                 grads, self.opt_state, self.params

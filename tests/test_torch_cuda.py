@@ -16,7 +16,10 @@ feature block equals the host gather. So do the replicated input layer
 (``[local][recv][replicated]`` mixed rows) and the dp layout (S = 0, where
 the self rows' adjoint is a step's only shuffle adjoint); dp, pushpull and
 replicated trainers agree with the CPU, and so does an R = 2 mesh, whose
-pipelined sources train bit for bit as its inline ones.
+pipelined sources train bit for bit as its inline ones. The spmd path runs
+in one NCCL rank spawned by ``launch`` at world size 1: its all-to-all is
+the sim form's bit for bit, and its trainer trains bit for bit as the sim
+one at one split.
 """
 import copy
 
@@ -1158,3 +1161,57 @@ def test_cuda_checkpoint_resumes_on_cpu(cuda, tmp_path):
     want = [it.loss for it in card.train_epoch(3).iters]
     assert len(got) == 3
     np.testing.assert_allclose(got, want, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wire", [None, "bfloat16"])
+def test_cuda_spmd_alltoall_and_replica_mean_world1(cuda, wire):
+    """One rank on the card over NCCL (``launch`` at world size 1):
+    ``spmd_alltoall`` at a full-width block is the sim form bit for bit,
+    forward and adjoint, and ``replica_grad_mean`` at R = 1 the identity."""
+    from repro_torch.core.shuffle import sim_alltoall
+    from repro_torch.launch import spmd
+    from test_torch_spmd_ranks import exchange_rank
+
+    gen = torch.Generator().manual_seed(0)
+    send = torch.randn(1, 1, 4096, 256, generator=gen)
+    cot = torch.randn(1, 1, 4096, 256, generator=gen)
+    grads = [torch.randn(64, 64, generator=gen), torch.randn(64, generator=gen)]
+    cases = [{"op": "alltoall", "wire": wire,
+              "inputs": [{"send": send, "cot": cot}]},
+             {"op": "replica_mean", "wire": None, "inputs": [{"grads": grads}]}]
+    (res,) = spmd.launch([(exchange_rank, (1, 1, cases))], world=1,
+                         timeout_s=300.0)
+    got, mean = res[0]
+    s = send.to(cuda, copy=True).requires_grad_(True)
+    want = sim_alltoall(s, wire)
+    (want * cot.to(cuda)).sum().backward()
+    assert np.array_equal(got["out"], want.detach().cpu().numpy())
+    assert np.array_equal(got["grads"]["send"], s.grad.cpu().numpy())
+    assert all(np.array_equal(a, b.numpy())
+               for a, b in zip(mean["out"], grads, strict=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", ["sage", "gat"])
+def test_cuda_spmd_trainer_world1_matches_sim_bitwise(cuda, model):
+    """``SpmdTrainer`` in one NCCL rank on the card (``train_rank``, one
+    split): three steps bitwise the sim ``Trainer`` at ``num_devices=1``
+    on the card, the kernels on both paths."""
+    from repro_torch.graph.datasets import make_dataset
+    from repro_torch.launch import spmd
+    from repro_torch.models.gnn import GNNSpec
+    from repro_torch.train.trainer import TrainConfig, Trainer
+
+    ds = make_dataset("tiny")
+    spec = GNNSpec(model=model, in_dim=ds.spec.feat_dim, hidden_dim=64,
+                   out_dim=ds.spec.num_classes, num_layers=2)
+    cfg = TrainConfig(num_devices=1, fanouts=(4, 4), batch_size=16,
+                      presample_epochs=2, lr=5e-3)
+    (res,) = spmd.launch([(spmd.train_rank, (ds, spec, cfg, 1, 3))], world=1,
+                         timeout_s=300.0)
+    sim = Trainer(ds, spec, cfg, device=cuda)
+    assert res[0]["losses"] == [it.loss for it in
+                                sim.train_epoch(max_iters=3).iters]
+    assert all(np.array_equal(a, p.detach().cpu().numpy())
+               for a, p in zip(res[0]["params"], sim.params, strict=True))

@@ -169,6 +169,8 @@ def test_port_imports_no_jax_and_no_reference_package():
         "src/repro_torch/obs/trace.py",
         "src/repro_torch/faults/inject.py",
         "src/repro_torch/graph/cache.py",
+        "src/repro_torch/launch/sharding.py",
+        "src/repro_torch/launch/spmd.py",
     } <= scanned
     for path in files:
         for name in _imports(path):
