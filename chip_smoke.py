@@ -245,8 +245,21 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               SAGE at P = 4 and GAT on the 2 x 2 (replica, split) mesh,
               3 steps on the tiny graph, within rtol 1e-4 of the port's
               sim ``Trainer``, every rank with the same losses.
+20. families -- the five other transformer families on the serve path at
+              full width, bf16 weights seeded on the card, B = 8, 1024
+              prompt rows (LLaVA: 576 patch rows + 448 tokens), 16 new
+              tokens: DeepSeek-V2-Lite-16B (27 layers, MoE + MLA),
+              Mamba2-2.7B, Hymba-1.5B (its 1024-row ring wraps),
+              MusicGen-medium (4 codebooks), LLaVA-NeXT-Mistral-7B and
+              DeepSeek-V2-236B cut to 2 layers (its line names the cut),
+              one at a time. Two runs bitwise equal, finite logits, the
+              decode kernel launched (attention layers) x 15 times (0 for
+              Mamba2), prefill ms, decode median, tokens/s, peak memory;
+              DeepSeek-V2-Lite also with ``opt_mla_absorb`` (no launch; its
+              logit difference printed); each reduced config card vs CPU
+              within 1e-4 over 8 decode steps with equal tokens.
 
-Launch counts are set to 0 just before each trainer run and the serve run
+Launch counts are set to 0 just before each trainer run and each serve run
 and read just after (phase 19's in its rank's own process); a kernel of
 the run's path that was never launched fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
@@ -988,6 +1001,15 @@ DECODE_SHAPES = {
     "phi3-mini-3.8b": dict(B=8, H=32, KV=32, D=96, S=4096, mid=2051),
     "gemma-7b": dict(B=8, H=16, KV=16, D=256, S=4096, mid=2051),
     "granite-20b": dict(B=8, H=48, KV=1, D=128, S=4096, mid=2051),
+    # phase 20's heads at its cache lengths (1024 prompt rows + 16): MLA's
+    # expanded keys (D = qk_nope + qk_rope = 192) and values (Dv = 128),
+    # Hymba's group of 5 over its 1024-row ring
+    "deepseek-v2-lite-16b": dict(B=8, H=16, KV=16, D=192, Dv=128, S=1040,
+                                 mid=523),
+    "deepseek-v2-236b": dict(B=8, H=128, KV=128, D=192, Dv=128, S=1040, mid=523),
+    "musicgen-medium": dict(B=8, H=24, KV=24, D=64, S=1040, mid=523),
+    "hymba-1.5b": dict(B=8, H=25, KV=5, D=64, S=1024, mid=515),
+    "llava-next-mistral-7b": dict(B=8, H=32, KV=8, D=128, S=1040, mid=523),
 }
 #: the SDPA yardstick against the decode kernel in bf16: one bf16 rounding
 #: of the output (at most 2^-7 of it) plus 2e-3 on outputs of about 0.03-0.05
@@ -997,7 +1019,9 @@ SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "smollm-135m", 8, 1024, 64
 
 def flash_decode_phase(dev, results):
     """Phase 3, the decode-attention kernel at each dense config's head
-    shape (B=8; SmolLM at the serve shape S=1088, the others at S=4096), in
+    shape (B=8; SmolLM at the serve shape S=1088, the others at S=4096) and
+    at phase 20's (MLA's D=192 keys beside Dv=128 values, MusicGen's 24 MHA
+    heads, Hymba's group of 5, LLaVA's 32/8, at 1024-1040 rows), in
     f32 and bf16, with cache_len 1, mid and S: held against its plain
     version computed in f32 from the same inputs, within
     ``ref.decode_attention_bound`` (the f32 tolerance of
@@ -1009,8 +1033,9 @@ def flash_decode_phase(dev, results):
     (B, KV, S, D) tensors transposed beforehand and a cache_len mask (only
     the call is timed; the port never calls it). Bound: the larger of the
     bytes (the valid K/V rows, q and the output once) over 3.35 TB/s and
-    the 4*B*H*L*D flops over the bf16 tensor-core rate. ``path`` says
-    whether the shape took the kernel's tensor-core path."""
+    the 2*B*H*L*(D+Dv) flops over the bf16 tensor-core rate. ``path`` says
+    whether the shape took the kernel's tensor-core path (asked with D and
+    Dv)."""
     import torch
     import torch.nn.functional as F
 
@@ -1023,10 +1048,13 @@ def flash_decode_phase(dev, results):
     flush = torch.empty(64 << 20, dtype=torch.uint8, device=dev)
     for arch, sh in DECODE_SHAPES.items():
         B, H, KV, D, S = (sh[k] for k in ("B", "H", "KV", "D", "S"))
+        Dv = sh.get("Dv", D)
+        label = f"B={B} H={H} KV={KV} D={D}" + (f" Dv={Dv}" if Dv != D else "") \
+            + f" S={S}"
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
             k = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dtype)
-            v = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dtype)
+            v = torch.randn(B, S, KV, Dv, device=dev, generator=gen).to(dtype)
             errs, of_bound = {}, {}
             for L in (1, sh["mid"], S):
                 n = torch.tensor([L], dtype=torch.int32, device=dev)
@@ -1040,8 +1068,7 @@ def flash_decode_phase(dev, results):
                       f"flash_decode {arch} {dtype} L={L}: two launches differ")
                 errs[L] = float(diff.max())
                 of_bound[L] = float((diff / tol).max())
-            emit("kernel_check", {"name": f"flash_decode ({arch}: B={B} H={H} "
-                                          f"KV={KV} D={D} S={S}, {dtype})",
+            emit("kernel_check", {"name": f"flash_decode ({arch}: {label}, {dtype})",
                                   "max_abs_err": errs,
                                   "max_err_over_bound": of_bound, "repeats": True})
         # timed in bf16 (the serve dtype) with a full cache
@@ -1054,19 +1081,19 @@ def flash_decode_phase(dev, results):
         library = lambda: F.scaled_dot_product_attention(  # noqa: E731
             q4, kt, vt, attn_mask=mask, enable_gqa=True)
         out = fn()
-        torch.testing.assert_close(library().reshape(B, H, D).float(), out.float(),
+        torch.testing.assert_close(library().reshape(B, H, Dv).float(), out.float(),
                                    **SDPA_TOL)
         want, tol = ref.decode_attention_bound(q, k, v, n.reshape(()))
-        nbytes = 2 * (B * S * KV * 2 * D + 2 * B * H * D)
-        flops = 4 * B * H * S * D
+        # bf16: the K rows (D) and V rows (Dv), q and the output once
+        nbytes = 2 * (B * S * KV * (D + Dv) + B * H * (D + Dv))
+        flops = 2 * B * H * S * (D + Dv)
         record(results, "flash_decode", out, want, fn, plain, library,
                nbytes, flops, tol, rate=BF16_FLOPS,
-               shape=None if arch == SERVE_ARCH else f"{arch}: B={B} H={H} "
-                                                     f"KV={KV} D={D} S={S}",
+               shape=None if arch == SERVE_ARCH else f"{arch}: {label}",
                flush=flush,
                extra={"arch": arch, "chunk": fd.decode_chunk(B, KV, S, H // KV),
                       "path": "mma" if lib.flash_decode_uses_mma(
-                          fd.DTYPES[q.dtype], D, D) else "fma"})
+                          fd.DTYPES[q.dtype], D, Dv) else "fma"})
 
 
 def check_launches(name, launches, expect, cfg, model, steps):
@@ -3069,6 +3096,239 @@ def spmd_phase(first, cfg, dev, total):
     })
 
 
+#: phase 20's models: (arch, depth cut or None, text tokens a prompt; a
+#: VLM's patch rows come before them), each served at full width in bf16
+FAMILY_RUNS = [
+    ("deepseek-v2-lite-16b", None, 1024),
+    ("mamba2-2.7b", None, 1024),
+    ("hymba-1.5b", None, 1024),
+    ("musicgen-medium", None, 1024),
+    ("llava-next-mistral-7b", None, 448),
+    ("deepseek-v2-236b", 2, 1024),
+]
+FAMILY_BATCH, FAMILY_NEW = 8, 16
+#: DeepSeek-V2-236B's cut: 439 GiB in bf16 at 60 layers, one card holds 80 GB
+FAMILY_CUTS = {"deepseek-v2-236b": "depth cut from 60 to 2 layers (the dense "
+                                   "lead layer and one MoE layer), widths "
+                                   "unchanged: 60 layers are 439 GiB in bf16"}
+
+
+def attention_layers(cfg):
+    """Layers whose decode launches the decode kernel: every attention
+    layer, none of an SSM model's, none with MLA absorbed."""
+    if cfg.family == "ssm" or (cfg.use_mla and cfg.opt_mla_absorb):
+        return 0
+    return cfg.num_layers
+
+
+def _leaves(cache):
+    """A layer cache's tensors (a hybrid layer's nest included)."""
+    for v in cache.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
+def counted_generate(model, prompts, patches):
+    """``serve.generate`` with the launch counts at 0 just before and read
+    just after: (its result, the launches)."""
+    import torch
+
+    from repro_torch import serve
+
+    torch.cuda.synchronize()
+    reset_launches()
+    out = serve.generate(model, prompts, FAMILY_NEW, patches)
+    return out, read_launches()
+
+
+def family_decode_profile(model, prompts, rows, steps=3):
+    """Where a decode step of ``model`` goes: ``torch.profiler`` over
+    ``steps`` steps (after a warm-up step) against zero caches of the
+    phase's length, reduced by ``_decode_trace`` (device ms a step by
+    kernel, the decode kernel's share, the device idle share of the traced
+    wall, torch calls a step). The profiler's own host cost inflates the
+    wall and the idle share; the device times are the kernels' own."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.transformer.model import init_caches, make_decode_step
+
+    caches = init_caches(model.cfg, prompts.shape[0], rows + FAMILY_NEW,
+                         prompts.device)
+    decode = make_decode_step(model.cfg)
+    tok = prompts[:, -1:]
+    pos = torch.tensor(rows, device=prompts.device)
+    with torch.inference_mode():
+        decode(model, tok, pos, caches)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for t in range(steps):
+                logits, _ = decode(model, tok, pos + t, caches)
+                logits[:, -1].argmax(dim=-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    return _decode_trace(prof, wall, steps)
+
+
+def family_parity(dev, arch):
+    """Phase 20 (e): the reduced config of ``arch`` (2 layers, f32), one
+    seeded model built on the CPU and copied to the card: prefill and 8
+    decode steps, every step's logits within rtol/atol 1e-4 and the greedy
+    tokens equal; the decode kernel launched once per attention layer and
+    step on the card. An MLA model also decodes with ``opt_mla_absorb``,
+    held the same way (no launch), with its largest logit difference from
+    the expanded path printed."""
+    from dataclasses import replace
+
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = serve.serve_config(arch, reduced=True)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(dev)
+    prompts = torch.as_tensor(serve.make_prompts(cfg, 4, 16, 0))
+    patches = serve.make_patches(cfg, 4, 0)
+    patches = None if patches is None else torch.as_tensor(patches)
+    reset_launches()
+    card = serve.generate(card_model, prompts.to(dev), 9,
+                          None if patches is None else patches.to(dev))
+    launches = read_launches()
+    cpu = serve.generate(cpu_model, prompts, 9, patches)
+    check(launches["flash_decode"] == attention_layers(cfg) * 8,
+          f"families parity {arch}: {launches['flash_decode']} decode-kernel "
+          "launches")
+    np.testing.assert_allclose(card["step_logits"].numpy(),
+                               cpu["step_logits"].numpy(), rtol=1e-4, atol=1e-4)
+    check(torch.equal(card["tokens"], cpu["tokens"]),
+          f"families parity {arch}: greedy tokens differ between card and CPU")
+    line = {
+        "model": f"serve {arch} reduced", "steps": 8,
+        "max_abs_logit_diff": float(
+            (card["step_logits"] - cpu["step_logits"]).abs().max()),
+        "tokens_equal": True, "launches": launches["flash_decode"],
+    }
+    if cfg.use_mla:
+        absorbed = {}
+        for name, model in (("card", card_model), ("cpu", cpu_model)):
+            model.cfg = replace(cfg, opt_mla_absorb=True)
+            reset_launches()
+            absorbed[name] = serve.generate(
+                model, prompts.to(next(model.parameters()).device), 9)
+            check(read_launches()["flash_decode"] == 0,
+                  f"families parity {arch} absorbed: a decode-kernel launch")
+            model.cfg = cfg
+        np.testing.assert_allclose(absorbed["card"]["step_logits"].numpy(),
+                                   absorbed["cpu"]["step_logits"].numpy(),
+                                   rtol=1e-4, atol=1e-4)
+        check(torch.equal(absorbed["card"]["tokens"], absorbed["cpu"]["tokens"]),
+              f"families parity {arch} absorbed: greedy tokens differ")
+        line["absorb_max_abs_logit_diff"] = float(
+            (absorbed["card"]["step_logits"] - absorbed["cpu"]["step_logits"])
+            .abs().max())
+        line["absorb_vs_expanded_max_abs_logit_diff"] = float(
+            (absorbed["card"]["step_logits"] - card["step_logits"]).abs().max())
+    emit("card_vs_cpu", line)
+
+
+def families_phase(dev, total):
+    """Phase 20: the five other transformer families on the serve path at
+    full width, bf16 weights seeded on the card, B = 8, a 1024-row prompt
+    (LLaVA: 576 patch rows and 448 tokens), 16 new tokens (15 decode
+    steps); one model at a time, each freed before the next. For each: (a)
+    two runs give bitwise equal tokens and step logits; (b) finite logits;
+    (c) the decode kernel launched (attention layers) x 15 times in the
+    second run, counted from 0 just before it (0 for Mamba2); (d) prefill
+    ms, the decode median ms a step (CUDA events), tokens/s, the peak over
+    the phase's baseline, the weights' and the decode caches' bytes, and
+    ``family_decode_profile``; (e) ``family_parity``.
+    DeepSeek-V2-Lite also decodes with ``opt_mla_absorb``: no decode-kernel
+    launch, its decode median and the largest logit difference from the
+    expanded path (printed, not held). The runs' launches are added to
+    ``total``."""
+    import statistics
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.models.transformer.model import init_caches, init_params
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    emit("families_start", {"resident_bytes": baseline})
+    t_phase = time.perf_counter()
+    B, steps = FAMILY_BATCH, FAMILY_NEW - 1
+    for arch, layers, text in FAMILY_RUNS:
+        t_model = time.perf_counter()
+        cfg = serve.serve_config(arch, reduced=False, layers=layers)
+        model = init_params(cfg, torch.Generator(dev).manual_seed(0))
+        weights = sum(p.numel() * p.element_size() for p in model.parameters())
+        prompts = torch.as_tensor(serve.make_prompts(cfg, B, text, 0), device=dev)
+        patches = serve.make_patches(cfg, B, 0)
+        if patches is not None:
+            patches = torch.as_tensor(patches, device=dev).to(model.embed.dtype)
+        first, _ = counted_generate(model, prompts, patches)
+        torch.cuda.reset_peak_memory_stats()
+        out, launches = counted_generate(model, prompts, patches)
+        peak = torch.cuda.max_memory_allocated() - baseline
+        check(torch.equal(first["tokens"], out["tokens"])
+              and torch.equal(first["step_logits"], out["step_logits"]),
+              f"families {arch}: two serve runs differ")
+        check(bool(torch.isfinite(out["step_logits"]).all()),
+              f"families {arch}: non-finite logits")
+        want = attention_layers(cfg) * steps
+        check(launches["flash_decode"] == want,
+              f"families {arch}: {launches['flash_decode']} decode-kernel "
+              f"launches, expected {attention_layers(cfg)} layers x {steps} steps")
+        for k, v in launches.items():
+            total[k] += v
+        caches = init_caches(cfg, B, cfg.num_patches + text + FAMILY_NEW, "meta")
+        line = {
+            "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+            "reduced": FAMILY_CUTS.get(arch), "dtype": cfg.dtype, "batch": B,
+            "prompt_rows": cfg.num_patches + text, "new_tokens": FAMILY_NEW,
+            "bitwise_equal": True,
+            "prefill_ms": out["prefill_ms"],
+            "decode_ms_per_step": statistics.median(out["step_ms"]),
+            "step_ms": out["step_ms"], "decode_ms": out["decode_ms"],
+            "tokens_per_s": B * steps / (out["decode_ms"] / 1e3),
+            "weights_bytes": weights, "peak_over_phase_baseline": peak,
+            "cache_bytes": sum(t.numel() * t.element_size() for c in caches
+                               for t in _leaves(c)),
+            "launches": launches["flash_decode"],
+            "tokens_0": out["tokens"][0].reshape(-1)[:16].tolist(),
+        }
+        if arch == "deepseek-v2-lite-16b":
+            model.cfg = replace(cfg, opt_mla_absorb=True)
+            absorbed, a_launches = counted_generate(model, prompts, patches)
+            model.cfg = cfg
+            check(a_launches["flash_decode"] == 0,
+                  f"families {arch} absorbed: {a_launches['flash_decode']} "
+                  "decode-kernel launches")
+            diff = (absorbed["step_logits"] - out["step_logits"]).abs()
+            line["absorb"] = {
+                "decode_ms_per_step": statistics.median(absorbed["step_ms"]),
+                "max_abs_logit_diff": float(diff.max()),
+                "max_abs_logit_diff_by_step": diff.flatten(1).amax(1).tolist(),
+                "tokens_equal": bool(torch.equal(absorbed["tokens"],
+                                                 out["tokens"])),
+            }
+        line["profile"] = family_decode_profile(model, prompts,
+                                                cfg.num_patches + text)
+        del model, prompts, patches, first, out
+        gc.collect()
+        torch.cuda.empty_cache()
+        family_parity(dev, arch)
+        line["model_s"] = time.perf_counter() - t_model
+        emit("family", line)
+    emit("families", {"wall_s": time.perf_counter() - t_phase,
+                      "resident_bytes": baseline, "card": CARD})
+
+
 def main():
     import torch
 
@@ -3233,6 +3493,10 @@ def main():
 
     # ---- 19. the spmd path over torch.distributed ---------------------------
     spmd_phase(first, cfg, dev, total)
+
+    # ---- 20. the other transformer families on the serve path --------------
+    del first, papers
+    families_phase(dev, total)
 
     for k, r in results.items():
         r["launches"] = total[k]

@@ -1,2 +1,3 @@
-"""Transformer LM of the port: the dense family's prefill and greedy decode
-(``model.py``), its blocks and layers, and the architecture configs."""
+"""Transformer LM of the port: prefill and greedy decode for all six
+families of the JAX package (``model.py``), their blocks (``blocks.py``:
+GQA and MLA attention; ``moe.py``; ``ssm.py``), layers and configs."""

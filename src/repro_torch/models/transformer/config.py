@@ -2,9 +2,7 @@
 
 One dataclass spans every family of the JAX package (dense / MoE(+MLA) / SSM
 / hybrid / audio / VLM), with all its fields, so the per-arch files of
-``repro_torch/configs/`` are the JAX package's unchanged. The port's model
-runs the dense family only (``models/transformer/blocks.py`` raises on the
-others).
+``repro_torch/configs/`` are the JAX package's unchanged.
 """
 from __future__ import annotations
 
@@ -143,6 +141,21 @@ class ArchConfig:
             dense_part = mult * d * (self.first_dense_d_ff or self.moe_d_ff)
             n += self.first_dense_layers * (dense_part - moe_part)
         return n
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed top-k + shared)."""
+        if not self.num_experts:
+            return self.param_count()
+        full = self.param_count()
+        mult = 3 if self.mlp_type in ("swiglu", "geglu") else 2
+        inactive = (
+            (self.num_experts - self.moe_top_k)
+            * mult
+            * self.d_model
+            * self.moe_d_ff
+        )
+        moe_layers = self.num_layers - self.first_dense_layers
+        return full - moe_layers * inactive
 
     def reduced(self, **overrides) -> "ArchConfig":
         """Smoke-test variant: <=2 layers, d_model<=512, <=4 experts."""

@@ -1,6 +1,6 @@
 """Transformer building blocks in torch — the counterpart of
-``repro/models/transformer/layers.py`` for the dense family: RMSNorm, RoPE,
-GQA attention (full, chunked-flash, single-token decode) and the MLPs.
+``repro/models/transformer/layers.py``: RMSNorm, RoPE, attention (full,
+chunked-flash, single-token decode; GQA, and MLA's D != Dv) and the MLPs.
 
 The JAX package's casts are kept exactly: norms and RoPE compute in float32
 and cast back to the input dtype; attention scores and softmax are float32,

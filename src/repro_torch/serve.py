@@ -1,21 +1,26 @@
-"""Serve a dense transformer with batched requests: prefill the prompt batch,
-then decode new tokens greedily, step by step, against the KV cache. The
-counterpart of ``examples/serve_transformer.py``, at full width by default.
+"""Serve a transformer of any of the six families with batched requests:
+prefill the prompt batch, then decode new tokens greedily, step by step,
+against the caches. The counterpart of ``examples/serve_transformer.py``, at
+full width by default.
 
     python -m repro_torch.serve --arch smollm-135m            # on the card
-    python -m repro_torch.serve --arch smollm-135m --reduced --device cpu \\
+    python -m repro_torch.serve --arch deepseek-v2-lite-16b   # MoE + MLA
+    python -m repro_torch.serve --arch mamba2-2.7b --reduced --device cpu \\
         --batch 2 --prompt-len 16 --new-tokens 8
 
-The prompts are drawn with numpy from ``--seed``, the weights with a
-``torch.Generator`` from the same seed. Decoding writes each new K/V row into
-the cache in place and keeps the position on the device, so the decode loop
+The prompts are drawn with numpy from ``--seed`` ((B, S, nc) for an audio
+model's codebooks), a VLM's patch rows (``num_patches`` of them, before the
+prompt) likewise, and the weights with a ``torch.Generator`` from the same
+seed. Decoding writes each new K/V (latent) row into the cache and each SSM
+state in place and keeps the position on the device, so the decode loop
 makes no host sync; the tokens come back in one transfer at the end. On the
-card it prints the ``nvidia-smi`` name and power limit, the prefill time, the
-median decode time per step (CUDA events) and tokens per second.
+card it prints the ``nvidia-smi`` name and power limit, the prefill time,
+the median decode time per step (CUDA events) and tokens per second.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import statistics
 import subprocess
 import time
@@ -23,7 +28,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import get_arch, list_archs
 from repro_torch.models.transformer.model import (
     init_caches,
     init_params,
@@ -41,10 +46,40 @@ def device_line() -> str:
 
 
 def make_prompts(cfg, batch: int, prompt_len: int, seed: int) -> np.ndarray:
-    """(B, S) int64 prompt ids, as ``examples/serve_transformer.py`` draws
-    them (``default_rng(seed).integers(0, vocab)``)."""
+    """(B, S) int64 prompt ids, (B, S, nc) with codebooks, as
+    ``examples/serve_transformer.py`` draws them
+    (``default_rng(seed).integers(0, vocab)``)."""
     rng = np.random.default_rng(seed)
-    return rng.integers(0, cfg.vocab_size, (batch, prompt_len)).astype(np.int64)
+    shape = (batch, prompt_len) + ((cfg.num_codebooks,) if cfg.num_codebooks
+                                   else ())
+    return rng.integers(0, cfg.vocab_size, shape).astype(np.int64)
+
+
+def make_patches(cfg, batch: int, seed: int) -> np.ndarray | None:
+    """A VLM's (B, num_patches, d) float32 patch embeddings (the vision tower
+    is a stub, as in the reference): standard normal from
+    ``default_rng(seed + 1)``; None for a model without patches."""
+    if not cfg.num_patches:
+        return None
+    rng = np.random.default_rng(seed + 1)
+    return rng.standard_normal((batch, cfg.num_patches, cfg.d_model),
+                               dtype=np.float32)
+
+
+def fill_caches(caches: list, prefill: list) -> None:
+    """Copy each layer's prefill cache into the decode-length caches, in
+    place, whatever its keys: a row-indexed tensor (k/v, c_kv/k_rope) into
+    rows [0, n) (a windowed prefill's last W rows into slots [0, W), as
+    ``examples/serve_transformer.py`` does), an SSM state whole."""
+    for dst, src in zip(caches, prefill, strict=True):
+        for name, s in src.items():
+            d = dst[name]
+            if isinstance(s, dict):
+                fill_caches([d], [s])
+            elif d.shape == s.shape:
+                d.copy_(s)
+            else:
+                d[:, : s.shape[1]].copy_(s)
 
 
 def _sync(device) -> None:
@@ -53,38 +88,44 @@ def _sync(device) -> None:
 
 
 @torch.inference_mode()
-def generate(model, prompts: torch.Tensor, new_tokens: int) -> dict:
-    """Prefill ``prompts (B, S)`` and decode ``new_tokens`` tokens greedily
-    (the first from the prefill's logits, then ``new_tokens - 1`` decode
-    steps at positions ``S + t``), as the JAX example does.
+def generate(model, prompts: torch.Tensor, new_tokens: int,
+             patches: torch.Tensor | None = None) -> dict:
+    """Prefill ``prompts`` ((B, S), or (B, S, nc) with codebooks; a VLM's
+    ``patches`` (B, Np, d) before them) and decode ``new_tokens`` tokens
+    greedily (each codebook's own argmax): the first from the prefill's
+    logits, then ``new_tokens - 1`` decode steps at positions ``Np + S + t``,
+    as the JAX example does.
 
-    Returns, on the host, ``tokens`` (B, new_tokens), ``step_logits``
-    (new_tokens, B, V): the prefill's last position, then each decode
-    step's, as float32, and the last of them as ``logits`` (B, V); and
-    ``prefill_ms`` (host clock, ending in a sync, including the copy of the
-    prefill caches into the decode-length caches), ``step_ms`` (each decode
-    step: CUDA events on the card, the host clock on the CPU) and
-    ``decode_ms`` (the whole decode loop, host clock, ending in a sync).
+    Returns, on the host, ``tokens`` (B, new_tokens) or (B, new_tokens,
+    nc), ``step_logits`` (new_tokens, B, V) or (new_tokens, B, nc, V): the
+    prefill's last position, then each decode step's, as float32, and the
+    last of them as ``logits``; and ``prefill_ms`` (host clock, ending in a
+    sync, including the copy of the prefill caches into the decode-length
+    caches), ``step_ms`` (each decode step: CUDA events on the card, the
+    host clock on the CPU) and ``decode_ms`` (the whole decode loop, host
+    clock, ending in a sync).
     """
     cfg = model.cfg
     device = prompts.device
-    B, S = prompts.shape
+    B, S = prompts.shape[:2]
+    if patches is not None and not cfg.num_patches:
+        raise ValueError(f"{cfg.name} takes no patches")
+    start_pos = S + (patches.shape[1] if patches is not None else 0)
     prefill = make_prefill_step(cfg)
     decode = make_decode_step(cfg)
-    caches = init_caches(cfg, B, S + new_tokens, device)
+    caches = init_caches(cfg, B, start_pos + new_tokens, device)
     _sync(device)
     t0 = time.perf_counter()
-    logits, pre = prefill(model, prompts)
-    # the prefill caches go into rows [0, S) of the decode-length caches
-    for c, p in zip(caches, pre, strict=True):
-        for n in ("k", "v"):
-            c[n][:, : p[n].shape[1]].copy_(p[n])
+    logits, pre = prefill(model, prompts, patches)
+    fill_caches(caches, pre)
+    del pre
     _sync(device)
     prefill_ms = 1e3 * (time.perf_counter() - t0)
 
-    tok = logits[:, -1].argmax(dim=-1).reshape(B, 1)
+    # (B, 1) or (B, 1, nc): the greedy token of each codebook
+    tok = logits[:, -1:].argmax(dim=-1)
     generated, step_logits = [tok], [logits[:, -1]]
-    pos = torch.tensor(S, dtype=torch.int64, device=device)
+    pos = torch.tensor(start_pos, dtype=torch.int64, device=device)
     on_card = device.type == "cuda"
     marks = []
     t0 = time.perf_counter()
@@ -95,7 +136,7 @@ def generate(model, prompts: torch.Tensor, new_tokens: int) -> dict:
         else:
             start = time.perf_counter()
         logits, caches = decode(model, tok, pos, caches)
-        tok = logits[:, -1].argmax(dim=-1).reshape(B, 1)
+        tok = logits[:, -1:].argmax(dim=-1)
         generated.append(tok)
         step_logits.append(logits[:, -1])
         pos = pos + 1
@@ -118,19 +159,23 @@ def generate(model, prompts: torch.Tensor, new_tokens: int) -> dict:
     }
 
 
-def serve_config(arch: str, reduced: bool):
-    """The architecture at full width, or the example's reduced config."""
+def serve_config(arch: str, reduced: bool, layers: int | None = None):
+    """The architecture at full width, or the example's reduced config;
+    ``layers`` cuts the depth (widths unchanged)."""
     full = get_arch(arch)
-    if reduced:
-        return full.reduced(attn_window=16 if full.attn_window else None)
-    return full
+    cfg = full.reduced(attn_window=16 if full.attn_window else None) \
+        if reduced else full
+    return dataclasses.replace(cfg, num_layers=layers) if layers else cfg
 
 
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--arch", default="smollm-135m", choices=list_archs())
     ap.add_argument("--reduced", action="store_true",
                     help="the example's reduced config (2 layers, f32)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers (DeepSeek-V2-236B "
+                         "fits one card at 2)")
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--new-tokens", type=int, default=64)
@@ -144,21 +189,25 @@ def main(argv=None) -> dict:
         raise RuntimeError("no CUDA card: pass --device cpu to run on the CPU")
     if device.type == "cuda":
         print(device_line(), flush=True)
-    cfg = serve_config(args.arch, args.reduced)
+    cfg = serve_config(args.arch, args.reduced, args.layers)
     model = init_params(cfg, torch.Generator(device).manual_seed(args.seed))
     prompts = torch.as_tensor(
         make_prompts(cfg, args.batch, args.prompt_len, args.seed), device=device)
+    patches = make_patches(cfg, args.batch, args.seed)
+    if patches is not None:
+        patches = torch.as_tensor(patches, device=device).to(model.embed.dtype)
     print(f"serving {cfg.name} ({'reduced' if args.reduced else 'full width'}: "
-          f"{cfg.num_layers}L d={cfg.d_model} {cfg.num_heads}/{cfg.num_kv_heads} "
-          f"heads, {cfg.dtype}) on {device}", flush=True)
+          f"{cfg.family}, {cfg.num_layers}L d={cfg.d_model} {cfg.num_heads}/"
+          f"{cfg.num_kv_heads} heads, {cfg.dtype}) on {device}", flush=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    out = generate(model, prompts, args.new_tokens)
-    B, S = prompts.shape
+    out = generate(model, prompts, args.new_tokens, patches)
+    B, S = prompts.shape[:2]
     steps = args.new_tokens - 1
     out["decode_ms_per_step"] = statistics.median(out["step_ms"]) if steps else None
     out["tokens_per_s"] = B * steps / (out["decode_ms"] / 1e3) if steps else None
-    print(f"prefill: {B}x{S} tokens in {out['prefill_ms']:.3f} ms")
+    rows = f" + {patches.shape[1]} patch rows" if patches is not None else ""
+    print(f"prefill: {B}x{S} tokens{rows} in {out['prefill_ms']:.3f} ms")
     if steps:
         print(f"decode: {steps} steps x {B} sequences, median "
               f"{out['decode_ms_per_step']:.3f} ms per step, "
@@ -166,7 +215,7 @@ def main(argv=None) -> dict:
     if device.type == "cuda":
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
         print(f"peak device memory: {out['max_memory_allocated']} bytes")
-    print("sample output ids:", out["tokens"][0, :16].tolist())
+    print("sample output ids:", out["tokens"][0].reshape(-1)[:16].tolist())
     if not torch.isfinite(out["logits"]).all():
         raise RuntimeError("non-finite logits")
     return out

@@ -550,6 +550,111 @@ def test_cuda_flash_decode_groups_lengths_and_strided_views(cuda, B, H, KV, D,
     assert fd.LAUNCHES["flash_decode"] == 6
 
 
+#: the other families' heads: MLA's D=192 keys beside Dv=128 values (G=1),
+#: MusicGen's MHA (G=1), Hymba's odd group of 5, DeepSeek-V2-236B's 128
+#: heads: B, H, KV, D, Dv, S
+DECODE_FAMILY_CASES = [
+    (2, 16, 16, 192, 128, 300),
+    (2, 24, 24, 64, 64, 517),
+    (3, 25, 5, 64, 64, 1024),
+    (1, 128, 128, 192, 128, 77),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,Dv,S", DECODE_FAMILY_CASES)
+def test_cuda_flash_decode_at_the_families_heads(cuda, B, H, KV, D, Dv, S,
+                                                 dtype):
+    """The decode kernel at D != Dv and at groups of 1 and 5, cache_len 1,
+    mid and S: within ``decode_attention_bound`` of the f32 result,
+    repeating bit for bit; bf16 takes the tensor-core path (asked with D and
+    Dv)."""
+    from repro_torch.kernels.build import typed_library
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(H * D + S)
+    q = torch.randn(B, H, D, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(B, S, KV, D, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(B, S, KV, Dv, device=cuda, generator=gen).to(dtype)
+    lib = typed_library("flash_decode", fd._SIGNATURES)
+    assert lib.flash_decode_uses_mma(fd.DTYPES[dtype], D, Dv) == (
+        dtype == torch.bfloat16)
+    fd.reset_launches()
+    for L in (1, S // 2 + 3, S):
+        n = torch.tensor([L], dtype=torch.int32, device=cuda)
+        out = fd.flash_decode(q, k, v, n)
+        assert out.shape == (B, H, Dv)
+        want, bound = fd_ref.decode_attention_bound(q, k, v, n.reshape(()),
+                                                    **DECODE_TOL)
+        diff = (out.float() - want).abs()
+        assert bool((diff <= bound).all()), (L, float(diff.max()))
+        assert torch.equal(out, fd.flash_decode(q, k, v, n))
+    assert fd.LAUNCHES["flash_decode"] == 6
+
+
+FAMILY_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v2-236b", "mamba2-2.7b",
+                "hymba-1.5b", "musicgen-medium", "llava-next-mistral-7b"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_cuda_reduced_family_matches_cpu(cuda, arch):
+    """Each family's reduced model (2 layers, f32) from the same weights:
+    prefill and 6 decode steps on the card (the decode kernel) and on the
+    CPU (its plain version), logits rtol/atol 1e-4 at every step, equal
+    greedy tokens; Hymba's and LLaVA's 16-row rings wrap."""
+    from repro_torch import serve
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = serve.serve_config(arch, reduced=True)
+    cpu_model = init_params(cfg, torch.Generator().manual_seed(0))
+    card_model = copy.deepcopy(cpu_model).to(cuda)
+    prompts = torch.as_tensor(serve.make_prompts(cfg, 3, 16, 1))
+    patches = serve.make_patches(cfg, 3, 1)
+    patches = None if patches is None else torch.as_tensor(patches)
+    fd.reset_launches()
+    card = serve.generate(card_model, prompts.to(cuda), 7,
+                          None if patches is None else patches.to(cuda))
+    layers = 0 if cfg.family == "ssm" else cfg.num_layers
+    assert fd.LAUNCHES["flash_decode"] == layers * 6
+    cpu = serve.generate(cpu_model, prompts, 7, patches)
+    torch.testing.assert_close(card["step_logits"], cpu["step_logits"],
+                               rtol=1e-4, atol=1e-4)
+    assert torch.equal(card["tokens"], cpu["tokens"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_moe_block_repeats_bitwise(cuda, dtype):
+    """A MoE block (MLA attention, routed and shared experts) at a capacity
+    that drops tokens repeats bit for bit on the card, output and aux: the
+    combine sums each token's rows in a fixed order, without atomics."""
+    from dataclasses import replace
+
+    from repro_torch import serve
+    from repro_torch.models.transformer import blocks, moe
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = replace(serve.serve_config("deepseek-v2-lite-16b", reduced=True),
+                  dtype=dtype, moe_capacity_factor=1.0)
+    model = init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    blk = model.blocks[0]
+    assert "moe" in blk
+    gen = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(4, 256, cfg.d_model, device=cuda, generator=gen).to(
+        getattr(torch, dtype))
+    with torch.no_grad():
+        runs = [blocks.block_apply(blk, x, cfg, mode="prefill") for _ in range(3)]
+        routed = [moe.moe_apply(blk.moe, x, cfg) for _ in range(2)]
+    for out, _, aux in runs[1:]:
+        assert torch.equal(out, runs[0][0]) and torch.equal(aux, runs[0][2])
+    assert torch.equal(routed[0][0], routed[1][0])
+    assert torch.equal(routed[0][1], routed[1][1])
+
+
 @pytest.mark.cuda
 def test_cuda_flash_decode_reads_a_cache_view_and_checks_inputs(cuda):
     from repro_torch.kernels.flash_decode import kernel as fd

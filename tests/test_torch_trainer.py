@@ -163,7 +163,16 @@ def test_port_imports_no_jax_and_no_reference_package():
         "src/repro_torch/kernels/shuffle/ops.py",
         "src/repro_torch/kernels/shuffle/ref.py",
         "src/repro_torch/models/transformer/model.py",
+        "src/repro_torch/models/transformer/blocks.py",
+        "src/repro_torch/models/transformer/moe.py",
+        "src/repro_torch/models/transformer/ssm.py",
         "src/repro_torch/configs/smollm_135m.py",
+        "src/repro_torch/configs/deepseek_v2_236b.py",
+        "src/repro_torch/configs/deepseek_v2_lite_16b.py",
+        "src/repro_torch/configs/mamba2_2p7b.py",
+        "src/repro_torch/configs/hymba_1p5b.py",
+        "src/repro_torch/configs/musicgen_medium.py",
+        "src/repro_torch/configs/llava_next_mistral_7b.py",
         "src/repro_torch/serve.py",
         "src/repro_torch/runtime/prefetch.py",
         "src/repro_torch/obs/trace.py",

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs import get_arch as j_get_arch
+from repro.configs import list_archs as j_list_archs
 from repro.kernels.flash_decode.ops import decode_attention_pallas
 from repro.kernels.flash_decode.ref import decode_attention_ref as j_decode_ref
 from repro.models.transformer import layers as jl
@@ -51,24 +52,37 @@ def _t(a):
 # configs
 # --------------------------------------------------------------------------- #
 def test_dense_configs_equal_the_reference():
-    assert list_archs() == sorted(DENSE)
-    for name in DENSE:
+    """All ten configs (the dense four and the five other families'), their
+    reduced variants and counts, as the JAX package has them."""
+    assert list_archs() == j_list_archs()
+    assert set(DENSE) < set(list_archs())
+    for name in list_archs():
         assert dataclasses.asdict(get_arch(name)) == dataclasses.asdict(
             j_get_arch(name))
         assert dataclasses.asdict(get_arch(name).reduced()) == dataclasses.asdict(
             j_get_arch(name).reduced())
         assert get_arch(name).param_count() == j_get_arch(name).param_count()
+        assert get_arch(name).active_param_count() == \
+            j_get_arch(name).active_param_count()
 
 
 @pytest.mark.parametrize("name", ["deepseek-v2-lite-16b", "mamba2-2.7b",
                                   "hymba-1.5b", "musicgen-medium",
                                   "llava-next-mistral-7b"])
-def test_unported_family_raises(name):
-    cfg = ArchConfig(**dataclasses.asdict(j_get_arch(name)).copy()).reduced()
-    with pytest.raises(ValueError, match=repr(cfg.family)):
-        tm.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(ValueError, match="not ported"):
-        tm.make_decode_step(cfg)
+def test_family_builds_a_model_and_a_decode_step(name):
+    """Each family's reduced model and one decode step against zero caches:
+    finite logits of the family's shape ((B, 1, nc, V) with codebooks)."""
+    cfg = serve.serve_config(name, reduced=True)
+    model = tm.init_params(cfg, torch.Generator().manual_seed(0))
+    assert len(model.layers()) == cfg.num_layers
+    caches = tm.init_caches(cfg, 2, 8, "cpu")
+    shape = (2, 1, cfg.num_codebooks) if cfg.num_codebooks else (2, 1)
+    with torch.no_grad():
+        logits, out = tm.make_decode_step(cfg)(
+            model, torch.zeros(shape, dtype=torch.int64), 3, caches)
+    assert out is caches
+    assert logits.shape == shape + (cfg.vocab_size,)
+    assert torch.isfinite(logits).all()
 
 
 # --------------------------------------------------------------------------- #
