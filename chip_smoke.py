@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's paths on one CUDA card: the split-parallel
 training paths (the 2-D mesh in sim form, checkpoint and resume, and the
-spmd form over torch.distributed included) and the transformer serve path.
+spmd form over torch.distributed included) and the transformer serve and
+train paths.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -258,9 +259,31 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               DeepSeek-V2-Lite also with ``opt_mla_absorb`` (no launch; its
               logit difference printed); each reduced config card vs CPU
               within 1e-4 over 8 decode steps with equal tokens.
+21. lm-train -- the transformer train step (``make_train_step``: train
+              mode, ``lm_loss``, per-layer remat, ``adamw(1e-3)``) at full
+              width, bf16 weights seeded on the card, one seeded batch of
+              4096 rows a sequence, one config at a time: SmolLM-135M,
+              DeepSeek-V2-Lite-16B cut to 6 layers, DeepSeek-V2-236B cut to
+              2, Mamba2-2.7B, Hymba-1.5B, MusicGen-medium (B = 2) and
+              LLaVA-NeXT-Mistral-7B (B = 1, 576 patch rows + 3520 tokens);
+              each line names its cut. Two runs of 4 steps from one seed,
+              bitwise equal losses and final weights; finite losses, step
+              4's below step 1's; no kernel launch (the train path runs
+              none); median step ms over steps 2-4, tokens/s,
+              ``model_flops`` (6 x active parameters x tokens), ``mfu``
+              against 989 TFLOP/s, the peak over the phase's baseline.
+              SmolLM at B = 1, S = 2048 with ``opt_remat`` "full" and
+              "none": loss and gradients bitwise, both peaks printed. Each
+              family's reduced config (SmolLM at S = 2048, through
+              ``attention_flash``'s backward), one train step card vs CPU:
+              loss, aux, every gradient and the updated weights within
+              1e-4 (a weight whose CPU gradient is roundoff, at most 1e-5
+              of its leaf's largest entry, within 2 lr: Adam's normalised
+              step turns either sign of roundoff into lr; counted).
 
-Launch counts are set to 0 just before each trainer run and each serve run
-and read just after (phase 19's in its rank's own process); a kernel of
+Launch counts are set to 0 just before each trainer run, each serve run and
+each transformer train run and read just after (phase 19's in its rank's
+own process; phase 21's must all read 0); a kernel of
 the run's path that was never launched fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
 adjoint's ``csr_builds``) or whose shuffle-adjoint launches differ from its
@@ -1527,28 +1550,17 @@ def serve_decode_profile(model, prompts, window=3):
 
 def _decode_trace(prof, wall, steps):
     """A profiler trace of ``steps`` decode steps in ``wall`` seconds,
-    reduced to per-step numbers."""
+    reduced to per-step numbers (``trace_per_step``) and the decode
+    kernel's device ms a step."""
     import torch
 
-    events = prof.key_averages()
-    on_card = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_us = sum(e.self_device_time_total for e in on_card)
-    by_kernel = sorted(on_card, key=lambda e: -e.self_device_time_total)
-    top = [e for e in prof.events() if e.cpu_parent is None
-           and e.device_type == torch.autograd.DeviceType.CPU]
-    return {
-        "wall_ms_per_step": 1e3 * wall / steps,
-        "device_ms_per_step": dev_us / 1e3 / steps,
-        "device_idle_share": 1.0 - dev_us / 1e6 / wall,
-        "flash_decode_device_ms_per_step": sum(
-            e.self_device_time_total for e in on_card
-            if "flash_decode" in e.key) / 1e3 / steps,
-        "torch_calls_per_step": len(top) / steps,
-        "host_us_per_torch_call": sum(e.cpu_time_total for e in top) / max(len(top), 1),
-        "top_device_ms_per_step": [
-            [e.key[:80], e.self_device_time_total / 1e3 / steps]
-            for e in by_kernel[:8]],
-    }
+    from repro_torch.profile_decode import trace_per_step
+
+    return {**trace_per_step(prof, wall, steps),
+            "flash_decode_device_ms_per_step": sum(
+                e.self_device_time_total for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "flash_decode" in e.key) / 1e3 / steps}
 
 
 def serve_parity_phase(dev):
@@ -3329,6 +3341,267 @@ def families_phase(dev, total):
                       "resident_bytes": baseline, "card": CARD})
 
 
+#: phase 21's models: (arch, depth cut or None, batch, text tokens a
+#: sequence; a VLM's 576 patch rows come before them), each trained at full
+#: width in bf16 over 4096 rows a sequence
+TRAIN_RUNS = [
+    ("smollm-135m", None, 2, 4096),
+    ("deepseek-v2-lite-16b", 6, 2, 4096),
+    ("deepseek-v2-236b", 2, 2, 4096),
+    ("mamba2-2.7b", None, 2, 4096),
+    ("hymba-1.5b", None, 2, 4096),
+    ("musicgen-medium", None, 2, 4096),
+    ("llava-next-mistral-7b", None, 1, 3520),
+]
+TRAIN_STEPS, TRAIN_LR = 4, 1e-3
+#: a train step holds 8 bytes a parameter in bf16: weights, gradients and
+#: the two Adam slots
+TRAIN_CUTS = {
+    "deepseek-v2-lite-16b": "depth cut from 27 to 6 layers (the dense lead "
+                            "layer and 5 MoE layers), widths unchanged: 27 "
+                            "layers hold 125.6 GB of bf16 weights, gradients "
+                            "and Adam slots",
+    "deepseek-v2-236b": FAMILY_CUTS["deepseek-v2-236b"],
+}
+#: the reduced configs held card vs CPU: (arch, batch, sequence); SmolLM's
+#: 2048 rows run ``attention_flash`` and its backward
+TRAIN_PARITY = [("smollm-135m", 1, 2048), ("deepseek-v2-lite-16b", 2, 32),
+                ("deepseek-v2-236b", 2, 32), ("mamba2-2.7b", 2, 32),
+                ("hymba-1.5b", 2, 32), ("musicgen-medium", 2, 32),
+                ("llava-next-mistral-7b", 2, 32)]
+TRAIN_TOL = dict(rtol=1e-4, atol=1e-4)
+#: a gradient entry at most this share of its leaf's largest is roundoff:
+#: its sign may differ between devices, and Adam's normalised step then
+#: moves the weight by lr either way
+ROUNDOFF = 1e-5
+
+
+def train_batch(cfg, batch, text, dev):
+    """Phase 21's seeded batch on ``dev``: the serve path's prompt draw
+    (``make_prompts``) as tokens, a VLM's ``make_patches`` rows in the
+    model's dtype."""
+    import torch
+
+    from repro_torch import serve
+
+    tokens = torch.as_tensor(serve.make_prompts(cfg, batch, text, 0), device=dev)
+    patches = serve.make_patches(cfg, batch, 0)
+    if patches is not None:
+        patches = torch.as_tensor(patches, device=dev).to(getattr(torch, cfg.dtype))
+    return tokens, patches
+
+
+def train_run(cfg, dev, tokens, patches):
+    """A model seeded on ``dev`` and ``TRAIN_STEPS`` steps of
+    ``make_train_step`` + ``adamw(1e-3)`` on one batch: (the model, losses
+    and aux on the host, each step's ms by the host clock ending in a
+    sync)."""
+    import torch
+
+    from repro_torch.models.transformer.model import init_params, make_train_step
+    from repro_torch.train.optimizer import adamw
+
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0))
+    opt = adamw(TRAIN_LR)
+    state = opt.init(list(model.parameters()))
+    step = make_train_step(cfg, opt)
+    losses, auxes, ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(model, state, tokens, patches)
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+        losses.append(metrics["loss"])
+        auxes.append(metrics["aux"])
+    return model, torch.stack(losses).cpu(), torch.stack(auxes).cpu(), ms
+
+
+def remat_check(dev):
+    """Phase 21 (b): SmolLM-135M at full width, B = 1, S = 2048, one seeded
+    model: ``lm_loss`` and its gradients with ``opt_remat="full"`` and
+    ``"none"``, bit for bit, and each one's peak over what was allocated
+    before it."""
+    from dataclasses import replace
+
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.models.transformer.model import init_params, lm_loss
+
+    cfg = serve.serve_config("smollm-135m", reduced=False)
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0))
+    tokens, _ = train_batch(cfg, 1, 2048, dev)
+    out, peaks = {}, {}
+    for remat in ("full", "none"):
+        model.cfg = replace(cfg, opt_remat=remat)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        total, _ = lm_loss(model, tokens)
+        grads = torch.autograd.grad(total, list(model.parameters()))
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() - base
+        out[remat] = (total.detach(), grads)
+        del total, grads
+    check(torch.equal(out["full"][0], out["none"][0])
+          and all(torch.equal(a, b) for a, b in zip(out["full"][1],
+                                                    out["none"][1])),
+          "lm-train remat: full and none differ")
+    emit("lm_train_remat", {"arch": cfg.name, "batch": 1, "seq": 2048,
+                            "bitwise_equal": True,
+                            "loss": float(out["full"][0]),
+                            "peak_full": peaks["full"],
+                            "peak_none": peaks["none"]})
+
+
+def train_parity(dev, arch, batch, seq):
+    """Phase 21 (c): ``arch``'s reduced config (2 layers, f32), one seeded
+    model built on the CPU and copied to the card, the same batch: the loss,
+    aux and every gradient of ``lm_loss``, and the weights after one train
+    step, within rtol/atol 1e-4. A weight whose CPU gradient is roundoff
+    (at most ``ROUNDOFF`` of its leaf's largest entry) may take Adam's step
+    of lr the other way on the card: such weights are held within 2 x lr
+    and counted. No kernel launches."""
+    import numpy as np
+    import torch
+
+    from repro_torch import serve
+    from repro_torch.models.transformer.model import (
+        init_params,
+        lm_loss,
+        make_train_step,
+    )
+    from repro_torch.train.optimizer import adamw
+
+    cfg = serve.serve_config(arch, reduced=True)
+    models = {"cpu": init_params(cfg, torch.Generator().manual_seed(0))}
+    models["card"] = copy.deepcopy(models["cpu"]).to(dev)
+    res = {}
+    reset_launches()
+    for where, model in models.items():
+        device = dev if where == "card" else torch.device("cpu")
+        tokens, patches = train_batch(cfg, batch, seq, device)
+        params = list(model.parameters())
+        total, metrics = lm_loss(model, tokens, patches)
+        grads = [g.cpu() for g in torch.autograd.grad(total, params)]
+        opt = adamw(TRAIN_LR)
+        make_train_step(cfg, opt)(model, opt.init(params), tokens, patches)
+        res[where] = (float(metrics["loss"].detach()),
+                      float(metrics["aux"].detach()), grads,
+                      [p.detach().cpu() for p in params])
+    launches = read_launches()
+    check(not any(launches.values()), f"lm-train parity {arch}: {launches}")
+    cpu, card = res["cpu"], res["card"]
+    np.testing.assert_allclose(card[:2], cpu[:2], **TRAIN_TOL)
+    names = [n for n, _ in models["cpu"].named_parameters()]
+    flipped = 0
+    for n, g_cpu, g_card, w_cpu, w_card in zip(names, cpu[2], card[2], cpu[3],
+                                               card[3]):
+        np.testing.assert_allclose(g_card.numpy(), g_cpu.numpy(), **TRAIN_TOL,
+                                   err_msg=f"{arch} gradient {n}")
+        close = torch.isclose(w_card, w_cpu, **TRAIN_TOL)
+        roundoff = g_cpu.abs() <= ROUNDOFF * g_cpu.abs().max()
+        check(bool((close | roundoff).all()),
+              f"lm-train parity {arch}: {n} off where the gradient is not "
+              "roundoff")
+        check(bool(((w_card - w_cpu).abs()[~close] <= 2.02 * TRAIN_LR).all()),
+              f"lm-train parity {arch}: {n} off by more than 2 lr")
+        flipped += int((~close).sum())
+    emit("card_vs_cpu", {
+        "model": f"train {arch} reduced", "batch": batch, "seq": seq,
+        "loss_diff": abs(card[0] - cpu[0]),
+        "max_abs_grad_diff": max(float((a - b).abs().max())
+                                 for a, b in zip(card[2], cpu[2])),
+        "max_abs_weight_diff": max(float((a - b).abs().max())
+                                   for a, b in zip(card[3], cpu[3])),
+        "roundoff_weights_apart": flipped,
+        "weights": sum(w.numel() for w in cpu[3]),
+    })
+
+
+def lm_train_phase(dev, total):
+    """Phase 21: the transformer train step at full width, bf16 weights
+    seeded on the card, ``adamw(1e-3)``, one seeded batch, one config at a
+    time, each freed before the next (``TRAIN_RUNS``; the DeepSeek configs
+    cut in depth, ``TRAIN_CUTS``). (a) For each: two runs of 4 steps from
+    one seed give bitwise equal losses, aux and final weights; the losses
+    are finite and step 4's is below step 1's; no CUDA kernel of the port
+    launched; one line with the median step ms over steps 2-4 of the second
+    run (host clock ending in a sync), tokens/s, ``model_flops`` (6 x
+    active parameters x tokens, the reference's train count), ``mfu``
+    against the card's dense bf16 peak, the peak over the phase's baseline
+    and the depth cut (``python -m repro_torch.profile_train`` profiles a
+    step of any of them). (b) ``remat_check``. (c) ``train_parity`` for each
+    family's reduced config. The runs' launches (none) are added to
+    ``total``."""
+    import statistics
+
+    import torch
+
+    from repro_torch import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    baseline = torch.cuda.memory_allocated()
+    emit("lm_train_start", {"resident_bytes": baseline})
+    t_phase = time.perf_counter()
+    for arch, layers, batch, text in TRAIN_RUNS:
+        t_model = time.perf_counter()
+        cfg = serve.serve_config(arch, reduced=False, layers=layers)
+        tokens, patches = train_batch(cfg, batch, text, dev)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        model, losses, auxes, first_ms = train_run(cfg, dev, tokens, patches)
+        n_params = sum(p.numel() for p in model.parameters())
+        weights = [p.detach().cpu() for p in model.parameters()]
+        del model
+        gc.collect()
+        torch.cuda.empty_cache()
+        model, losses2, auxes2, ms = train_run(cfg, dev, tokens, patches)
+        launches = read_launches()
+        peak = torch.cuda.max_memory_allocated() - baseline
+        check(torch.equal(losses, losses2) and torch.equal(auxes, auxes2),
+              f"lm-train {arch}: two runs' losses differ {losses} {losses2}")
+        check(all(torch.equal(p.detach().cpu(), w)
+                  for p, w in zip(model.parameters(), weights, strict=True)),
+              f"lm-train {arch}: two runs' final weights differ")
+        check(bool(torch.isfinite(losses).all()) and losses[-1] < losses[0],
+              f"lm-train {arch}: losses {losses.tolist()}")
+        check(not any(launches.values()),
+              f"lm-train {arch}: kernel launches {launches}")
+        for k, v in launches.items():
+            total[k] += v
+        rows = cfg.num_patches + text
+        step_s = statistics.median(ms[1:]) / 1e3
+        model_flops = 6 * cfg.active_param_count() * batch * rows
+        emit("lm_train", {
+            "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
+            "reduced": TRAIN_CUTS.get(arch), "dtype": cfg.dtype,
+            "batch": batch, "rows": rows, "params": n_params,
+            "active_params": cfg.active_param_count(),
+            "bitwise_equal": True, "losses": losses.tolist(),
+            "aux": auxes.tolist(), "step_ms": ms, "first_run_step_ms": first_ms,
+            "step_ms_median": step_s * 1e3,
+            "tokens_per_s": batch * rows / step_s,
+            "model_flops": model_flops,
+            "mfu": model_flops / (step_s * BF16_FLOPS),
+            "peak_over_phase_baseline": peak,
+            "launches": sum(launches.values()),
+            "model_s": time.perf_counter() - t_model,
+        })
+        del model, weights, tokens, patches
+        gc.collect()
+        torch.cuda.empty_cache()
+    remat_check(dev)
+    gc.collect()
+    torch.cuda.empty_cache()
+    for arch, batch, seq in TRAIN_PARITY:
+        train_parity(dev, arch, batch, seq)
+    emit("lm_train_phase", {"wall_s": time.perf_counter() - t_phase,
+                            "resident_bytes": baseline, "card": CARD})
+
+
 def main():
     import torch
 
@@ -3497,6 +3770,9 @@ def main():
     # ---- 20. the other transformer families on the serve path --------------
     del first, papers
     families_phase(dev, total)
+
+    # ---- 21. the transformer train step ----------------------------------
+    lm_train_phase(dev, total)
 
     for k, r in results.items():
         r["launches"] = total[k]

@@ -8,13 +8,15 @@ Families:
   ssm                 -- [ln1 -> mamba2]
   hybrid (Hymba)      -- ln1 -> (attention || mamba2, mean-fused) + [ln2 -> mlp]
 
-Each block runs in two modes:
-  prefill -- full sequence, emits the KV/latent/SSM cache
+Each block runs in three modes:
+  train   -- full sequence (chunked-flash attention from
+             ``FLASH_THRESHOLD`` tokens), no cache; differentiable
+  prefill -- the same arithmetic, and emits the KV/latent/SSM cache
   decode  -- one token against the cache (ring-buffered when windowed),
              written in place
 
-The train mode (chunked-flash attention, no cache, remat) comes with the
-train step.
+Per-layer remat (``opt_remat``) wraps a whole block and lives in
+``model.forward``.
 """
 from __future__ import annotations
 
@@ -44,7 +46,7 @@ from repro_torch.models.transformer.ssm import (
 )
 
 FLASH_THRESHOLD = 2048  # chunked-flash attention for S >= this
-MODES = ("prefill", "decode")
+MODES = ("train", "prefill", "decode")
 FAMILIES = ("dense", "moe", "ssm", "hybrid", "audio", "vlm")
 
 
@@ -194,7 +196,8 @@ def _gqa_qkv(p, x, cfg, positions):
     return q, k, v
 
 
-def _prefill_attention(q, k, v, cfg):
+def _full_attention(q, k, v, cfg):
+    """Causal attention over the whole sequence (train and prefill)."""
     if q.shape[1] >= FLASH_THRESHOLD:
         return attention_flash(q, k, v, chunk=cfg.opt_flash_chunk,
                                window=cfg.attn_window)
@@ -213,9 +216,10 @@ def gqa_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
               pos=None):
     """Returns (out, cache).
 
-    prefill: full causal attention over ``x (B, S, d)`` (chunked-flash from
-    ``FLASH_THRESHOLD`` tokens), and the new cache ``{"k", "v"}`` (B, S, KV,
-    hd) (its last ``cfg.attn_window`` rows when windowed).
+    train / prefill: full causal attention over ``x (B, S, d)``
+    (chunked-flash from ``FLASH_THRESHOLD`` tokens); prefill also returns
+    the new cache ``{"k", "v"}`` (B, S, KV, hd) (its last
+    ``cfg.attn_window`` rows when windowed), train None.
 
     decode: one token against ``cache`` at position ``pos`` (an int or a
     0-d integer tensor on the device). The new k/v row is written **in
@@ -228,15 +232,16 @@ def gqa_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
     B, S, _ = x.shape
     H, hd = cfg.num_heads, cfg.head_dim
     window = cfg.attn_window
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         positions = torch.arange(S, device=x.device)[None, :]
         q, k, v = _gqa_qkv(p, x, cfg, positions)
-        out = _prefill_attention(q, k, v, cfg)
-        ck, cv = k, v
+        out = (_full_attention(q, k, v, cfg).reshape(B, S, H * hd) @ p["wo"]
+               ).to(x.dtype)
+        if mode == "train":
+            return out, None
         if window is not None and window < S:
-            ck, cv = k[:, -window:], v[:, -window:]
-        out = out.reshape(B, S, H * hd)
-        return (out @ p["wo"]).to(x.dtype), {"k": ck, "v": cv}
+            k, v = k[:, -window:], v[:, -window:]
+        return out, {"k": k, "v": v}
     _check_decode(mode, cache, pos)
     positions, slot, cache_len = _decode_position(x, pos, cache["k"].shape[1])
     q, k, v = _gqa_qkv(p, x, cfg, positions)
@@ -258,7 +263,8 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
               pos=None):
     """DeepSeek-V2 multi-head latent attention. Returns (out, cache); the
     cache holds the compressed latents ``{"c_kv" (B, S, kv_lora), "k_rope"
-    (B, S, dr)}``, written in place in decode as ``gqa_apply`` writes k/v.
+    (B, S, dr)}`` (None in train), written in place in decode as
+    ``gqa_apply`` writes k/v.
 
     Keys and values are expanded from the latents by two products, one with
     ``wkv_b``'s key columns and one with its value columns, so that v comes
@@ -305,17 +311,19 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
         k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
         return k, v
 
-    if mode == "prefill":
+    if mode in ("train", "prefill"):
         positions = torch.arange(S, device=x.device)[None, :]
         c_kv, k_rope = latents(positions)
         q = q_proj(positions)
         k, v = kv_expand(c_kv, k_rope)
-        out = _prefill_attention(q, k, v, cfg)
+        out = (_full_attention(q, k, v, cfg).reshape(B, S, H * dv) @ p["wo"]
+               ).to(x.dtype)
+        if mode == "train":
+            return out, None
         window = cfg.attn_window
         if window is not None and window < S:
             c_kv, k_rope = c_kv[:, -window:], k_rope[:, -window:]
-        out = out.reshape(B, S, H * dv)
-        return (out @ p["wo"]).to(x.dtype), {"c_kv": c_kv, "k_rope": k_rope}
+        return out, {"c_kv": c_kv, "k_rope": k_rope}
 
     _check_decode(mode, cache, pos)
     cc, cr = cache["c_kv"], cache["k_rope"]
@@ -396,25 +404,27 @@ def block_init(generator: torch.Generator, cfg: ArchConfig, layer_idx: int,
 
 def _ssm_branch(p, h, cfg, mode, cache):
     """(out, state) of the SSD layer: decode updates ``cache["state"]`` in
-    place; prefill emits the final state for the decode that follows."""
+    place; prefill emits the final state for the decode that follows;
+    train emits none."""
     if mode == "decode":
         return ssm_apply_decode(p, h, cache["state"], cfg)
-    return ssm_apply_train(p, h, cfg), _ssd_final_state(p, h, cfg)
+    y = ssm_apply_train(p, h, cfg)
+    return y, (_ssd_final_state(p, h, cfg) if mode == "prefill" else None)
 
 
 def block_apply(p: Block, x, cfg: ArchConfig, *, mode: str,
                 cache: dict | None = None, pos=None):
     """Returns (x_out, cache, aux_loss): the cache as ``init_caches`` lays
     out one layer's (``{"k","v"}``, ``{"c_kv","k_rope"}``, ``{"state"}``
-    or ``{"attn", "state"}``), aux a float32 scalar (nonzero on MoE
-    layers)."""
+    or ``{"attn", "state"}``), None in train mode; aux a float32 scalar
+    (nonzero on MoE layers)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} {MODES}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
         y, state = _ssm_branch(p.ssm, h, cfg, mode, cache)
-        return x + y, {"state": state}, aux
+        return x + y, (None if mode == "train" else {"state": state}), aux
 
     attn_fn = mla_apply if cfg.use_mla else gqa_apply
     if cfg.family == "hybrid":
@@ -425,6 +435,8 @@ def block_apply(p: Block, x, cfg: ArchConfig, *, mode: str,
         x = x + 0.5 * (a_out + s_out)
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
         x = x + mlp_apply(p.mlp, h2, cfg.mlp_type)
+        if mode == "train":
+            return x, None, aux
         return x, {"attn": a_cache, "state": state}, aux
 
     # ---- attention families (dense / moe / audio / vlm) -------------------

@@ -99,45 +99,51 @@ def attention_full(
     return torch.einsum("bhqk,bkhd->bqhd", probs, v)
 
 
-def attention_flash(
-    q: torch.Tensor,  # (B, S, H, D)
-    k: torch.Tensor,  # (B, S, KV, D)
-    v: torch.Tensor,  # (B, S, KV, Dv)
-    *,
-    chunk: int = 1024,
-    window: int | None = None,
-) -> torch.Tensor:
-    """Chunked online-softmax causal attention (prefill at
-    ``FLASH_THRESHOLD`` and above): a plain torch loop over query chunks and,
-    inside, over key chunks with a running (max, denominator, accumulator);
-    peak memory O(S * chunk) instead of O(S^2). Every key chunk is visited,
-    the masked ones included, as the JAX scan does."""
+def _block_mask(qi, kj, chunk, window, device):
+    """Block (query chunk qi, key chunk kj)'s (chunk, chunk) mask of the
+    scores kept: causal, and (windowed) within ``window``."""
+    ar = torch.arange(chunk, device=device)
+    q_pos = qi * chunk + ar
+    k_pos = kj * chunk + ar
+    msk = q_pos[:, None] >= k_pos[None, :]
+    if window is not None:
+        msk &= q_pos[:, None] - k_pos[None, :] < window
+    return msk
+
+
+def _block_dead(qi: int, kj: int, chunk: int, window: int | None) -> bool:
+    """Whether every score of block (qi, kj) is masked."""
+    return kj > qi or (window is not None and (qi - kj - 1) * chunk + 1 >= window)
+
+
+def _flash_forward(q, k, v, chunk, window):
+    """The chunked online-softmax loop over q (B, S, H, D) and k, v already
+    repeated to H heads -> (out (B, S, H, Dv) in q's dtype, each row's
+    log-sum-exp (B, H, S) float32).
+
+    Dead blocks are skipped and live ones masked. The output has the
+    values of the JAX scan, which visits and masks every block: a dead block
+    after the first live one adds p = 0 and scales by exp(0) = 1, and one
+    before it is erased by the first live block's correction
+    exp(-1e30 - m) = 0."""
     B, S, H, D = q.shape
-    KV = k.shape[2]
     Dv = v.shape[3]
-    if S % chunk:
-        raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
-    k = _repeat_kv(k, H // KV)
-    v = _repeat_kv(v, H // KV)
     scale = 1.0 / np.sqrt(D)
     nq = S // chunk
-    ar = torch.arange(chunk, device=q.device)
-    outs = []
+    outs, lses = [], []
     for qi in range(nq):
         q_blk = q[:, qi * chunk:(qi + 1) * chunk]
         m = torch.full((B, H, chunk), MASK_VALUE, dtype=torch.float32, device=q.device)
         d = torch.zeros((B, H, chunk), dtype=torch.float32, device=q.device)
         acc = torch.zeros((B, H, chunk, Dv), dtype=torch.float32, device=q.device)
         for kj in range(nq):
+            if _block_dead(qi, kj, chunk, window):
+                continue
             k_blk = k[:, kj * chunk:(kj + 1) * chunk]
             v_blk = v[:, kj * chunk:(kj + 1) * chunk]
             s = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_blk).float() * scale
-            q_pos = qi * chunk + ar
-            k_pos = kj * chunk + ar
-            msk = q_pos[:, None] >= k_pos[None, :]
-            if window is not None:
-                msk &= q_pos[:, None] - k_pos[None, :] < window
-            s = torch.where(msk, s, MASK_VALUE)
+            s = torch.where(_block_mask(qi, kj, chunk, window, q.device), s,
+                            MASK_VALUE)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
@@ -147,8 +153,90 @@ def attention_flash(
             ).float()
             m = m_new
         outs.append((acc / d[..., None].clamp(min=1e-30)).to(q.dtype))
+        lses.append(m + torch.log(d))
     out = torch.stack(outs, dim=2)  # (B, H, nq, chunk, Dv)
-    return out.reshape(B, H, S, Dv).transpose(1, 2)
+    return out.reshape(B, H, S, Dv).transpose(1, 2), torch.cat(lses, dim=2)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """``attention_flash`` under autograd: the forward is the loop itself
+    (the same bits as without autograd) and keeps q, k, v, the output and
+    each row's log-sum-exp; the backward recomputes each live block's probabilities
+    p = exp(s - lse) and sums its dq, dk, dv in float32 (dS = p (dP -
+    rowsum(dO o))), the exact gradient of the softmax attention. So a
+    layer's backward holds one block's (B, H, chunk, chunk) tensors at a
+    time, where autograd of the loop would keep every block's scores and
+    probabilities (B x H x S^2 x 10 bytes a layer: 43 GB at
+    DeepSeek-V2-236B's 128 heads, B = 2, S = 4096)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, chunk, window):
+        out, lse = _flash_forward(q, k, v, chunk, window)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.chunk, ctx.window = chunk, window
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        chunk, window = ctx.chunk, ctx.window
+        dt = q.dtype
+        S, D = q.shape[1], q.shape[3]
+        scale = 1.0 / np.sqrt(D)
+        nq = S // chunk
+        dout = dout.to(dt)
+        delta = (dout.float() * out.float()).sum(dim=-1).transpose(1, 2)  # (B, H, S)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+        for qi in range(nq):
+            rows = slice(qi * chunk, (qi + 1) * chunk)
+            q_blk, do_blk = q[:, rows], dout[:, rows]
+            lse_blk = lse[:, :, rows, None]
+            delta_blk = delta[:, :, rows, None]
+            for kj in range(nq):
+                if _block_dead(qi, kj, chunk, window):
+                    continue
+                cols = slice(kj * chunk, (kj + 1) * chunk)
+                k_blk, v_blk = k[:, cols], v[:, cols]
+                s = torch.einsum("bqhd,bkhd->bhqk", q_blk, k_blk).float() * scale
+                s = torch.where(_block_mask(qi, kj, chunk, window, q.device),
+                                s, MASK_VALUE)
+                p = torch.exp(s - lse_blk)
+                dv[:, cols] += torch.einsum("bhqk,bqhd->bkhd", p.to(dt),
+                                            do_blk).float()
+                dp = torch.einsum("bqhd,bkhd->bhqk", do_blk, v_blk).float()
+                ds = (p * (dp - delta_blk)).to(dt)
+                dq[:, rows] += torch.einsum("bhqk,bkhd->bqhd", ds,
+                                            k_blk).float() * scale
+                dk[:, cols] += torch.einsum("bhqk,bqhd->bkhd", ds,
+                                            q_blk).float() * scale
+        return dq.to(dt), dk.to(k.dtype), dv.to(v.dtype), None, None
+
+
+def attention_flash(
+    q: torch.Tensor,  # (B, S, H, D)
+    k: torch.Tensor,  # (B, S, KV, D)
+    v: torch.Tensor,  # (B, S, KV, Dv)
+    *,
+    chunk: int = 1024,
+    window: int | None = None,
+) -> torch.Tensor:
+    """Chunked online-softmax causal attention (train and prefill at
+    ``FLASH_THRESHOLD`` and above): a plain torch loop over query chunks
+    and, inside, over the key chunks holding an unmasked score, with a
+    running (max, denominator, accumulator); peak memory O(S * chunk)
+    instead of O(S^2). When autograd records (train), ``_FlashAttention``
+    runs the same loop and gives it a flash backward."""
+    S = q.shape[1]
+    H, KV = q.shape[2], k.shape[2]
+    if S % chunk:
+        raise ValueError(f"sequence {S} is not a multiple of the chunk {chunk}")
+    k = _repeat_kv(k, H // KV)
+    v = _repeat_kv(v, H // KV)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _FlashAttention.apply(q, k, v, chunk, window)
+    return _flash_forward(q, k, v, chunk, window)[0]
 
 
 def attention_decode(

@@ -1,19 +1,29 @@
-"""Transformer LM: init / prefill / decode across the six families — the
-counterpart of ``repro/models/transformer/model.py``.
+"""Transformer LM: init / train / prefill / decode across the six families
+— the counterpart of ``repro/models/transformer/model.py``.
 
 The JAX package stacks the uniform blocks and runs them with ``lax.scan``,
 and runs a MoE model's leading dense blocks (``lead_blocks``) unscanned;
 here both are ``nn.ModuleList``s run by a Python loop, the lead blocks
-first. Caches are a list with one dict per layer, in that order (the JAX
-package stacks the scanned layers' on a leading axis and lists the lead
-layers' apart). Train mode, ``lm_loss`` and the train step come with the
-train slice.
+first. So the reference's ``unroll`` flag (a Python loop in place of the
+scan, for the dry-run's cost count) has no counterpart: the port's loop is
+always unrolled. Caches are a list with one dict per layer, in that order
+(the JAX package stacks the scanned layers' on a leading axis and lists the
+lead layers' apart).
+
+Train mode runs each block under ``torch.utils.checkpoint`` when
+``cfg.opt_remat == "full"`` (the reference's ``jax.checkpoint`` around the
+lead blocks and the scanned body): a layer keeps only its input for the
+backward and recomputes the rest.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models.transformer.blocks import (
     Block,
@@ -217,25 +227,54 @@ def lm_logits(model: TransformerLM, h: torch.Tensor) -> torch.Tensor:
 
 
 # --------------------------------------------------------------------------- #
-# Forward (prefill)
+# Forward (train / prefill)
 # --------------------------------------------------------------------------- #
+REMAT = ("full", "none")
+
+
+def check_remat(cfg: ArchConfig) -> None:
+    """Raise ``ValueError`` on an ``opt_remat`` other than ``REMAT``'s."""
+    if cfg.opt_remat not in REMAT:
+        raise ValueError(f"{cfg.name}: opt_remat={cfg.opt_remat!r}, not one "
+                         f"of {REMAT}")
+
+
 def forward(model: TransformerLM, tokens: torch.Tensor, *,
-            patches: torch.Tensor | None = None, last_only: bool = False):
-    """Prefill over ``tokens`` ((B, S), or (B, S, nc) with codebooks; a VLM's
-    ``patches`` (B, Np, d) go before them) -> (logits, caches): logits
-    (B, S', V) or (B, S', nc, V), or of the last position only with
-    ``last_only`` (the same function: the head runs on that row only);
-    caches one dict per layer, as ``init_caches`` lays them out."""
+            patches: torch.Tensor | None = None, mode: str = "train",
+            last_only: bool = False):
+    """``tokens`` ((B, S), or (B, S, nc) with codebooks; a VLM's ``patches``
+    (B, Np, d) go before them) -> (logits, caches, aux).
+
+    logits (B, S', V) or (B, S', nc, V), or of the last position only with
+    ``last_only`` (the same function: the head runs on that row only); aux
+    the float32 sum of every layer's MoE load-balance loss (0 without MoE).
+    ``mode="train"``: caches None, each block under per-layer remat when
+    ``cfg.opt_remat == "full"``; ``mode="prefill"``: caches one dict per
+    layer, as ``init_caches`` lays them out. Both compute the same logits."""
     cfg = model.cfg
+    if mode not in ("train", "prefill"):
+        raise ValueError(f"forward runs in train or prefill mode, not {mode!r}")
+    if mode == "train":
+        check_remat(cfg)
     h = embed_tokens(model, tokens, patches)
-    caches = []
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    caches = [] if mode == "prefill" else None
+    if mode == "train" and cfg.opt_remat == "full":
+        # the blocks draw no random numbers: no RNG state to stash
+        run = functools.partial(checkpoint, functools.partial(
+            block_apply, cfg=cfg, mode=mode), use_reentrant=False,
+            preserve_rng_state=False)
+    else:
+        run = functools.partial(block_apply, cfg=cfg, mode=mode)
     for blk in model.layers():
-        h, c, _ = block_apply(blk, h, cfg, mode="prefill")
-        caches.append(c)
+        h, c, a = run(blk, h)
+        aux = aux + a
+        if caches is not None:
+            caches.append(c)
     if last_only:
         h = h[:, -1:]
     h = rms_norm(h, model.final_norm, cfg.norm_eps)
-    return lm_logits(model, h), caches
+    return lm_logits(model, h), caches, aux
 
 
 def make_prefill_step(cfg: ArchConfig):
@@ -244,9 +283,55 @@ def make_prefill_step(cfg: ArchConfig):
     check_arch(cfg)
 
     def prefill_step(model, tokens, patches=None):
-        return forward(model, tokens, patches=patches, last_only=True)
+        logits, caches, _ = forward(model, tokens, patches=patches,
+                                    mode="prefill", last_only=True)
+        return logits, caches
 
     return prefill_step
+
+
+# --------------------------------------------------------------------------- #
+# Loss / train step
+# --------------------------------------------------------------------------- #
+def lm_loss(model: TransformerLM, tokens: torch.Tensor,
+            patches: torch.Tensor | None = None):
+    """Next-token loss -> (total, {"loss", "aux"}), ``total = loss + 0.01 *
+    aux``, as the reference's ``lm_loss``.
+
+    The NLL is the mean over every target of the float32 log-softmax:
+    ``F.cross_entropy`` on float32 logits, the reference's ``log_softmax``
+    + ``take_along_axis`` in one call. Codebook targets are (B, S-1, nc),
+    one per codebook; a VLM's text logits start after the patch rows."""
+    cfg = model.cfg
+    logits, _, aux = forward(model, tokens, patches=patches, mode="train")
+    if cfg.num_patches and patches is not None:
+        logits = logits[:, patches.shape[1]:]
+    logits = logits[:, :-1].float()
+    loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
+                           tokens[:, 1:].reshape(-1))
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
+
+
+def make_train_step(cfg: ArchConfig, optimizer):
+    """(model, opt_state, tokens, patches=None) -> (opt_state, metrics).
+
+    The gradients of ``lm_loss``'s total over ``list(model.parameters())``
+    (a fixed order; ``optimizer.init`` takes the same list) come from
+    ``torch.autograd.grad``; every parameter must get one. The optimizer
+    then updates the parameters in place. ``metrics`` holds ``loss`` and
+    ``aux`` as 0-d tensors on the model's device: the step makes no host
+    sync. The reference returns the new params; here the model is them."""
+    check_arch(cfg)
+    check_remat(cfg)
+
+    def train_step(model, opt_state, tokens, patches=None):
+        params = list(model.parameters())
+        total, metrics = lm_loss(model, tokens, patches)
+        grads = torch.autograd.grad(total, params)
+        _, opt_state = optimizer.update(list(grads), opt_state, params)
+        return opt_state, {k: v.detach() for k, v in metrics.items()}
+
+    return train_step
 
 
 # --------------------------------------------------------------------------- #

@@ -13,7 +13,10 @@ The combine runs without atomics, so a run repeats bit for bit on the card:
 the sort is inverted and each token's K rows are summed in a fixed order,
 the order of the reference's ``segment_sum`` over the sorted rows (ascending
 expert id within a token). The auxiliary loss's per-expert load is a sum
-over a dense (T, E) matrix for the same reason.
+over a dense (T, E) matrix for the same reason. The combine's gathers are
+written so that their adjoints accumulate no long run of one row (each
+slot's result is copied to its row, the token's rows are a permutation),
+which torch's indexing adjoint would add one after another.
 
 The expert-parallel dispatch (``moe_apply_shard_map``, ``opt_moe_shard_map``)
 runs on a mesh only and has no single-card counterpart: such a config
@@ -101,15 +104,24 @@ def moe_apply(params, x: torch.Tensor, cfg):
     ye = torch.bmm(hidden, params["w_out"])  # (E, C, d)
 
     # ---- combine, in a fixed order ------------------------------------------
-    y_slots = torch.cat([ye.reshape(E * C, d), ye.new_zeros((1, d))])
-    y_tok = y_slots[slot] * w_sorted[:, None].to(x.dtype)  # (T*K, d), sorted
-    # each token's K rows by their place in the sorted order
-    inv = torch.empty_like(order).scatter_(
-        0, order, torch.arange(T * K, device=x.device))
+    # each slot's result is copied to its sorted row (a dropped row stays 0,
+    # an unfilled slot goes to a trash row): the reference's gather by slot
+    # has an adjoint that adds every dropped row into one trash slot, one
+    # after another; this copy's adjoint is a gather
+    ar = torch.arange(T * K, device=x.device)
+    row_of_slot = torch.full((E * C + 1,), T * K, dtype=ar.dtype,
+                             device=x.device).scatter_(0, slot, ar)[:-1]
+    y_rows = x.new_zeros((T * K + 1, d)).index_copy_(
+        0, row_of_slot, ye.reshape(E * C, d))[:-1]
+    y_tok = y_rows * w_sorted[:, None].to(x.dtype)  # (T*K, d), sorted
+    # each token's K rows by their place in the sorted order: a permutation
+    # of the rows, gathered once and summed in order
+    inv = torch.empty_like(order).scatter_(0, order, ar)
     rows = inv.reshape(T, K).sort(dim=1).values
-    out = y_tok[rows[:, 0]]
+    y_k = y_tok[rows.reshape(-1)].reshape(T, K, d).unbind(dim=1)
+    out = y_k[0]
     for k in range(1, K):
-        out = out + y_tok[rows[:, k]]
+        out = out + y_k[k]
 
     if cfg.num_shared_experts:
         out = out + mlp_apply(params["shared"], xt, cfg.mlp_type)

@@ -1,10 +1,11 @@
 """Mamba-2 SSD (state-space duality) layer in torch — the counterpart of
 ``repro/models/transformer/ssm.py`` [arXiv:2405.21060].
 
-Chunked path (prefill): within each chunk the attention-like dual form,
-across chunks the recurrent state pass, a Python loop over the S/chunk
-chunks (the JAX package's ``lax.scan``). Decode path: the O(1) recurrent
-state update, written into the caller's state in place.
+Chunked path (prefill and train): within each chunk the attention-like
+dual form, across chunks the recurrent state pass, a Python loop over the
+S/chunk chunks (the JAX package's ``lax.scan``). Decode path: the O(1)
+recurrent state update, written into the caller's state in place (decode
+is never differentiated).
 
 Parameterization (SSD, scalar-identity A per head):
   x -> in_proj -> [z (gate), x, B, C, dt]  with x split into H heads of P dims
@@ -68,9 +69,14 @@ def _gated_norm_out(params, y: torch.Tensor, z: torch.Tensor, dtype):
 
 
 def ssm_apply_train(params, x: torch.Tensor, cfg) -> torch.Tensor:
-    """Chunked SSD forward. x: (B, S, d) -> (B, S, d); S must be a multiple
-    of ``cfg.ssm_chunk``. The (B, chunks, Q, Q, H) float32 intra-chunk
-    tensors are freed as soon as they are used."""
+    """Chunked SSD forward, for prefill and train alike. x: (B, S, d) ->
+    (B, S, d); S must be a multiple of ``cfg.ssm_chunk``.
+
+    Every op is out of place, so autograd can differentiate it (an in-place
+    ``exp_``/``masked_fill_``/``mul_`` would overwrite the exponentials the
+    backward needs). Without autograd (serve, under ``inference_mode``) the
+    (B, chunks, Q, Q, H) float32 intra-chunk tensors are still freed as soon
+    as they are used; at most one more of them is alive at a time."""
     Bsz, S, _ = x.shape
     H, P, N, G = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
     Q = cfg.ssm_chunk
@@ -99,11 +105,15 @@ def ssm_apply_train(params, x: torch.Tensor, cfg) -> torch.Tensor:
     total = cum[:, :, -1]  # (B, nc, H)
 
     # ---- intra-chunk (dual / attention-like form) --------------------------
-    # decay(i, j) = exp(cum_i - cum_j) for i >= j, else 0
-    decay = (cum[:, :, :, None, :] - cum[:, :, None, :, :]).exp_()  # (B,nc,Qi,Qj,H)
-    upper = ~torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
-    decay.masked_fill_(upper[None, None, :, :, None], 0.0)
-    scores = torch.einsum("bcihn,bcjhn->bcijh", C_c, B_c).mul_(decay)
+    # decay(i, j) = exp(cum_i - cum_j) for i >= j, else 0. The exponent is
+    # masked too: above the diagonal cum_i - cum_j > 0 overflows exp at
+    # full width, and exp's adjoint there is 0 * inf = NaN (the reference's
+    # single where has that NaN gradient); the values are the same.
+    tri = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=x.device))
+    tri = tri[None, None, :, :, None]
+    decay = torch.where(tri, torch.exp(torch.where(
+        tri, cum[:, :, :, None, :] - cum[:, :, None, :, :], 0.0)), 0.0)
+    scores = torch.einsum("bcihn,bcjhn->bcijh", C_c, B_c) * decay
     del decay
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", scores, x_c)
     del scores

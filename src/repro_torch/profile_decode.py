@@ -53,6 +53,30 @@ def device_ms_by_kernel(fn, flush, calls=20) -> dict:
             and e.key not in flush_keys}
 
 
+def trace_per_step(prof, wall, steps) -> dict:
+    """A ``torch.profiler`` trace of ``steps`` steps that took ``wall``
+    seconds, reduced to per-step numbers: wall and device ms, the device's
+    idle share of the wall, top-level torch calls and their host us, and the
+    top kernels by device ms. The profiler's own host cost inflates the wall
+    and the idle share; the device times are the kernels' own."""
+    on_card = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in on_card)
+    by_kernel = sorted(on_card, key=lambda e: -e.self_device_time_total)
+    top = [e for e in prof.events() if e.cpu_parent is None
+           and e.device_type == torch.autograd.DeviceType.CPU]
+    return {
+        "wall_ms_per_step": 1e3 * wall / steps,
+        "device_ms_per_step": dev_us / 1e3 / steps,
+        "device_idle_share": 1.0 - dev_us / 1e6 / wall,
+        "torch_calls_per_step": len(top) / steps,
+        "host_us_per_torch_call": sum(e.cpu_time_total for e in top) / max(len(top), 1),
+        "top_device_ms_per_step": [
+            [e.key[:80], e.self_device_time_total / 1e3 / steps]
+            for e in by_kernel[:8]],
+    }
+
+
 def with_chunk(q, k, v, n, chunk):
     """The wrapper's launch with ``chunk`` rows a block instead of the
     policy's: its plan's shape with the chunk replaced."""

@@ -1,5 +1,5 @@
 """Optimizers with the JAX package's math (``repro/train/optimizer.py``):
-SGD, Adam, AdamW. ``torch.optim`` is not used — its AdamW decays
+SGD (with momentum), Adam, AdamW. ``torch.optim`` is not used — its AdamW decays
 the weights in a decoupled step, while the reference adds ``lr*wd*p`` to the
 Adam step.
 
@@ -7,7 +7,9 @@ API: ``opt = adam(lr); state = opt.init(params); params, state = opt.update(
 grads, state, params)`` with ``params`` a list of tensors. Unlike the
 reference's pure functions, ``update`` writes the new values into the
 parameter and slot tensors in place (no second copy of the model per step)
-and returns the same objects.
+and returns the same objects. Every leaf keeps its dtype: the reference's
+float32 step turns a bf16 weight into a float32 one, while the port rounds
+it back to bf16 (ROADMAP Queue C).
 """
 from __future__ import annotations
 
@@ -33,19 +35,31 @@ def _zeros_like(params):
     return [torch.zeros_like(p) for p in params]
 
 
-def sgd(lr: float) -> Optimizer:
-    """Plain SGD, the reference's ``sgd`` at its default ``momentum=0``."""
+def sgd(lr: float, momentum: float = 0.0) -> Optimizer:
+    """SGD; with ``momentum`` a velocity slot per leaf (its dtype), updated
+    as the reference's: ``v = momentum * v + g; p -= lr * v``."""
 
     def init(params):
-        return OptimizerState(0, ())
+        return OptimizerState(0, _zeros_like(params) if momentum else ())
 
     @torch.no_grad()
     def update(grads, state, params):
-        for p, g in zip(params, grads):
-            p.sub_(lr * g)
-        return params, OptimizerState(state.step + 1, ())
+        if momentum:
+            for p, g, v in zip(params, grads, state.slots):
+                v.mul_(momentum).add_(g)
+                p.sub_(lr * v)
+        else:
+            for p, g in zip(params, grads):
+                p.sub_(lr * g)
+        return params, OptimizerState(state.step + 1, state.slots)
 
     return Optimizer(init, update)
+
+
+#: elements of a leaf that one pass of the Adam step updates: a bf16 leaf's
+#: float32 temporaries stay 128 MiB each where DeepSeek-V2-236B's stacked
+#: experts (1.26e9 elements a leaf) would take 5 GB each
+SLICE = 1 << 25
 
 
 def _adam_core(lr, b1, b2, eps, weight_decay):
@@ -60,12 +74,19 @@ def _adam_core(lr, b1, b2, eps, weight_decay):
         bc1 = float(np.float32(1) - np.float32(b1) ** t)
         bc2 = float(np.float32(1) - np.float32(b2) ** t)
         for p, g, m, v in zip(params, grads, state.slots["m"], state.slots["v"]):
-            m.mul_(b1).add_((1 - b1) * g)
-            v.mul_(b2).add_((1 - b2) * (g * g))
-            step_ = lr * (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if weight_decay:
-                step_ = step_ + lr * weight_decay * p
-            p.sub_(step_)
+            p, m, v = p.view(-1), m.view(-1), v.view(-1)
+            g = g.reshape(-1)
+            for a in range(0, p.numel(), SLICE):
+                p_, g_, m_, v_ = (t[a:a + SLICE] for t in (p, g, m, v))
+                m_.mul_(b1).add_((1 - b1) * g_)
+                v_.mul_(b2).add_((1 - b2) * (g_ * g_))
+                # float32 bias corrections make the reference's step
+                # float32; a bf16 leaf takes it in float32, rounded once
+                p32 = p_.float()
+                step_ = lr * (m_.float() / bc1) / (torch.sqrt(v_.float() / bc2) + eps)
+                if weight_decay:
+                    step_ = step_ + lr * weight_decay * p32
+                p_.copy_(p32 - step_)
         return params, OptimizerState(step, state.slots)
 
     return Optimizer(init, update)

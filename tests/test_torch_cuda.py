@@ -19,7 +19,8 @@ replicated trainers agree with the CPU, and so does an R = 2 mesh, whose
 pipelined sources train bit for bit as its inline ones. The spmd path runs
 in one NCCL rank spawned by ``launch`` at world size 1: its all-to-all is
 the sim form's bit for bit, and its trainer trains bit for bit as the sim
-one at one split.
+one at one split. The transformer train step (reduced, f32) agrees with
+the CPU, and a MoE and an SSD train step repeat bit for bit.
 """
 import copy
 
@@ -653,6 +654,132 @@ def test_cuda_moe_block_repeats_bitwise(cuda, dtype):
         assert torch.equal(out, runs[0][0]) and torch.equal(aux, runs[0][2])
     assert torch.equal(routed[0][0], routed[1][0])
     assert torch.equal(routed[0][1], routed[1][1])
+
+
+#: the train step's reduced configs: (arch, batch, sequence); SmolLM's 2048
+#: rows run ``attention_flash`` and its backward
+TRAIN_CASES = [("smollm-135m", 1, 2048), ("deepseek-v2-lite-16b", 2, 32),
+               ("deepseek-v2-236b", 2, 32), ("mamba2-2.7b", 2, 32),
+               ("hymba-1.5b", 2, 32), ("musicgen-medium", 2, 32),
+               ("llava-next-mistral-7b", 2, 32)]
+
+
+def _train_batch(cfg, batch, seq, device):
+    from repro_torch import serve
+
+    tokens = torch.as_tensor(serve.make_prompts(cfg, batch, seq, 1), device=device)
+    patches = serve.make_patches(cfg, batch, 1)
+    if patches is not None:
+        patches = torch.as_tensor(patches, device=device).to(getattr(torch,
+                                                                     cfg.dtype))
+    return tokens, patches
+
+
+def _train(model, cfg, tokens, patches, steps):
+    """``steps`` train steps with ``adamw(1e-3)``: the losses."""
+    from repro_torch.models.transformer.model import make_train_step
+    from repro_torch.train.optimizer import adamw
+
+    opt = adamw(1e-3)
+    state = opt.init(list(model.parameters()))
+    step = make_train_step(cfg, opt)
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(model, state, tokens, patches)
+        losses.append(metrics["loss"])
+    return torch.stack(losses).cpu()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,batch,seq", TRAIN_CASES)
+def test_cuda_reduced_train_step_matches_cpu(cuda, arch, batch, seq):
+    """Each family's reduced model (2 layers, f32) from the same weights:
+    ``lm_loss``'s loss, aux and every gradient on the card and on the CPU
+    within rtol/atol 1e-4, and the weights after one train step too, but
+    where the CPU gradient is roundoff (at most 1e-5 of its leaf's largest
+    entry): there Adam's normalised step may go the other way, within
+    2 lr. No kernel launches on the train path."""
+    from repro_torch import serve
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.models.transformer.model import init_params, lm_loss
+
+    cfg = serve.serve_config(arch, reduced=True)
+    models = {"cpu": init_params(cfg, torch.Generator().manual_seed(0))}
+    models["card"] = copy.deepcopy(models["cpu"]).to(cuda)
+    out = {}
+    fd.reset_launches()
+    for where, model in models.items():
+        tokens, patches = _train_batch(cfg, batch, seq,
+                                       cuda if where == "card" else "cpu")
+        total, metrics = lm_loss(model, tokens, patches)
+        grads = torch.autograd.grad(total, list(model.parameters()))
+        _train(model, cfg, tokens, patches, 1)
+        out[where] = ([metrics["loss"].detach().cpu(), metrics["aux"].cpu()],
+                      [g.cpu() for g in grads],
+                      [p.detach().cpu() for p in model.parameters()])
+    assert fd.LAUNCHES["flash_decode"] == 0
+    (cpu_m, cpu_g, cpu_w), (card_m, card_g, card_w) = out["cpu"], out["card"]
+    for a, b in zip(card_m, cpu_m):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+    for g_card, g_cpu, w_card, w_cpu in zip(card_g, cpu_g, card_w, cpu_w):
+        torch.testing.assert_close(g_card, g_cpu, rtol=1e-4, atol=1e-4)
+        close = torch.isclose(w_card, w_cpu, rtol=1e-4, atol=1e-4)
+        roundoff = g_cpu.abs() <= 1e-5 * g_cpu.abs().max()
+        assert bool((close | roundoff).all())
+        assert bool(((w_card - w_cpu).abs()[~close] <= 2.02e-3).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,dtype", [("deepseek-v2-lite-16b", "float32"),
+                                        ("deepseek-v2-lite-16b", "bfloat16"),
+                                        ("mamba2-2.7b", "float32"),
+                                        ("mamba2-2.7b", "bfloat16")])
+def test_cuda_train_steps_repeat_bitwise(cuda, arch, dtype):
+    """Three train steps of a MoE model (capacity 1.0, which drops tokens)
+    and of an SSD model, twice from one seed on the card: equal losses and
+    final weights bit for bit (the indexing adjoints sort, the head
+    repeat's adjoint is a sum, the combine has no atomics)."""
+    from dataclasses import replace
+
+    from repro_torch import serve
+    from repro_torch.models.transformer.model import init_params
+
+    cfg = replace(serve.serve_config(arch, reduced=True), dtype=dtype,
+                  moe_capacity_factor=1.0)
+    tokens, patches = _train_batch(cfg, 4, 64, cuda)
+    runs = []
+    for _ in range(2):
+        model = init_params(cfg, torch.Generator(cuda).manual_seed(0))
+        losses = _train(model, cfg, tokens, patches, 3)
+        runs.append((losses, [p.detach().clone() for p in model.parameters()]))
+    assert torch.isfinite(runs[0][0]).all() and runs[0][0][-1] < runs[0][0][0]
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_cuda_ssm_apply_train_backward_matches_cpu(cuda):
+    """The SSD's chunked pass differentiated on the card (the gradients of
+    <out, cot> over x and every leaf) against the CPU's, rtol/atol 1e-4, at
+    Mamba2's reduced widths over 8 chunks."""
+    from repro_torch import serve
+    from repro_torch.models.transformer.ssm import ssm_apply_train, ssm_init
+
+    cfg = serve.serve_config("mamba2-2.7b", reduced=True)
+    params = ssm_init(torch.Generator().manual_seed(0), cfg, torch.float32)
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn(2, 8 * cfg.ssm_chunk, cfg.d_model, generator=gen) * 0.5
+    cot = torch.randn(x.shape, generator=gen)
+    grads = {}
+    for device in ("cpu", cuda):
+        leaves = {n: t.to(device).requires_grad_(True) for n, t in params.items()}
+        xd = x.to(device).requires_grad_(True)
+        out = (ssm_apply_train(leaves, xd, cfg) * cot.to(device)).sum()
+        grads[str(device)] = [g.cpu() for g in torch.autograd.grad(
+            out, [xd, *leaves.values()])]
+    for a, b in zip(grads[str(cuda)], grads["cpu"]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.cuda

@@ -478,7 +478,7 @@ def test_teacher_forced_decode_equals_prefill(family):
                if cfg.num_patches else None)
     Np = cfg.num_patches
     with torch.no_grad():
-        full, _ = tm.forward(model, toks, patches=patches)
+        full, _, _ = tm.forward(model, toks, patches=patches, mode="prefill")
         last, pre = tm.make_prefill_step(cfg)(model, toks[:, :S], patches)
         torch.testing.assert_close(last[:, 0], full[:, Np + S - 1], **MODEL_TOL)
         caches = tm.init_caches(cfg, B, Np + S + 4, "cpu")

@@ -166,6 +166,10 @@ def test_port_imports_no_jax_and_no_reference_package():
         "src/repro_torch/models/transformer/blocks.py",
         "src/repro_torch/models/transformer/moe.py",
         "src/repro_torch/models/transformer/ssm.py",
+        "src/repro_torch/models/transformer/layers.py",
+        "src/repro_torch/train/optimizer.py",
+        "src/repro_torch/profile_train.py",
+        "src/repro_torch/profile_decode.py",
         "src/repro_torch/configs/smollm_135m.py",
         "src/repro_torch/configs/deepseek_v2_236b.py",
         "src/repro_torch/configs/deepseek_v2_lite_16b.py",

@@ -383,7 +383,7 @@ def test_teacher_forced_decode_equals_prefill():
     B, S = 2, 8
     toks = torch.as_tensor(np.random.default_rng(1).integers(0, 97, (B, S + 4)))
     with torch.no_grad():
-        full, _ = tm.forward(model, toks)
+        full, _, _ = tm.forward(model, toks, mode="prefill")
         last, pre = tm.make_prefill_step(cfg)(model, toks[:, :S])
         torch.testing.assert_close(last[:, 0], full[:, S - 1], **MODEL_TOL)
         caches = tm.init_caches(cfg, B, S + 4, "cpu")
