@@ -269,9 +269,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               each line names its cut. Two runs of 4 steps from one seed,
               bitwise equal losses and final weights; finite losses, step
               4's below step 1's; no kernel launch (the train path runs
-              none); median step ms over steps 2-4, tokens/s,
-              ``model_flops`` (6 x active parameters x tokens), ``mfu``
-              against 989 TFLOP/s, the peak over the phase's baseline.
+              none); median step ms over steps 2-4, tokens/s, the
+              roofline of ``train_4k`` at this batch from
+              ``launch/roofline.py`` (``flops`` counted on the meta device,
+              no second run; the least ``bytes_accessed``; the three terms,
+              ``model_flops`` = 6 x active parameters x tokens, the share
+              of the step, at most 1.05), ``mfu`` against 989 TFLOP/s, the
+              peak over the phase's baseline.
               SmolLM at B = 1, S = 2048 with ``opt_remat`` "full" and
               "none": loss and gradients bitwise, both peaks printed. Each
               family's reduced config (SmolLM at S = 2048, through
@@ -280,10 +284,34 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               1e-4 (a weight whose CPU gradient is roundoff, at most 1e-5
               of its leaf's largest entry, within 2 lr: Adam's normalised
               step turns either sign of roundoff into lr; counted).
+22. shapes -- the reference's input shapes (``launch/input_specs.py``) on
+              the card through ``launch/shapes.py::run_one``, for each of
+              the ten configs (DeepSeek-V2-236B at 2 layers,
+              ``SHAPE_LAYERS``): prefill_32k
+              (B = 1, 32768 rows; ``SHAPE_PREFILL_LAYERS`` cuts the depth
+              of the configs whose plain flash loop would not fit the
+              phase's time), decode_32k (one card's batch, ``card_batch``,
+              against seeded 32768-row caches at positions 32761-32767)
+              and long_500k (B = 1, full attention windowed at 8192 rows,
+              positions 524281-524287). One line a record: batch and cuts,
+              step seconds, flops, least bytes, the three terms, the
+              roofline share, ``mfu``, peak memory beside ``card_bytes``'
+              estimate. Checks: finite logits;
+              the decode kernel launched (attention layers) x 7 steps in a
+              decode run and never in a prefill; at layer 0 of each decode
+              cache the kernel, launched once on the whole batch as the
+              step launches it, within ``decode_attention_bound`` (MLA's
+              whole latent cache expanded); every share at most 1.05.
+23. entry points -- ``repro_torch.train_gnn_e2e.main`` at 40 steps
+              (orkut-s, SAGE, split beside dp) on the serial source and
+              with ``--plan-source pipelined``: its two asserts hold (the
+              loss falls; dp loads more rows), and the forward, the row
+              adjoint and the shuffle adjoint launched.
 
-Launch counts are set to 0 just before each trainer run, each serve run and
-each transformer train run and read just after (phase 19's in its rank's
-own process; phase 21's must all read 0); a kernel of
+Launch counts are set to 0 just before each trainer run, each serve run,
+each transformer train run, each shape run and the entry point's run and
+read just after (phase 19's in its rank's own process; phase 21's must all
+read 0; phase 22's layer-0 checks are taken back out); a kernel of
 the run's path that was never launched fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
 adjoint's ``csr_builds``) or whose shuffle-adjoint launches differ from its
@@ -312,12 +340,10 @@ from types import SimpleNamespace
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
-FP32_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
-BF16_FLOPS = 989e12  # H100 SXM dense bf16 on the tensor cores
-# 32-bit integer ops outside the tensor cores: the fp32 rate counts 128 lanes
-# an SM at 2 ops (a fused multiply-add); Hopper's SM has 64 INT32 lanes
-INT32_OPS = FP32_FLOPS / 4
+# the card's constants (H100 SXM, NVIDIA's data sheet, 700 W) and the kernel
+# bound: one home, ``launch/roofline.py``, which the roofline records read too
+from repro_torch.launch import roofline  # noqa: E402
+
 FWD_TOL = dict(rtol=3e-5, atol=3e-5)
 ADJ_TOL = dict(rtol=3e-4, atol=3e-4)
 PACKED_TOL = dict(rtol=3e-5, atol=3e-5)
@@ -438,35 +464,43 @@ def time_ms(fn, iters=30, warmup=5, flush=None):
     return statistics.median(s.elapsed_time(e) for s, e in events)
 
 
+def profiled(body, iters):
+    """The profiler's rows of what ``iters`` calls of ``body`` ran on the
+    card, after one call outside the window. The profiler now and then drops
+    a window's kernels (none, or 19 of 20 launches seen): each kernel must
+    show a whole number of launches a call, or the window is taken again. An
+    empty window first takes in any records that arrive late from the one
+    before."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    seen = []
+    for _ in range(5):
+        body()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                body()
+            torch.cuda.synchronize()
+        ran = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        if ran and all(e.count % iters == 0 for e in ran):
+            return ran
+        seen.append({e.key[:60]: e.count for e in ran})
+    check(False, f"the profiler lost launches in five windows running: {seen}")
+
+
 def device_ms(fn, iters=20, flush=None):
     """Device time of one ``fn`` call from ``torch.profiler``: the own time
     of every kernel and copy on the card over ``iters`` calls, per call,
     less what the ``flush`` alone takes. Unlike ``time_ms`` it leaves out
     the host's time to launch, which a short kernel can be bound by."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
 
     def per_call(body):
-        # the profiler now and then drops a window's kernels (none, or 19 of
-        # 20 launches seen): each kernel must show a whole number of
-        # launches a call, or the window is taken again. An empty window
-        # first takes in any records that arrive late from the one before.
-        seen = []
-        for _ in range(5):
-            body()
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
-                torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                for _ in range(iters):
-                    body()
-                torch.cuda.synchronize()
-            ran = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
-            if ran and all(e.count % iters == 0 for e in ran):
-                return sum(e.self_device_time_total for e in ran) / 1e3 / iters
-            seen.append({e.key[:60]: e.count for e in ran})
-        check(False, f"the profiler lost launches in five windows running: {seen}")
+        ran = profiled(body, iters)
+        return sum(e.self_device_time_total for e in ran) / 1e3 / iters
 
     if flush is None:
         return per_call(fn)
@@ -476,20 +510,9 @@ def device_ms(fn, iters=20, flush=None):
 def device_kernels(fn, calls=5):
     """What one ``fn`` call runs on the card, by the profiler over ``calls``
     calls: each kernel and copy's name (cut to 90 characters) and how many
-    times a call it ran. Fails if the profiler saw nothing on the card."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    ran = {e.key[:90]: e.count / calls for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA}
-    check(bool(ran), "the profiler saw no kernel on the card")
-    return ran
+    times a call it ran. Fails if five windows running each saw nothing on
+    the card or lost launches."""
+    return {e.key[:90]: e.count / calls for e in profiled(fn, calls)}
 
 
 def host_ms(fn, calls=100, repeats=3):
@@ -508,11 +531,6 @@ def host_ms(fn, calls=100, repeats=3):
         times.append(time.perf_counter() - t0)
     torch.cuda.synchronize()
     return 1e3 * statistics.median(times) / calls
-
-
-def bound(nbytes, ops, rate=FP32_FLOPS):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def papers_first_batch(seed=0):
@@ -583,7 +601,8 @@ def layer_pack(lp, P, dev):
 
 
 def record(results, name, out, want, fn, plain, library, nbytes, nops,
-           tol=None, rate=FP32_FLOPS, shape=None, flush=None, extra=None):
+           tol=None, rate=roofline.FP32_FLOPS, shape=None, flush=None,
+           extra=None):
     """Hold a kernel's output against its plain version's (``tol``: the
     rtol/atol of ``assert_close``, an elementwise bound tensor, or None for
     bitwise), check that a second launch repeats it bit for bit,
@@ -608,7 +627,7 @@ def record(results, name, out, want, fn, plain, library, nbytes, nops,
         else:
             torch.testing.assert_close(out, want, **tol)
     check(torch.equal(out, fn()), f"{name}: two launches differ")
-    bound_ms, bound_by = bound(nbytes, nops, rate)
+    bound_ms, bound_by = roofline.kernel_bound(nbytes, nops, rate)
     source, replaces = KERNELS[name]
     host = host_ms(fn)  # first: no profiler has run on this kernel yet
     row = dict(
@@ -826,7 +845,7 @@ def wavefront_phase(dev, first, results):
     plain = lambda: ref.expand_codes(vid, deg, key[0], key[1], fanout)  # noqa: E731
     ops = valid_rows * fanout * (28 + (fanout - 1) / 2)
     record(results, "wavefront_expand", fn(), plain(), fn, plain, None,
-           8 * rows + 16 + 4 * fanout * rows, ops, rate=INT32_OPS)
+           8 * rows + 16 + 4 * fanout * rows, ops, rate=roofline.INT32_OPS)
     # the launch floor: an empty kernel on the same grid, timed the same ways
     floor = lambda: wf.launch_floor(rows, fanout, dev)  # noqa: E731
     detail = {"floor_ms": time_ms(floor), "floor_device_ms": device_ms(floor),
@@ -1107,11 +1126,11 @@ def flash_decode_phase(dev, results):
         torch.testing.assert_close(library().reshape(B, H, Dv).float(), out.float(),
                                    **SDPA_TOL)
         want, tol = ref.decode_attention_bound(q, k, v, n.reshape(()))
-        # bf16: the K rows (D) and V rows (Dv), q and the output once
-        nbytes = 2 * (B * S * KV * (D + Dv) + B * H * (D + Dv))
-        flops = 2 * B * H * S * (D + Dv)
+        # the wrapper's own counts, which the roofline records read too
+        nbytes = fd.decode_bytes(B, H, KV, S, D, Dv, q.element_size())
+        flops = fd.decode_flops(B, H, S, D, Dv)
         record(results, "flash_decode", out, want, fn, plain, library,
-               nbytes, flops, tol, rate=BF16_FLOPS,
+               nbytes, flops, tol, rate=roofline.PEAK_FLOPS,
                shape=None if arch == SERVE_ARCH else f"{arch}: {label}",
                flush=flush,
                extra={"arch": arch, "chunk": fd.decode_chunk(B, KV, S, H // KV),
@@ -3125,14 +3144,6 @@ FAMILY_CUTS = {"deepseek-v2-236b": "depth cut from 60 to 2 layers (the dense "
                                    "unchanged: 60 layers are 439 GiB in bf16"}
 
 
-def attention_layers(cfg):
-    """Layers whose decode launches the decode kernel: every attention
-    layer, none of an SSM model's, none with MLA absorbed."""
-    if cfg.family == "ssm" or (cfg.use_mla and cfg.opt_mla_absorb):
-        return 0
-    return cfg.num_layers
-
-
 def _leaves(cache):
     """A layer cache's tensors (a hybrid layer's nest included)."""
     for v in cache.values():
@@ -3196,6 +3207,7 @@ def family_parity(dev, arch):
     import torch
 
     from repro_torch import serve
+    from repro_torch.launch.shapes import attention_layers
     from repro_torch.models.transformer.model import init_params
 
     cfg = serve.serve_config(arch, reduced=True)
@@ -3266,6 +3278,7 @@ def families_phase(dev, total):
     import torch
 
     from repro_torch import serve
+    from repro_torch.launch.shapes import attention_layers
     from repro_torch.models.transformer.model import init_caches, init_params
 
     gc.collect()
@@ -3540,6 +3553,7 @@ def lm_train_phase(dev, total):
     import torch
 
     from repro_torch import serve
+    from repro_torch.launch.shapes import roofline_record
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3574,7 +3588,13 @@ def lm_train_phase(dev, total):
             total[k] += v
         rows = cfg.num_patches + text
         step_s = statistics.median(ms[1:]) / 1e3
-        model_flops = 6 * cfg.active_param_count() * batch * rows
+        # the roofline of train_4k at this batch: flops counted on the meta
+        # device (no second run), the least bytes from shapes
+        rec = roofline_record(cfg, model, "train_4k", batch, rows, step_s)
+        terms, share = rec["roofline"], rec["roofline_share"]
+        model_flops = terms["model_flops"]
+        check(share <= SHARE_LIMIT,
+              f"lm-train {arch}: roofline share {share} above {SHARE_LIMIT}")
         emit("lm_train", {
             "arch": arch, "family": cfg.family, "layers": cfg.num_layers,
             "reduced": TRAIN_CUTS.get(arch), "dtype": cfg.dtype,
@@ -3584,8 +3604,9 @@ def lm_train_phase(dev, total):
             "aux": auxes.tolist(), "step_ms": ms, "first_run_step_ms": first_ms,
             "step_ms_median": step_s * 1e3,
             "tokens_per_s": batch * rows / step_s,
-            "model_flops": model_flops,
-            "mfu": model_flops / (step_s * BF16_FLOPS),
+            "model_flops": model_flops, "mfu": rec["mfu"],
+            "flops": rec["flops"], "bytes_accessed": rec["bytes_accessed"],
+            "roofline": terms, "roofline_share": share,
             "peak_over_phase_baseline": peak,
             "launches": sum(launches.values()),
             "model_s": time.perf_counter() - t_model,
@@ -3602,12 +3623,194 @@ def lm_train_phase(dev, total):
                             "resident_bytes": baseline, "card": CARD})
 
 
+#: phase 22's shapes beside phase 21's train_4k, each run through
+#: ``launch/shapes.py::run_one`` for every config
+SHAPE_RUNS = ("prefill_32k", "decode_32k", "long_500k")
+#: every shape's depth cuts (widths unchanged): DeepSeek-V2-236B's 60 layers
+#: are 439 GiB of bf16 weights; 2 (the dense lead layer and one MoE layer)
+#: fit the card
+SHAPE_LAYERS = {"deepseek-v2-236b": 2}
+#: prefill_32k's depth cuts (widths unchanged): the plain flash loop visits
+#: 528 live (1, H, 1024, 1024) float32 blocks a layer at 32768 rows, 0.16-0.7
+#: s a layer by heads (0.24 s at SmolLM's 9 heads, host-bound; NVIDIA H100
+#: 80GB HBM3 at 700 W), and
+#: a prefill runs twice (a warm call, a timed one): the
+#: attention configs run 8 layers (Granite's 52 would take 36 s a call),
+#: Hymba (a 1024-row window), Mamba2 and 236B's 2 layers run whole
+SHAPE_PREFILL_LAYERS = {**SHAPE_LAYERS, **{arch: 8 for arch in (
+    "smollm-135m", "gemma-7b", "granite-20b", "phi3-mini-3.8b",
+    "musicgen-medium", "deepseek-v2-lite-16b", "llava-next-mistral-7b")}}
+#: a roofline share above this means the count is wrong: the step ran faster
+#: than the card's least time for it
+SHARE_LIMIT = 1.05
+#: bytes of float32 copies a layer-0 check's plain version may hold at a
+#: time (at least one sequence's)
+CHECK_BYTES = 2e9
+
+
+def layer0_check(dev, arch, shape, gen):
+    """A ``run_one`` ``after`` hook: the decode kernel held against
+    ``ref.decode_attention_bound`` on layer 0 of the run's cache, at its
+    full valid length, with a seeded q: the whole batch in one launch, as
+    the step launches it (MLA's whole latent cache expanded to per-head keys
+    and values, ``mla_kv_expand``, as the step expands it: ``card_batch``
+    holds room for it), the plain version a few sequences at a time. Its
+    launches, read as the counter's rise (``layer0_launches``), compare and
+    do not serve: the phase takes them out of the run's counts."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref
+    from repro_torch.models.transformer.blocks import mla_kv_expand
+
+    out = {}
+
+    @torch.inference_mode()
+    def after(model, cfg, specs):
+        cache = specs["caches"][0]
+        if cfg.family == "ssm":
+            return
+        if cfg.family == "hybrid":
+            cache = cache["attn"]
+        H = cfg.num_heads
+        if cfg.use_mla:
+            D, Dv = cfg.qk_nope_dim + cfg.qk_rope_dim, cfg.v_head_dim
+            k, v = mla_kv_expand(model.layers()[0].attn, cfg, cache["c_kv"],
+                                 cache["k_rope"])
+        else:
+            k, v = cache["k"], cache["v"]
+            D = Dv = cfg.head_dim
+        B, S, KV = k.shape[:3]
+        q = torch.randn(B, H, D, device=dev, generator=gen).to(k.dtype)
+        n = torch.tensor([S], dtype=torch.int32, device=dev)
+        n0 = fd.LAUNCHES["flash_decode"]
+        got = fd.flash_decode(q, k, v, n)
+        launched = fd.LAUNCHES["flash_decode"] - n0
+        # float32 K, V repeated to H heads, and |V|, a sequence
+        per_seq = 4 * S * H * (D + 2 * Dv)
+        step = max(1, int(CHECK_BYTES // per_seq))
+        err = rel = 0.0
+        for i in range(0, B, step):
+            want, tol = ref.decode_attention_bound(
+                q[i:i + step], k[i:i + step], v[i:i + step], n.reshape(()))
+            diff = (got[i:i + step].float() - want).abs()
+            check(bool((diff <= tol).all()),
+                  f"shapes {arch} {shape}: the decode kernel at layer 0 is "
+                  f"{float(diff.max())} off, outside its bound")
+            err = max(err, float(diff.max()))
+            rel = max(rel, float((diff / tol).max()))
+        out.update(layer0_launches=launched, layer0_sequences=B, layer0_rows=S,
+                   layer0_chunk=fd.decode_chunk(B, KV, S, H // KV),
+                   layer0_max_abs_err=err, layer0_max_err_over_bound=rel)
+
+    return after, out
+
+
+def shapes_phase(dev, total):
+    """Phase 22: the reference's input shapes on the card. For each of the
+    ten configs, ``run_one`` of ``prefill_32k`` (B = 1, the depth cut of
+    ``SHAPE_PREFILL_LAYERS``), ``decode_32k`` (one card's batch,
+    ``card_batch``) and ``long_500k`` (B = 1; full attention windowed at
+    8192 rows, the ring 64 windows past its first row), DeepSeek-V2-236B at
+    2 layers, each freed before the next, one line a record. Checks: finite
+    logits; the decode kernel launched (attention layers) x 7 steps in a
+    decode run and never in a prefill (counted from 0 just before each
+    run, less the layer-0 check's launches, and as ``run_one``'s own
+    count); the kernel at layer 0 of each decode cache within its bound
+    (``layer0_check``); every roofline share at most ``SHARE_LIMIT``. The
+    runs' launches are added to ``total``."""
+    import torch
+
+    from repro_torch.configs import list_archs
+    from repro_torch.launch.shapes import DECODE_TIMED, DECODE_WARM, run_one
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(22)
+    n = 0
+    for arch in list_archs():
+        for shape in SHAPE_RUNS:
+            t_run = time.perf_counter()
+            decode = shape != "prefill_32k"
+            after, checked = layer0_check(dev, arch, shape, gen) if decode \
+                else (None, {})
+            torch.cuda.synchronize()
+            reset_launches()
+            rec = run_one(arch, shape, dev, after=after,
+                          layers=(SHAPE_LAYERS if decode
+                                  else SHAPE_PREFILL_LAYERS).get(arch))
+            launches = read_launches()
+            launches["flash_decode"] -= checked.get("layer0_launches", 0)
+            for k, v in launches.items():
+                total[k] += v
+            want = rec["attention_layers"] * (DECODE_WARM + DECODE_TIMED) \
+                if decode else 0
+            check(launches["flash_decode"] == want == rec["launches"],
+                  f"shapes {arch} {shape}: {launches['flash_decode']} "
+                  f"decode-kernel launches, expected {want}")
+            check(not any(v for k, v in launches.items() if k != "flash_decode"),
+                  f"shapes {arch} {shape}: launches {launches}")
+            check(rec["logits_finite"], f"shapes {arch} {shape}: non-finite logits")
+            check(rec["roofline_share"] <= SHARE_LIMIT,
+                  f"shapes {arch} {shape}: roofline share "
+                  f"{rec['roofline_share']} above {SHARE_LIMIT}")
+            check(not decode or rec["attention_layers"] == 0
+                  or "layer0_max_abs_err" in checked,
+                  f"shapes {arch} {shape}: layer 0 not checked")
+            gc.collect()
+            torch.cuda.empty_cache()
+            emit("shape", {**rec, **checked, "card": CARD,
+                           "run_s": time.perf_counter() - t_run})
+            n += 1
+    emit("shapes", {"records": n, "wall_s": time.perf_counter() - t_phase,
+                    "card": CARD})
+
+
+def entry_points_phase(dev, total):
+    """Phase 23: ``repro_torch.train_gnn_e2e.main`` on the card at its
+    defaults (orkut-s, SAGE, P = 4, split beside dp, the partitioned cache)
+    for 40 steps, on the serial plan source and once with
+    ``--plan-source pipelined``, each checkpointing into a temporary
+    directory, with the counts at 0 just before and read just after: its
+    two asserts hold (the last 20 losses below the first 20, dp loading
+    more rows), and the forward, the row adjoint and the shuffle adjoint
+    launched. The launches are added to ``total``."""
+    import torch
+
+    from repro_torch import train_gnn_e2e
+
+    for source in ("serial", "pipelined"):
+        t_run = time.perf_counter()
+        with tempfile.TemporaryDirectory() as ckpt:
+            torch.cuda.synchronize()
+            reset_launches()
+            out = train_gnn_e2e.main(["--steps", "40", "--plan-source", source,
+                                      "--ckpt-dir", ckpt])
+            torch.cuda.synchronize()
+            launches = read_launches()
+        for k, v in launches.items():
+            total[k] += v
+        for k in ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "shuffle_bwd"):
+            check(launches[k] > 0, f"train_gnn_e2e {source}: {k} never launched")
+        check(out["steps"] == 40 and "first20" in out and "dedup_ratio" in out,
+              f"train_gnn_e2e {source}: {out['steps']} steps")
+        emit("train_gnn_e2e", {
+            "plan_source": source, "device": out["device"],
+            "steps": out["steps"], "first20": out["first20"],
+            "last20": out["last20"], "dedup_ratio": out["dedup_ratio"],
+            "split_loaded": out["split_loaded"], "dp_loaded": out["dp_loaded"],
+            "loop_s": out["seconds"], "launches": launches,
+            "wall_s": time.perf_counter() - t_run, "card": CARD})
+
+
 def main():
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    t_smoke = time.perf_counter()
     import numpy as np
 
     from dataclasses import replace
@@ -3774,6 +3977,13 @@ def main():
     # ---- 21. the transformer train step ----------------------------------
     lm_train_phase(dev, total)
 
+    # ---- 22. the reference's input shapes ---------------------------------
+    shapes_phase(dev, total)
+
+    # ---- 23. the entry points ----------------------------------------------
+    entry_points_phase(dev, total)
+
+    emit("smoke", {"wall_s": time.perf_counter() - t_smoke, "card": CARD})
     for k, r in results.items():
         r["launches"] = total[k]
     # the walk's builds (three kernels each) on the main paths

@@ -4,8 +4,9 @@
 
 For a CUDA tensor it launches the kernel or raises; for a CPU tensor it runs
 the plain version (``ref.decode_attention_ref``), the only reason it ever
-does. It checks device, dtype, shapes and strides and raises on anything the
-kernel does not take, allocates the output with ``torch.empty`` (and the
+does; on a ``meta`` tensor it raises. It checks device, dtype, shapes and
+strides and raises on anything the kernel does not take, allocates the
+output with ``torch.empty`` (and the
 split-K workspace once per shape and stream), and counts its launches in
 ``LAUNCHES``.
 
@@ -78,6 +79,22 @@ def decode_chunk(B: int, KV: int, S: int, G: int = 1) -> int:
         if chunk == 16 or -(-S // chunk) >= want:
             return chunk
         parts += 1
+
+
+def decode_flops(B: int, H: int, L: int, D: int, Dv: int) -> int:
+    """Operations of one call over ``L`` valid cache rows: the scores
+    (2*D a row and head) and the value product (2*Dv), B*H query heads.
+    Phase 3's bound and ``launch/roofline.py``'s count of a decode step
+    read this one count (``torch.utils.flop_counter`` never sees a ctypes
+    launch)."""
+    return 2 * B * H * L * (D + Dv)
+
+
+def decode_bytes(B: int, H: int, KV: int, L: int, D: int, Dv: int,
+                 itemsize: int) -> int:
+    """Least bytes of one call: the ``L`` valid K rows (D) and V rows (Dv)
+    of each (b, kv) pair read once, q read and the output written once."""
+    return itemsize * (B * L * KV * (D + Dv) + B * H * (D + Dv))
 
 
 def _check(q, k, v, cache_len):
@@ -191,6 +208,9 @@ def flash_decode(q, k, v, cache_len):
     """
     dev = q.get_device()
     if dev < 0:  # not on a card: every check, then the plain version
+        if q.device.type != "cpu":  # a meta tensor has no values to run on
+            raise ValueError(f"flash_decode runs on a card or the CPU, not on "
+                             f"{q.device}")
         _check(q, k, v, cache_len)
         return ref.decode_attention_ref(q, k, v, cache_len.reshape(()))
     key = (q.dtype, k.dtype, v.dtype, q.shape, k.shape, v.shape, q.stride(),

@@ -206,8 +206,10 @@ def _full_attention(q, k, v, cfg):
 
 def _decode_position(x, pos, S_phys):
     """(positions (B, 1), ring slot (1,), cache_len ()) of a decode step at
-    ``pos``, all on the device."""
-    pos = torch.as_tensor(pos, device=x.device).reshape(())
+    ``pos`` (an int, or an integer tensor: an int32 one, as
+    ``launch/input_specs.py`` makes it, is taken as int64), all on the
+    device."""
+    pos = torch.as_tensor(pos, device=x.device).reshape(()).long()
     return (pos.expand(x.shape[0], 1), (pos % S_phys).reshape(1),
             torch.clamp(pos + 1, max=S_phys))
 
@@ -259,6 +261,20 @@ def _check_decode(mode, cache, pos):
         raise ValueError("decode needs a cache and a position")
 
 
+def mla_kv_expand(p, cfg: ArchConfig, c_kv, k_rope):
+    """MLA's per-head keys (B, T, H, dn + dr) and values (B, T, H, dv) from
+    the latents ``c_kv`` (B, T, kv_lora) and the shared ``k_rope`` (B, T,
+    dr): the two products with ``wkv_b``'s key and value columns."""
+    B, T, lora = c_kv.shape
+    H, dn, dr, dv = (cfg.num_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    w = p["wkv_b"].view(lora, H, dn + dv)
+    k_nope = (c_kv @ w[..., :dn].reshape(lora, H * dn)).view(B, T, H, dn)
+    v = (c_kv @ w[..., dn:].reshape(lora, H * dv)).view(B, T, H, dv)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
+    return k, v
+
+
 def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
               pos=None):
     """DeepSeek-V2 multi-head latent attention. Returns (out, cache); the
@@ -302,20 +318,11 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
                             cfg.rope_theta)[:, :, 0, :]
         return c_kv, k_rope
 
-    def kv_expand(c_kv, k_rope):
-        # c_kv: (B, T, lora), k_rope: (B, T, dr) shared across heads
-        T = c_kv.shape[1]
-        w = p["wkv_b"].view(lora, H, dn + dv)
-        k_nope = (c_kv @ w[..., :dn].reshape(lora, H * dn)).view(B, T, H, dn)
-        v = (c_kv @ w[..., dn:].reshape(lora, H * dv)).view(B, T, H, dv)
-        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, T, H, dr)], dim=-1)
-        return k, v
-
     if mode in ("train", "prefill"):
         positions = torch.arange(S, device=x.device)[None, :]
         c_kv, k_rope = latents(positions)
         q = q_proj(positions)
-        k, v = kv_expand(c_kv, k_rope)
+        k, v = mla_kv_expand(p, cfg, c_kv, k_rope)
         out = (_full_attention(q, k, v, cfg).reshape(B, S, H * dv) @ p["wo"]
                ).to(x.dtype)
         if mode == "train":
@@ -346,7 +353,7 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
         o_lat = torch.einsum("bhqs,bsl->bqhl", prob.to(cc.dtype), cc)
         out = torch.einsum("bqhl,lhd->bqhd", o_lat, w_v)  # (B,1,H,dv)
     else:
-        k, v = kv_expand(cc, cr)  # decode-time expansion of the latent cache
+        k, v = mla_kv_expand(p, cfg, cc, cr)  # decode-time expansion
         out = attention_decode(q, k, v, cache_len)
     out = out.reshape(B, 1, H * dv)
     return (out @ p["wo"]).to(x.dtype), cache

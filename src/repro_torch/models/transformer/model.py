@@ -97,6 +97,27 @@ def init_params(cfg: ArchConfig, generator: torch.Generator) -> TransformerLM:
                          blocks[:n_lead])
 
 
+def empty_params(cfg: ArchConfig, device) -> TransformerLM:
+    """A ``TransformerLM`` of ``init_params``' names, shapes and dtypes with
+    uninitialised parameters: on ``device="meta"`` none has storage, so a
+    full-width model of any size costs nothing, and its forward and
+    backward run shapes only (what ``launch/roofline.py`` counts)."""
+    check_arch(cfg)
+    dtype = _dtype(cfg)
+
+    def leaves(shapes: dict) -> dict:
+        return {name: torch.empty(shape, dtype=leaf_dtype(name, shape, dtype),
+                                  device=device)
+                for name, shape in _flatten(shapes).items()}
+
+    top = leaves(_top_shapes(cfg))
+    blocks = [Block(_unflatten(leaves(block_shapes(cfg, i))))
+              for i in range(cfg.num_layers)]
+    n_lead = _n_lead(cfg)
+    return TransformerLM(cfg, top["embed"], top["final_norm"], blocks[n_lead:],
+                         top.get("lm_head"), blocks[:n_lead])
+
+
 def _from_numpy(a) -> torch.Tensor:
     """A numpy array (bfloat16 from ``ml_dtypes`` included) as a tensor."""
     a = np.asarray(a)
@@ -301,14 +322,15 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     The NLL is the mean over every target of the float32 log-softmax:
     ``F.cross_entropy`` on float32 logits, the reference's ``log_softmax``
     + ``take_along_axis`` in one call. Codebook targets are (B, S-1, nc),
-    one per codebook; a VLM's text logits start after the patch rows."""
+    one per codebook; a VLM's text logits start after the patch rows. The
+    token ids may be int32, as ``launch/input_specs.py`` makes them."""
     cfg = model.cfg
     logits, _, aux = forward(model, tokens, patches=patches, mode="train")
     if cfg.num_patches and patches is not None:
         logits = logits[:, patches.shape[1]:]
     logits = logits[:, :-1].float()
     loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size),
-                           tokens[:, 1:].reshape(-1))
+                           tokens[:, 1:].reshape(-1).long())
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 

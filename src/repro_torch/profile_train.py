@@ -11,9 +11,11 @@ takes two train steps (``make_train_step`` + ``adamw(1e-3)`` on the serve
 path's seeded prompt draw of ``--batch`` x ``--seq`` tokens, a VLM's patch
 rows before them), then one more under ``torch.profiler``, and prints one
 JSON line: the card, the step reduced by ``profile_decode.trace_per_step``
-(wall, device ms, idle share, torch calls, top kernels) and the device ms
+(wall, device ms, idle share, torch calls, top kernels), the device ms
 of kernel groups (products, elementwise, copies, reductions, indexing,
-other). Needs a card.
+other), and the step's roofline from ``launch/roofline.py`` (the flops
+counted on the meta device, the least bytes, ``model_flops``) with the
+share of the step's device time it bounds. Needs a card.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import serve
 from repro_torch.configs import list_archs
+from repro_torch.launch.shapes import roofline_record
 from repro_torch.models.transformer.model import init_params, make_train_step
 from repro_torch.profile_decode import trace_per_step
 from repro_torch.train.optimizer import adamw
@@ -85,11 +88,16 @@ def main(argv=None) -> dict:
     for e in prof.key_averages():
         if e.device_type == torch.autograd.DeviceType.CUDA:
             groups[group_of(e.key)] += e.self_device_time_total / 1e3
+    rows = cfg.num_patches + args.seq
     out = {
         "card": serve.device_line(), "arch": cfg.name, "layers": cfg.num_layers,
-        "batch": args.batch, "rows": cfg.num_patches + args.seq,
+        "batch": args.batch, "rows": rows,
         **trace_per_step(prof, wall, 1), "device_ms_by_group": groups,
     }
+    rec = roofline_record(cfg, model, "train_4k", args.batch, rows,
+                          out["device_ms_per_step"] / 1e3)
+    out["roofline"] = rec["roofline"]
+    out["roofline_share_of_device_time"] = rec["roofline_share"]
     print(json.dumps({"profile_train": out}), flush=True)
     return out
 

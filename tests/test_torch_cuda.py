@@ -595,6 +595,48 @@ def test_cuda_flash_decode_at_the_families_heads(cuda, B, H, KV, D, Dv, S,
     assert fd.LAUNCHES["flash_decode"] == 6
 
 
+#: the reference's decode shapes: a 32768-row cache at SmolLM-135M's heads
+#: (B = 8, KV = 3, G = 3) and Granite-20B's (KV = 1, G = 48), and a
+#: long_500k ring of 8192 rows (LONG_WINDOW) at Gemma-7B's heads (D = 256),
+#: and DeepSeek-V2-Lite's expanded MLA heads (D = 192, Dv = 128) over 272
+#: (b, kv) pairs, where the 32768 rows run as one chunk a pair, as at
+#: decode_32k's batch: B, H, KV, D, Dv, S
+DECODE_LONG_CASES = [
+    (8, 9, 3, 64, 64, 32768),
+    (8, 48, 1, 128, 128, 32768),
+    (1, 16, 16, 256, 256, 8192),
+    (17, 16, 16, 192, 128, 32768),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,Dv,S", DECODE_LONG_CASES)
+def test_cuda_flash_decode_at_the_reference_decode_shapes(cuda, B, H, KV, D, Dv,
+                                                          S, dtype):
+    """The decode kernel at S = 32768 and on a full 8192-row ring, cache_len
+    1, mid and S: within ``decode_attention_bound`` of the f32 result,
+    repeating bit for bit, one launch a call."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(H * D + S)
+    q = torch.randn(B, H, D, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(B, S, KV, D, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(B, S, KV, Dv, device=cuda, generator=gen).to(dtype)
+    fd.reset_launches()
+    for L in (1, S // 2 + 3, S):
+        n = torch.tensor([L], dtype=torch.int32, device=cuda)
+        out = fd.flash_decode(q, k, v, n)
+        assert out.shape == (B, H, Dv)
+        want, bound = fd_ref.decode_attention_bound(q, k, v, n.reshape(()),
+                                                    **DECODE_TOL)
+        diff = (out.float() - want).abs()
+        assert bool((diff <= bound).all()), (L, float(diff.max()))
+        assert torch.equal(out, fd.flash_decode(q, k, v, n))
+    assert fd.LAUNCHES["flash_decode"] == 6
+
+
 FAMILY_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v2-236b", "mamba2-2.7b",
                 "hymba-1.5b", "musicgen-medium", "llava-next-mistral-7b"]
 

@@ -184,6 +184,12 @@ def test_port_imports_no_jax_and_no_reference_package():
         "src/repro_torch/graph/cache.py",
         "src/repro_torch/launch/sharding.py",
         "src/repro_torch/launch/spmd.py",
+        "src/repro_torch/launch/roofline.py",
+        "src/repro_torch/launch/input_specs.py",
+        "src/repro_torch/launch/shapes.py",
+        "src/repro_torch/train_gnn_e2e.py",
+        "src/repro_torch/quickstart.py",
+        "src/repro_torch/partition_study.py",
     } <= scanned
     for path in files:
         for name in _imports(path):
