@@ -2,7 +2,7 @@
 """Drive the PyTorch port's paths on one CUDA card: the split-parallel
 training paths (the 2-D mesh in sim form, checkpoint and resume, and the
 spmd form over torch.distributed included) and the transformer serve and
-train paths.
+train paths, serving across ranks included.
 
     python3 chip_smoke.py        # from the repo root, on a machine with a card
 
@@ -52,7 +52,11 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               S=4096, f32 (2e-4/2e-5) and bf16 (the f32 result from the
               same inputs, within the rounding of p and of the output),
               cache_len 1, mid and S; timed in bf16 with a full cache, cold
-              in L2.
+              in L2. Its partial output (o float32, m, d; the call a
+              sequence-sharded decode makes) at phase 24's shapes, f32 and
+              bf16: a shard with no valid row exactly o = 0, m = -1e30,
+              d = 0; else o within the bound, m and d within 2e-4/2e-5 of
+              the plain version; bit for bit on repeat.
 4. main    -- the trainer's main path at full width: papers-s, SAGE (128 ->
               256 -> 256 -> 16), fan-outs 15,15,15, batch 1024, P=4 splits in
               sim form; 3 epochs of 3 steps on the serial plan source and on
@@ -307,10 +311,29 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               with ``--plan-source pipelined``: its two asserts hold (the
               loss falls; dp loads more rows), and the forward, the row
               adjoint and the shuffle adjoint launched.
+24. tp     -- the transformer across ranks on the serve path: Granite-20B
+              (MQA, its k/v sharded by sequence) and DeepSeek-V2-Lite-16B
+              (MLA latents sharded by sequence, experts sharded) at full
+              width cut to 2 layers, 8 prompts of 1024 rows, 8 decode
+              steps: the unsharded f32 run; the (1, 1) mesh over NCCL at
+              world size 1 (a process group of this process) bitwise it;
+              the (1, 2) mesh of two ranks sharing ``cuda:0`` over gloo
+              (every collective through the host), f32 logits within 1e-4
+              of the unsharded run with equal tokens, each rank's
+              parameters and caches its specs' slices, the decode kernel's
+              partial output launched (attention layers) x 8 times a rank
+              and its whole output never, each rank's collectives (calls
+              and result bytes by axis and kind) and peak, and its build
+              of the weights one leaf at a time (its peak then within its
+              slices and one leaf); bf16 tokens and ms a step, printed;
+              then f32 again with the allocator's history on: what is
+              alive at a rank's peak (``obs/memory.py``).
 
 Launch counts are set to 0 just before each trainer run, each serve run,
 each transformer train run, each shape run and the entry point's run and
-read just after (phase 19's in its rank's own process; phase 21's must all
+read just after (phases 19's and 24's ranks' in their own processes; the
+decode kernel's row counts phase 24's partial-output launches too, and
+gives them apart as ``partial_launches``; phase 21's must all
 read 0; phase 22's layer-0 checks are taken back out); a kernel of
 the run's path that was never launched fails the script, and so does a trainer run whose row-adjoint launches
 differ from its walk builds (``src_sorted_csr``, reported as the row
@@ -326,6 +349,7 @@ the ``kernels`` JSON, the nvidia-smi line and the result line.
 """
 import contextlib
 import copy
+import functools
 import gc
 import json
 import os
@@ -1057,6 +1081,72 @@ DECODE_SHAPES = {
 #: of the output (at most 2^-7 of it) plus 2e-3 on outputs of about 0.03-0.05
 SDPA_TOL = dict(rtol=1e-2, atol=2e-3)
 SERVE_ARCH, SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = "smollm-135m", 8, 1024, 64
+#: the decode kernel's partial output at phase 24's shapes: one rank's 517
+#: rows of the 1034-row cache (8 prompts of 1024 rows and 9 new tokens,
+#: rounded up to a multiple of the two ranks), sharded by sequence over two:
+#: Granite-20B's MQA k/v and DeepSeek-V2-Lite's latents expanded to its 16
+#: heads (D = 192, Dv = 128)
+PARTIAL_SHAPES = {
+    "granite-20b": dict(B=8, H=48, KV=1, D=128, S=517),
+    "deepseek-v2-lite-16b": dict(B=8, H=16, KV=16, D=192, Dv=128, S=517),
+}
+
+
+def flash_decode_partial_check(dev):
+    """Phase 3, the decode kernel's partial output (``flash_decode_partial``:
+    o float32, m, d) at ``PARTIAL_SHAPES`` in f32 and bf16: at cache_len 0
+    (a shard with no valid row) exactly o = 0, m = -1e30 and d = 0, as its
+    plain version gives them; at 1, mid and S, o within
+    ``ref.decode_attention_bound`` of the f32 result and m and d within
+    2e-4/2e-5 of the plain version on float32 copies; bit for bit on repeat.
+    Its launches here are a check's, not the path's."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref
+
+    gen = torch.Generator(device=dev).manual_seed(24)
+    for arch, sh in PARTIAL_SHAPES.items():
+        B, H, KV, D, S = (sh[k] for k in ("B", "H", "KV", "D", "S"))
+        Dv = sh.get("Dv", D)
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, H, D, device=dev, generator=gen).to(dtype)
+            k = torch.randn(B, S, KV, D, device=dev, generator=gen).to(dtype)
+            v = torch.randn(B, S, KV, Dv, device=dev, generator=gen).to(dtype)
+            errs = {}
+            for L in (0, 1, S // 2 + 3, S):
+                n = torch.tensor([L], dtype=torch.int32, device=dev)
+                o, m, d = fd.flash_decode_partial(q, k, v, n)
+                _, want_m, want_d = ref.decode_attention_partial_ref(
+                    q.float(), k.float(), v.float(), n.reshape(()))
+                if L == 0:
+                    check(bool((o == 0).all()) and bool((d == 0).all())
+                          and bool((m == -1e30).all()),
+                          f"flash_decode partial {arch} {dtype}: a shard with "
+                          "no valid row is not o = 0, m = -1e30, d = 0")
+                    errs[L] = 0.0
+                else:
+                    want, tol = ref.decode_attention_bound(q, k, v,
+                                                           n.reshape(()))
+                    diff = (o - want).abs()
+                    check(bool((diff <= tol).all()),
+                          f"flash_decode partial {arch} {dtype} L={L}: o "
+                          f"{float(diff.max())} outside the bound")
+                    torch.testing.assert_close(m, want_m, rtol=2e-4, atol=2e-5)
+                    torch.testing.assert_close(d, want_d, rtol=2e-4, atol=2e-5)
+                    errs[L] = float(diff.max())
+                check(all(torch.equal(a, b) for a, b in zip(
+                    (o, m, d), fd.flash_decode_partial(q, k, v, n))),
+                    f"flash_decode partial {arch} {dtype} L={L}: two "
+                    "launches differ")
+            n = torch.tensor([S], dtype=torch.int32, device=dev)
+            emit("kernel_check", {
+                "name": f"flash_decode partial ({arch}: B={B} H={H} KV={KV} "
+                        f"D={D} Dv={Dv} S={S}, {dtype})",
+                "max_abs_err": errs, "empty_shard": "o = 0, m = -1e30, d = 0",
+                "repeats": True,
+                "ms": time_ms(lambda: fd.flash_decode_partial(q, k, v, n)),
+            })
 
 
 def flash_decode_phase(dev, results):
@@ -3804,6 +3894,205 @@ def entry_points_phase(dev, total):
             "wall_s": time.perf_counter() - t_run, "card": CARD})
 
 
+#: phase 24: the configs, their depth cut, the batch, the prompt rows and the
+#: new tokens (8 decode steps)
+TP_ARCHS = ("granite-20b", "deepseek-v2-lite-16b")
+TP_LAYERS, TP_BATCH, TP_PROMPT, TP_NEW = 2, 8, 1024, 9
+#: the sharded float32 serve run against the unsharded one on the card
+TP_TOL = dict(rtol=1e-4, atol=1e-4)
+#: the allocator's rounding (512 bytes an allocation) and the generator's
+#: state, beside a rank's slices and one leaf while it builds its weights
+TP_BUILD_SLACK = 1 << 20
+
+
+def tp_phase(dev, total):
+    """Phase 24: the transformer across ranks on the serve path
+    (``serve.generate`` with a mesh, ``serve.serve_rank``), Granite-20B (MQA:
+    its k/v cache sharded by sequence) and DeepSeek-V2-Lite-16B (MLA: its
+    latents sharded by sequence; its experts sharded) at full width cut to
+    ``TP_LAYERS`` layers, weights seeded on the card, 8 prompts of 1024 rows
+    and 8 decode steps. (a) The unsharded float32 serve run, its decode
+    kernel launched once an attention layer and step. (b) The (1, 1) mesh
+    over NCCL at world size 1 (a process group of this process alone):
+    tokens and step logits bitwise (a). (c) The (1, 2) mesh, two ranks
+    sharing ``cuda:0`` over gloo (``launch(shared_card=True)``; gloo takes
+    no CUDA tensor for an all-gather, so every collective copies through
+    the host, and the line says so), float32: each rank's logits within
+    ``TP_TOL`` of (a) with equal tokens, each rank's parameters half of each
+    sharded leaf, the decode kernel's partial output launched once an
+    attention layer and step on each rank and its whole output never, each
+    rank's collectives by axis and kind (calls and result bytes) and peak
+    memory, and each rank's peak while it builds its weights within its
+    slices and one whole leaf (``TP_BUILD_SLACK`` beside); then bf16, its
+    tokens and decode ms a step (CUDA events, ranks sharing one card and
+    copying through the host: no measure of a mesh's speed); then f32 once
+    more with ``serve_rank(profile_peak=True)``: the allocations alive at
+    each rank's peak over ``generate`` (a profile run, its logits checked,
+    its times not kept). Launch counts are set to 0 just before each serve
+    run and read just after, the ranks' in their own processes; all are
+    added to ``total``."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import serve
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import spmd
+    from repro_torch.launch.mesh import abstract_mesh
+    from repro_torch.launch.shapes import attention_layers
+    from repro_torch.launch.sharding import cache_slice, param_slice
+    from repro_torch.models.transformer.model import (
+        empty_params,
+        init_caches,
+        init_params,
+    )
+
+    t_phase = time.perf_counter()
+    cfgs = {arch: replace(get_arch(arch), num_layers=TP_LAYERS, dtype="float32")
+            for arch in TP_ARCHS}
+    steps = TP_NEW - 1
+    # (a) unsharded
+    want = {}
+    for arch, cfg in cfgs.items():
+        model = init_params(cfg, torch.Generator(dev).manual_seed(0))
+        prompts = torch.as_tensor(serve.make_prompts(cfg, TP_BATCH, TP_PROMPT, 0),
+                                  device=dev)
+        torch.cuda.synchronize()
+        reset_launches()
+        want[arch] = serve.generate(model, prompts, TP_NEW)
+        launches = read_launches()
+        for k in total:
+            total[k] += launches[k]
+        check(launches["flash_decode"] == attention_layers(cfg) * steps,
+              f"tp {arch}: {launches['flash_decode']} decode-kernel launches "
+              "unsharded")
+        del model, prompts
+    torch.cuda.empty_cache()
+    # (b) the (1, 1) mesh over NCCL, in this process
+    with tempfile.TemporaryDirectory(prefix="tp-") as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "rdv"), 1), rank=0, world_size=1, device_id=dev)
+        try:
+            for arch, cfg in cfgs.items():
+                reset_launches()
+                out = serve.serve_rank(dev, cfg, (1, 1), TP_NEW,
+                                       batch=TP_BATCH, prompt_len=TP_PROMPT)
+                launches = read_launches()
+                for k in total:
+                    total[k] += launches[k]
+                check(torch.equal(out["step_logits"], want[arch]["step_logits"])
+                      and torch.equal(out["tokens"], want[arch]["tokens"]),
+                      f"tp {arch}: the (1, 1) mesh is not bitwise the "
+                      "unsharded serve run")
+                emit("tp", {"model": arch, "mesh": [1, 1], "backend": "nccl",
+                            "bitwise_unsharded": True,
+                            "launches": launches["flash_decode"],
+                            "collectives": out["collectives"]["count"]})
+        finally:
+            dist.destroy_process_group()
+    # (c) two ranks sharing the card; then f32 again with the allocator's
+    # history on (a profile run: its times are not kept)
+    runs = [(dtype, arch, False) for dtype in ("float32", "bfloat16")
+            for arch in cfgs] + [("float32", arch, True) for arch in cfgs]
+    tasks = [(functools.partial(serve.serve_rank, profile_peak=profile),
+              (replace(cfgs[arch], dtype=dtype), (1, 2), TP_NEW, TP_BATCH,
+               TP_PROMPT))
+             for dtype, arch, profile in runs]
+    t0 = time.perf_counter()
+    ranks = spmd.launch(tasks, world=2, shared_card=True, timeout_s=600.0)
+    t_launch = time.perf_counter() - t0
+    for i, (dtype, arch, profile) in enumerate(runs):
+        cfg = replace(cfgs[arch], dtype=dtype)
+        outs = [r[i] for r in ranks]
+        meta = empty_params(cfg, "meta")
+        largest = max(p.numel() * p.element_size() for p in meta.parameters())
+        # the context of the prompt and the new tokens, rounded up to the two
+        # ranks
+        ctx = -(-(TP_PROMPT + TP_NEW) // 2) * 2
+        meta_caches = init_caches(cfg, TP_BATCH, ctx, "meta")
+        for rank, out in enumerate(outs):
+            # the rank holds its spec's slice of every parameter and cache
+            on = abstract_mesh((1, 2), coords={"model": rank})
+            check({k: tuple(v.shape) for k, v in param_slice(cfg, meta, on).items()}
+                  == out["param_shapes"],
+                  f"tp {arch} {dtype} rank {rank}: parameter slices")
+            check([serve._shapes(c) for c in cache_slice(cfg, meta_caches, on)]
+                  == out["cache_shapes"],
+                  f"tp {arch} {dtype} rank {rank}: cache slices")
+            launches = out["launches"]
+            total["flash_decode"] += launches["flash_decode"]
+            total["flash_decode_partial"] += launches["flash_decode_partial"]
+            check(launches["flash_decode_partial"] == attention_layers(cfg) * steps
+                  and launches["flash_decode"] == 0,
+                  f"tp {arch} {dtype} rank {rank}: launches {launches}")
+            check(out["host_transport"], f"tp {arch}: gloo on a card without "
+                  "host transport")
+            # a rank builds one leaf at a time: its slices and one leaf
+            check(out["build_peak_bytes"] <= out["param_bytes"] + largest
+                  + TP_BUILD_SLACK,
+                  f"tp {arch} {dtype} rank {rank}: building took "
+                  f"{out['build_peak_bytes']} bytes, above its "
+                  f"{out['param_bytes']} bytes of slices and a leaf of "
+                  f"{largest}")
+        check(torch.equal(outs[0]["tokens"], outs[1]["tokens"]),
+              f"tp {arch} {dtype}: the two model ranks' tokens differ")
+        if profile:
+            for out in outs:
+                torch.testing.assert_close(out["step_logits"],
+                                           want[arch]["step_logits"], **TP_TOL)
+            emit("tp_peak", {
+                "model": arch, "dtype": dtype, "mesh": [1, 2],
+                "what": "the allocations alive at a rank's peak over "
+                        "generate (obs/memory.py::peak_profile)",
+                "peak_bytes_per_rank": [o["peak_profile"]["allocated_before"]
+                                        + o["peak_profile"]["peak_bytes"]
+                                        for o in outs],
+                "max_memory_allocated": [o["max_memory_allocated"]
+                                         for o in outs],
+                "allocated_before": [o["peak_profile"]["allocated_before"]
+                                     for o in outs],
+                "top_rank0": outs[0]["peak_profile"]["top"]})
+            continue
+        line = {"model": arch, "dtype": dtype, "mesh": [1, 2],
+                "backend": "gloo, both ranks on cuda:0",
+                "transport": "every collective copies through the host",
+                "layers": TP_LAYERS, "batch": TP_BATCH, "prompt": TP_PROMPT,
+                "steps": steps,
+                "launches_per_rank": [o["launches"] for o in outs],
+                "collectives_per_rank": [o["collectives"]["by_axis"]
+                                         for o in outs],
+                "peak_bytes_per_rank": [o.get("max_memory_allocated") for o in outs],
+                "build_peak_bytes_per_rank": [o["build_peak_bytes"] for o in outs],
+                "param_bytes_per_rank": [o["param_bytes"] for o in outs],
+                "largest_leaf_bytes": largest,
+                "prefill_ms": [o["prefill_ms"] for o in outs],
+                "decode_ms_per_step": [statistics.median(o["step_ms"])
+                                       for o in outs]}
+        if dtype == "float32":
+            ref = want[arch]
+            for out in outs:
+                torch.testing.assert_close(out["step_logits"],
+                                           ref["step_logits"], **TP_TOL)
+                check(torch.equal(out["tokens"], ref["tokens"]),
+                      f"tp {arch}: the sharded tokens differ from the "
+                      "unsharded run's")
+            line["max_abs_logit_diff"] = max(
+                float((o["step_logits"] - ref["step_logits"]).abs().max())
+                for o in outs)
+            line["tokens_equal_unsharded"] = True
+            line["unsharded_decode_ms_per_step"] = statistics.median(
+                ref["step_ms"])
+        else:
+            line["tokens"] = outs[0]["tokens"][0].reshape(-1).tolist()
+        line["cache_shapes_layer0"] = outs[0]["cache_shapes"][0]
+        line["params_and_caches_are_the_specs_slices"] = True
+        emit("tp", line)
+    emit("tp_phase", {"wall_s": time.perf_counter() - t_phase,
+                      "launch_s": t_launch})
+
+
 def main():
     import torch
 
@@ -3851,6 +4140,7 @@ def main():
     shuffle_phase(dev, first, results)
     dst, mask, N = packed_phase(dev, first, results)
     flash_decode_phase(dev, results)
+    flash_decode_partial_check(dev)
     total = dict.fromkeys(read_launches(), 0)
     for k, v in packed_entry_points(dev, dst, mask, N).items():
         total[k] += v
@@ -3983,9 +4273,16 @@ def main():
     # ---- 23. the entry points ----------------------------------------------
     entry_points_phase(dev, total)
 
+    # ---- 24. the transformer across ranks ---------------------------------
+    tp_phase(dev, total)
+
     emit("smoke", {"wall_s": time.perf_counter() - t_smoke, "card": CARD})
     for k, r in results.items():
         r["launches"] = total[k]
+    # the partial-output calls of phase 24's sharded decode launch the same
+    # kernels (its partial and merge kernels) on the path
+    results["flash_decode"]["launches"] += total["flash_decode_partial"]
+    results["flash_decode"]["partial_launches"] = total["flash_decode_partial"]
     # the walk's builds (three kernels each) on the main paths
     results["gather_segsum_bwd_mixed"]["csr_builds"] = total["src_sorted_csr"]
     check(sorted(results) == sorted(KERNELS), f"kernels held: {sorted(results)}")

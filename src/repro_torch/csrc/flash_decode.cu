@@ -45,6 +45,14 @@
 //     to a workspace; a second kernel folds the chunks of each (b, head) in
 //     chunk order, with a running max, and divides. No atomics: every sum
 //     has a fixed order, so results repeat bit for bit.
+//   * ``flash_decode_partial`` is the same two kernels with the merge's
+//     output kept in f32 and its running max and denominator written beside
+//     it: the Pallas kernel's three outputs (o, m, d). A sequence-sharded
+//     decode runs it on each rank's rows and merges the ranks' partials
+//     (``flash_decode/ref.py::merge_partials``). On a shard with no valid
+//     row every chunk is empty, so m = -1e30, d = 0 and o = 0 (the Pallas
+//     kernel's d counts the masked rows there, exp(0) each); either weighs
+//     nothing in the merge against a shard that has a row.
 //   * The Pallas kernel's clamps are kept: masked scores -1e30, the
 //     denominator floored at 1e-30; the sums stay f32, and the output is cast
 //     to q's dtype. A chunk wholly past cache_len writes an empty partial
@@ -574,10 +582,13 @@ constexpr int kMergeBatch = 16;  // chunks whose partials are loaded at once
 // (their loads all in flight together): rescale what is summed so far to the
 // batch's max, add each chunk's sum and output weighted by exp(m_c - max),
 // then divide by the clamped denominator and cast.
+// With ``m_out`` (the partial call) the (b, head)'s running max and
+// denominator go to m_out / d_out too.
 template <typename T>
 __global__ void __launch_bounds__(kMergeThreads) flash_decode_merge(
     const float* __restrict__ ws_o, const float* __restrict__ ws_ml,
-    T* __restrict__ out, int nC, int G, int Dv) {
+    T* __restrict__ out, float* __restrict__ m_out, float* __restrict__ d_out,
+    int nC, int G, int Dv) {
   const int bh = blockIdx.x;  // (b*KV + kv)*G + g == b*H + h
   const int bkv = bh / G;
   const int g = bh - bkv * G;
@@ -612,6 +623,10 @@ __global__ void __launch_bounds__(kMergeThreads) flash_decode_merge(
       M = mx;
     }
     out[(long long)bh * Dv + dv] = from_f<T>(acc / fmaxf(L, kDenomFloor));
+    if (m_out != nullptr && dv == 0) {
+      m_out[bh] = M;
+      d_out[bh] = L;
+    }
   }
 }
 
@@ -690,11 +705,26 @@ cudaError_t launch_fma(const Args& a, dim3 grid, cudaStream_t stream) {
 }
 
 template <typename T>
-cudaError_t launch_merge(const Args& a, void* out, int B, int nC,
-                         cudaStream_t stream) {
+cudaError_t launch_merge(const Args& a, void* out, float* m_out, float* d_out,
+                         int B, int nC, cudaStream_t stream) {
   flash_decode_merge<T><<<B * a.KV * a.G, kMergeThreads, 0, stream>>>(
-      a.ws_o, a.ws_ml, static_cast<T*>(out), nC, a.G, a.Dv);
+      a.ws_o, a.ws_ml, static_cast<T*>(out), m_out, d_out, nC, a.G, a.Dv);
   return cudaGetLastError();
+}
+
+// The partial kernel of the shape's path over every (chunk, b*KV) block.
+cudaError_t launch_partials(const Args& a, int B, int nC, int dtype,
+                            cudaStream_t stream) {
+  const dim3 grid(nC, B * a.KV);
+  switch (mma_dim(dtype, a.D, a.Dv)) {
+    case 64: return launch_mma<64>(a, grid, stream);
+    case 128: return launch_mma<128>(a, grid, stream);
+    case 256: return launch_mma<256>(a, grid, stream);
+    default:
+      if (dtype == 0) return launch_fma<float>(a, grid, stream);
+      if (dtype == 1) return launch_fma<__nv_bfloat16>(a, grid, stream);
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -723,38 +753,43 @@ struct DecodeShape {
 
 // Workspace ``ws``: the partial outputs (B*KV, nC, G, Dv), then the partial
 // (max, sum) pairs (B*KV, nC, G, 2), f32, with nC = ceil(S / chunk).
-int flash_decode(const void* q, const void* k, const void* v,
-                 const int* cache_len, float* ws, void* out,
-                 const DecodeShape* shape, cudaStream_t stream) {
-  const DecodeShape& p = *shape;
+static int run(const void* q, const void* k, const void* v,
+               const int* cache_len, float* ws, void* out, float* m_out,
+               float* d_out, const DecodeShape& p, cudaStream_t stream) {
   const int B = p.B, S = p.S, KV = p.KV, G = p.G, D = p.D, Dv = p.Dv;
   const int chunk = p.chunk, dtype = p.dtype;
   if (B <= 0 || S <= 0 || KV <= 0 || G <= 0 || chunk <= 0) return 0;
+  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
   const int nC = (S + chunk - 1) / chunk;
   const Args a{q,      k,      v,      cache_len, ws,
                ws + (long long)B * KV * nC * G * Dv,
                S,      KV,     G,      D,         Dv,
                p.k_sb, p.k_ss, p.v_sb, p.v_ss,    p.scale,
                chunk};
-  const dim3 grid(nC, B * KV);
-  cudaError_t err;
-  switch (mma_dim(dtype, D, Dv)) {
-    case 64: err = launch_mma<64>(a, grid, stream); break;
-    case 128: err = launch_mma<128>(a, grid, stream); break;
-    case 256: err = launch_mma<256>(a, grid, stream); break;
-    default:
-      if (dtype == 0) {
-        err = launch_fma<float>(a, grid, stream);
-      } else if (dtype == 1) {
-        err = launch_fma<__nv_bfloat16>(a, grid, stream);
-      } else {
-        return (int)cudaErrorInvalidValue;
-      }
-  }
+  cudaError_t err = launch_partials(a, B, nC, dtype, stream);
   if (err != cudaSuccess) return (int)err;
-  err = dtype == 0 ? launch_merge<float>(a, out, B, nC, stream)
-                   : launch_merge<__nv_bfloat16>(a, out, B, nC, stream);
+  if (m_out != nullptr || dtype == 0) {  // an f32 output
+    err = launch_merge<float>(a, out, m_out, d_out, B, nC, stream);
+  } else {
+    err = launch_merge<__nv_bfloat16>(a, out, nullptr, nullptr, B, nC, stream);
+  }
   return (int)err;
+}
+
+// The attention output (B, H, Dv) in q's dtype.
+int flash_decode(const void* q, const void* k, const void* v,
+                 const int* cache_len, float* ws, void* out,
+                 const DecodeShape* shape, cudaStream_t stream) {
+  return run(q, k, v, cache_len, ws, out, nullptr, nullptr, *shape, stream);
+}
+
+// The partial output: o (B, H, Dv) f32, normalised by its own denominator,
+// and each (b, head)'s running max m (B, H) and denominator d (B, H), f32.
+int flash_decode_partial(const void* q, const void* k, const void* v,
+                         const int* cache_len, float* ws, float* out,
+                         float* m_out, float* d_out, const DecodeShape* shape,
+                         cudaStream_t stream) {
+  return run(q, k, v, cache_len, ws, out, m_out, d_out, *shape, stream);
 }
 
 }  // extern "C"

@@ -10,6 +10,11 @@ output with ``torch.empty`` (and the
 split-K workspace once per shape and stream), and counts its launches in
 ``LAUNCHES``.
 
+``flash_decode_partial`` is the same kernel with the Pallas kernel's three
+outputs: the float32 output, each (b, head)'s running max ``m`` and
+denominator ``d``, which a sequence-sharded decode merges across ranks
+(``ref.merge_partials``).
+
 The decode loop calls it once per layer and token, so its host time is paid
 thousands of times a serve run. What depends only on the shapes and strides
 (their checks, the chunk, the shared-memory check, the scale and the bound
@@ -31,8 +36,9 @@ from repro_torch.kernels.flash_decode import ref
 
 #: kernel launches since the last ``reset_launches()``; only a launch of the
 #: CUDA kernel counts (one per call: the partial and merge kernels together),
-#: never a plain-version call
-LAUNCHES = {"flash_decode": 0}
+#: never a plain-version call; ``flash_decode_partial`` counts the calls that
+#: return the partial output
+LAUNCHES = {"flash_decode": 0, "flash_decode_partial": 0}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: streaming multiprocessors of an H100 SXM: the chunk is sized for them
@@ -53,6 +59,8 @@ class DecodeShape(ctypes.Structure):
 # q, k, v, cache_len, ws, out, &DecodeShape, stream
 _SIGNATURES = {
     "flash_decode": [PTR] * 8,
+    # q, k, v, cache_len, ws, out, m, d, &DecodeShape, stream
+    "flash_decode_partial": [PTR] * 10,
     # dtype, G, D, Dv -> bytes of shared memory of one partial block
     "flash_decode_smem_bytes": [INT] * 4,
     # dtype, D, Dv -> 1 on the tensor-core path
@@ -61,7 +69,8 @@ _SIGNATURES = {
 
 
 def reset_launches() -> None:
-    LAUNCHES["flash_decode"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def decode_chunk(B: int, KV: int, S: int, G: int = 1) -> int:
@@ -149,11 +158,12 @@ def _check_len(cache_len, device):
 
 
 class _Plan(NamedTuple):
-    """What one (dtypes, shapes, strides) key fixes: the bound entry point,
+    """What one (dtypes, shapes, strides) key fixes: the bound entry points,
     the output's shape, the workspace's length, the ``DecodeShape`` (kept
     alive here) with its address, and the workspace of each (card, stream)."""
 
     fn: object
+    partial_fn: object
     out_shape: tuple
     ws_numel: int
     shape: DecodeShape
@@ -184,7 +194,8 @@ def _plan(q, k, v) -> _Plan:
     ks, vs = k.stride(), v.stride()
     shape = DecodeShape(B, S, KV, G, D, Dv, ks[0], ks[1], vs[0], vs[1],
                         float(1.0 / np.sqrt(D)), chunk, code)
-    return _Plan(fn=lib.flash_decode, out_shape=(B, H, Dv),
+    return _Plan(fn=lib.flash_decode, partial_fn=lib.flash_decode_partial,
+                 out_shape=(B, H, Dv),
                  ws_numel=B * KV * n_chunks * G * (Dv + 2), shape=shape,
                  shape_ptr=ctypes.addressof(shape), workspaces={})
 
@@ -195,24 +206,11 @@ def _raw_stream(index: int) -> int:
     return torch._C._cuda_getCurrentRawStream(index)
 
 
-def flash_decode(q, k, v, cache_len):
-    """Single-token GQA decode attention -> (B, H, Dv) in q's dtype.
-
-    q (B, H, D), k (B, S, KV, D), v (B, S, KV, Dv) f32/bf16 (the cache read
-    where it lies, by its strides); cache_len one int32 on q's device, in
-    [1, S] (cache rows at or past it are masked; below 1 every row is, and
-    the output is zeros). Math in f32 with the Pallas kernel's clamps; in
-    bf16 the products run on the tensor cores. Bound by bytes (the valid
-    K/V rows once). Split-K over chunks of ``decode_chunk(B, KV, S, G)`` rows,
-    merged in a fixed order: no atomics, the result repeats bit for bit.
-    """
+def _launch(q, k, v, cache_len, partial: bool):
+    """Check what the cached plan does not fix, then make one ctypes call
+    that launches the partial and the merge kernels: the output in q's
+    dtype, or with ``partial`` the (o f32, m, d) triple."""
     dev = q.get_device()
-    if dev < 0:  # not on a card: every check, then the plain version
-        if q.device.type != "cpu":  # a meta tensor has no values to run on
-            raise ValueError(f"flash_decode runs on a card or the CPU, not on "
-                             f"{q.device}")
-        _check(q, k, v, cache_len)
-        return ref.decode_attention_ref(q, k, v, cache_len.reshape(()))
     key = (q.dtype, k.dtype, v.dtype, q.shape, k.shape, v.shape, q.stride(),
            k.stride(), v.stride())
     plan = _PLANS.get(key)
@@ -235,9 +233,61 @@ def flash_decode(q, k, v, cache_len):
     if ws is None:
         ws = plan.workspaces[dev, stream] = torch.empty(
             plan.ws_numel, dtype=torch.float32, device=dev)
-    out = torch.empty(plan.out_shape, dtype=q.dtype, device=dev)
-    rc = plan.fn(qp, kp, vp, cache_len.data_ptr(), ws.data_ptr(),
-                 out.data_ptr(), plan.shape_ptr, stream)
-    raise_on(rc, "flash_decode")
-    LAUNCHES["flash_decode"] += 1
-    return out
+    if not partial:
+        out = torch.empty(plan.out_shape, dtype=q.dtype, device=dev)
+        rc = plan.fn(qp, kp, vp, cache_len.data_ptr(), ws.data_ptr(),
+                     out.data_ptr(), plan.shape_ptr, stream)
+        raise_on(rc, "flash_decode")
+        LAUNCHES["flash_decode"] += 1
+        return out
+    out = torch.empty(plan.out_shape, dtype=torch.float32, device=dev)
+    md = torch.empty((2,) + plan.out_shape[:2], dtype=torch.float32,
+                     device=dev)
+    rc = plan.partial_fn(qp, kp, vp, cache_len.data_ptr(), ws.data_ptr(),
+                         out.data_ptr(), md[0].data_ptr(), md[1].data_ptr(),
+                         plan.shape_ptr, stream)
+    raise_on(rc, "flash_decode_partial")
+    LAUNCHES["flash_decode_partial"] += 1
+    return out, md[0], md[1]
+
+
+def _on_cpu(q, k, v, cache_len) -> bool:
+    """True for a CPU tensor, after every check (the plain version runs only
+    what the kernel would take); raises on a ``meta`` tensor, which has no
+    values to run on."""
+    if q.get_device() >= 0:
+        return False
+    if q.device.type != "cpu":
+        raise ValueError(f"flash_decode runs on a card or the CPU, not on "
+                         f"{q.device}")
+    _check(q, k, v, cache_len)
+    return True
+
+
+def flash_decode(q, k, v, cache_len):
+    """Single-token GQA decode attention -> (B, H, Dv) in q's dtype.
+
+    q (B, H, D), k (B, S, KV, D), v (B, S, KV, Dv) f32/bf16 (the cache read
+    where it lies, by its strides); cache_len one int32 on q's device, in
+    [1, S] (cache rows at or past it are masked; below 1 every row is, and
+    the output is zeros). Math in f32 with the Pallas kernel's clamps; in
+    bf16 the products run on the tensor cores. Bound by bytes (the valid
+    K/V rows once). Split-K over chunks of ``decode_chunk(B, KV, S, G)`` rows,
+    merged in a fixed order: no atomics, the result repeats bit for bit.
+    """
+    if _on_cpu(q, k, v, cache_len):
+        return ref.decode_attention_ref(q, k, v, cache_len.reshape(()))
+    return _launch(q, k, v, cache_len, partial=False)
+
+
+def flash_decode_partial(q, k, v, cache_len):
+    """The decode attention's partial output over these cache rows, the
+    Pallas kernel's three outputs, all float32: o (B, H, Dv) normalised by
+    its own denominator; m (B, H), the running max of the scaled scores; d
+    (B, H), the sum of exp(s - m) over the valid rows. The same kernels and
+    checks as ``flash_decode``; ``cache_len`` may be 0 (no valid row: o = 0,
+    m = -1e30, d = 0)."""
+    if _on_cpu(q, k, v, cache_len):
+        return ref.decode_attention_partial_ref(q, k, v,
+                                                cache_len.reshape(()))
+    return _launch(q, k, v, cache_len, partial=True)

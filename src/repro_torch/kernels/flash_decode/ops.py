@@ -10,7 +10,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.flash_decode.kernel import flash_decode
+from repro_torch.kernels.flash_decode.kernel import (
+    flash_decode,
+    flash_decode_partial,
+)
 
 
 def decode_attention(q, k, v, cache_len):
@@ -22,8 +25,19 @@ def decode_attention(q, k, v, cache_len):
     CUDA tensor this launches the CUDA kernel or raises; on a CPU tensor it
     runs the plain version.
     """
-    n = cache_len
+    return flash_decode(q, k, v, _len_on(cache_len, q.device))
+
+
+def decode_attention_partial(q, k, v, cache_len):
+    """The partial output over these cache rows: (o (B, H, Dv), m (B, H),
+    d (B, H)) float32 (``kernel.flash_decode_partial``); ``cache_len`` as
+    in ``decode_attention``, and here it may be 0."""
+    return flash_decode_partial(q, k, v, _len_on(cache_len, q.device))
+
+
+def _len_on(n, device):
+    """``cache_len`` as the kernel takes it: one int32 on ``device``."""
     if not (isinstance(n, torch.Tensor) and n.dtype == torch.int32
-            and n.device == q.device):
-        n = torch.as_tensor(n, device=q.device).reshape(1).to(torch.int32)
-    return flash_decode(q, k, v, n)
+            and n.device == device):
+        n = torch.as_tensor(n, device=device).reshape(1).to(torch.int32)
+    return n

@@ -52,6 +52,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import math
 import statistics
 import time
 
@@ -68,6 +69,7 @@ from repro_torch.launch.input_specs import (
     input_specs,
     variant_config,
 )
+from repro_torch.launch.mesh import collective_record
 from repro_torch.models.transformer.model import (
     empty_params,
     init_params,
@@ -143,7 +145,7 @@ def _meta_flops(cfg, kind, batch, rows):
 
 def roofline_record(cfg, model, shape_name: str, batch: int, rows: int,
                     t_step: float, *, flops: int | None = None,
-                    cache_len: int = 0) -> dict:
+                    cache_len: int = 0, mesh=None) -> dict:
     """The roofline part of a record of one step of ``shape_name``'s kind
     at ``batch`` sequences of ``rows`` rows (decode: one row against
     ``cache_len`` valid cache rows), timed at ``t_step`` seconds: the
@@ -151,17 +153,22 @@ def roofline_record(cfg, model, shape_name: str, batch: int, rows: int,
     ``bytes_accessed``, ``collectives``, ``params``, ``active_params``,
     ``variant_window``), ``batch``, ``rows``, ``roofline``,
     ``roofline_share`` and ``mfu``. ``flops`` defaults to ``meta_flops``
-    (train and prefill); ``bytes_accessed`` is ``roofline.step_bytes``."""
+    (train and prefill); ``bytes_accessed`` is ``roofline.step_bytes``.
+    With ``mesh`` (the step ran on a rank of it) ``chips`` is the mesh's
+    ranks and ``collectives`` the rank's exchange counters
+    (``launch/mesh.py::collective_record``, which the caller set to 0 just
+    before the step); without one, one card and no exchange."""
     kind = INPUT_SHAPES[shape_name].kind
     if flops is None:
         flops = meta_flops(cfg, kind, batch, rows)
     rec = {
-        "shape": shape_name, "kind": kind, "chips": 1, "batch": batch,
-        "rows": rows, "flops": flops,
+        "shape": shape_name, "kind": kind,
+        "chips": 1 if mesh is None else math.prod(mesh.shape.values()),
+        "batch": batch, "rows": rows, "flops": flops,
         "bytes_accessed": roofline.step_bytes(model, kind, batch, rows,
                                               cache_len),
-        # one card: no exchange (the port's exchange counters read 0)
-        "collectives": {"total": 0, "count": 0},
+        "collectives": ({"total": 0, "count": 0} if mesh is None
+                        else collective_record()),
         "params": cfg.param_count(), "active_params": cfg.active_param_count(),
         "variant_window": cfg.attn_window,
     }

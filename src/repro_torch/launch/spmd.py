@@ -6,7 +6,9 @@ One process runs one split (one (replica, split) pair on the 2-D mesh of
 ``torch.multiprocessing`` and meets them at a ``FileStore`` in a temporary
 directory (no network port); each rank runs on the card (NCCL,
 ``cuda:<rank>``) unless the caller asks for ``device="cpu"``, which selects
-gloo. Every process group has a timeout, the launcher joins all ranks
+gloo, or for ``shared_card=True``: every rank on ``cuda:0`` over gloo (NCCL
+refuses two ranks on one card), a rehearsal of a mesh on a machine with one
+card, whose collectives copy through the host (``launch/mesh.py``). Every process group has a timeout, the launcher joins all ranks
 within its own, and a rank's exception fails the launcher: a collective
 that one rank never reaches cannot hang the caller.
 
@@ -63,12 +65,16 @@ from repro_torch.train.trainer import Trainer
 TIMEOUT_S = 300.0
 
 
-def _rank_main(rank, world, rdv, out_dir, on_cpu, tasks, timeout_s):
+def _rank_main(rank, world, rdv, out_dir, on_cpu, tasks, timeout_s,
+               shared_card=False):
     """One spawned rank: join the process group, run ``tasks`` in order,
     write their results for the launcher."""
     torch.set_num_threads(1)  # several ranks share the host's cores
     if on_cpu:
         device, backend, kw = torch.device("cpu"), "gloo", {}
+    elif shared_card:
+        device, backend, kw = torch.device("cuda", 0), "gloo", {}
+        torch.cuda.set_device(device)
     else:
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
@@ -88,13 +94,14 @@ def _rank_main(rank, world, rdv, out_dir, on_cpu, tasks, timeout_s):
 
 
 def launch(tasks: list, world: int, device=None,
-           timeout_s: float = TIMEOUT_S) -> list:
+           timeout_s: float = TIMEOUT_S, shared_card: bool = False) -> list:
     """Run ``tasks``, a list of ``(fn, args)`` with ``fn`` importable, in
     ``world`` spawned ranks of one process group; rank ``r`` calls
     ``fn(device, *args)`` for each task in order. Returns ``results[rank]``,
     the list of its tasks' return values (host data).
 
-    ``device=None`` is the card: NCCL, one card a rank. ``device="cpu"``
+    ``device=None`` is the card: NCCL, one card a rank, or with
+    ``shared_card`` every rank on ``cuda:0`` over gloo. ``device="cpu"``
     runs gloo on the CPU. The ranks meet at a ``FileStore`` in a temporary
     directory. Each collective waits at most ``timeout_s``, and so does the
     launcher for the whole run: past it every rank is terminated and
@@ -107,7 +114,7 @@ def launch(tasks: list, world: int, device=None,
                 "no CUDA device available: spmd ranks run on the card unless "
                 "the caller asks for the CPU (device='cpu')"
             )
-        if world > torch.cuda.device_count():
+        if not shared_card and world > torch.cuda.device_count():
             raise ValueError(
                 f"{world} ranks need {world} cards (NCCL takes one card a "
                 f"rank), this machine has {torch.cuda.device_count()}"
@@ -116,7 +123,7 @@ def launch(tasks: list, world: int, device=None,
         ctx = mp.start_processes(
             _rank_main,
             args=(world, os.path.join(tmp, "rdv"), tmp, on_cpu, tasks,
-                  timeout_s),
+                  timeout_s, shared_card),
             nprocs=world, join=False, start_method="spawn",
         )
         deadline = time.monotonic() + timeout_s

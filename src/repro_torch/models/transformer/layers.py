@@ -11,7 +11,9 @@ activations (B, S, H, D), caches (B, S, KV, D).
 ``attention_decode`` is where the decode-attention kernel enters the model:
 it calls ``kernels/flash_decode/ops.decode_attention``, which launches the
 hand-written CUDA kernel on a CUDA tensor (or raises) and runs its plain
-version on a CPU tensor.
+version on a CPU tensor. ``attention_decode_seq`` is the decode against a
+cache sharded by sequence over a mesh's model axis: the kernel's partial
+output on each rank's rows, merged across the ranks.
 """
 from __future__ import annotations
 
@@ -20,6 +22,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.flash_decode import ops as flash_decode_ops
+from repro_torch.kernels.flash_decode.ref import merge_partials
+from repro_torch.launch.mesh import all_gather
 
 #: the masked-score fill of the JAX package (finite: an all-masked row gives
 #: a uniform softmax, never NaN)
@@ -258,6 +262,40 @@ def attention_decode(
         q[:, 0], k_cache, v_cache, cache_len)[:, None]
 
 
+def merge_over_model(o, m, d, mesh, dtype) -> torch.Tensor:
+    """The attention output from each model rank's partial (o (B, H, Dv), m
+    and d (B, H), float32; the rank's rows only): one ``all_gather`` of
+    (o, m, d) packed as (B, H, Dv + 2) over ``model``, then
+    ``merge_partials`` in rank order -> (B, H, Dv) in ``dtype``, the same on
+    every rank."""
+    packed = torch.cat([o, m[..., None], d[..., None]], dim=-1)
+    parts = all_gather(packed[None], mesh, dim=0)  # (M, B, H, Dv + 2)
+    return merge_partials(parts[..., :-2], parts[..., -2], parts[..., -1],
+                          dtype)
+
+
+def attention_decode_seq(
+    q: torch.Tensor,  # (B, 1, H, D), every head
+    k_cache: torch.Tensor,  # (B, S_loc, KV, D): the rank's rows
+    v_cache: torch.Tensor,  # (B, S_loc, KV, Dv)
+    cache_len: torch.Tensor,  # () int: valid rows of the whole cache
+    mesh,
+) -> torch.Tensor:
+    """``attention_decode`` against a cache sharded by sequence over
+    ``mesh``'s model axis: model rank j holds physical rows [j * S_loc,
+    (j + 1) * S_loc), of which clamp(cache_len - j * S_loc, 0, S_loc) are
+    valid (physical slots, so a ring's too: it fills its slots in order and
+    then holds every one). The decode kernel's partial output on the rank's
+    rows (``decode_attention_partial``), merged over the model group
+    (``merge_over_model``) -> (B, 1, H, Dv) in q's dtype, on every rank.
+    A rank with no valid row weighs nothing."""
+    S_loc = k_cache.shape[1]
+    n = (cache_len - mesh.model_index * S_loc).clamp(0, S_loc)
+    o, m, d = flash_decode_ops.decode_attention_partial(q[:, 0], k_cache,
+                                                        v_cache, n)
+    return merge_over_model(o, m, d, mesh, q.dtype)[:, None]
+
+
 # --------------------------------------------------------------------------- #
 # MLPs
 # --------------------------------------------------------------------------- #
@@ -279,20 +317,60 @@ def mlp_apply(params, x: torch.Tensor, mlp_type: str) -> torch.Tensor:
 
 def _normal(shape, dtype, fan_in, generator):
     """``normal * fan_in**-0.5`` in ``dtype``, drawn on the generator's
-    device (the JAX package's ``_dense`` init; not its bits)."""
+    device (the JAX package's ``_dense`` init; not its bits), scaled in
+    place so that one leaf's worth of memory is alive."""
     t = torch.randn(shape, dtype=dtype, generator=generator,
                     device=generator.device)
-    return t * fan_in ** -0.5
+    return t.mul_(fan_in ** -0.5)
+
+
+def leaf_dtype(name: str, shape: tuple, dtype: torch.dtype) -> torch.dtype:
+    """A parameter's dtype, as the JAX package's init makes it: float32 for
+    the norms' scales, the SSM's per-head vectors and the MoE router."""
+    return torch.float32 if len(shape) == 1 or name.split(".")[-1] == "router" \
+        else dtype
+
+
+def init_tree(generator: torch.Generator, shapes: dict, dtype, *,
+              fixed: dict | None = None, keep=None, prefix: str = "") -> dict:
+    """The leaves of ``shapes`` (nested dicts of name -> shape), made in its
+    order on the generator's device as the JAX package's init makes them
+    (not its bits): a leaf that ``fixed`` names by its function (shape,
+    device) -> tensor; any other 1-D leaf ones in float32 (a norm's scale);
+    every other ``_normal`` in ``leaf_dtype``, its ``fan_in`` the width it
+    contracts: the second-to-last dimension, the last for an embedding
+    table (``embed``). ``keep(name, leaf)``, ``name`` dotted from
+    ``prefix``, replaces each leaf as soon as it is made (a rank keeps its
+    slice), so that at most one whole leaf is alive at a time."""
+    dev = generator.device
+    out = {}
+    for name, shape in shapes.items():
+        path = prefix + name
+        if isinstance(shape, dict):
+            out[name] = init_tree(generator, shape, dtype, fixed=fixed,
+                                  keep=keep, prefix=path + ".")
+            continue
+        if fixed and name in fixed:
+            t = fixed[name](shape, dev)
+        elif len(shape) == 1:
+            t = torch.ones(shape, dtype=torch.float32, device=dev)
+        else:
+            fan_in = shape[-1] if name == "embed" else shape[-2]
+            t = _normal(shape, leaf_dtype(name, shape, dtype), fan_in, generator)
+        out[name] = t if keep is None else keep(path, t)
+        del t  # a kept slice's whole leaf goes before the next is made
+    return out
+
+
+def mlp_shapes(d_model: int, d_ff: int, mlp_type: str) -> dict:
+    if mlp_type not in MLP_TYPES:
+        raise ValueError(mlp_type)
+    p = {"w_in": (d_model, d_ff), "w_out": (d_ff, d_model)}
+    if mlp_type in ("swiglu", "geglu"):
+        p["w_gate"] = (d_model, d_ff)
+    return p
 
 
 def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
              mlp_type: str, dtype) -> dict:
-    if mlp_type not in MLP_TYPES:
-        raise ValueError(mlp_type)
-    p = {
-        "w_in": _normal((d_model, d_ff), dtype, d_model, generator),
-        "w_out": _normal((d_ff, d_model), dtype, d_ff, generator),
-    }
-    if mlp_type in ("swiglu", "geglu"):
-        p["w_gate"] = _normal((d_model, d_ff), dtype, d_model, generator)
-    return p
+    return init_tree(generator, mlp_shapes(d_model, d_ff, mlp_type), dtype)

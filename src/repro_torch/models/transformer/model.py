@@ -14,6 +14,21 @@ Train mode runs each block under ``torch.utils.checkpoint`` when
 ``cfg.opt_remat == "full"`` (the reference's ``jax.checkpoint`` around the
 lead blocks and the scanned body): a layer keeps only its input for the
 backward and recomputes the rest.
+
+Serving runs on a (data, model) mesh too (``launch/mesh.py``): a rank holds
+its slice of every weight (``launch/sharding.py``'s specs), made so by
+``init_params(mesh=...)`` or ``transformer_params_from_jax(mesh=...)`` one
+leaf at a time (a rank never holds the whole model), or by ``shard_params``
+for a model already built; each parameter is marked with its sharded
+dimension (``sharding.mark``) and the mesh is recorded on the model.
+``init_caches(mesh=...)`` makes the rank's marked slice of the caches. The
+prefill and decode steps take the mesh from the model and run the blocks
+tensor-parallel (``blocks.py``), the embedding vocab-parallel (a masked
+lookup of the rank's rows and an ``all_reduce`` over ``model``) and the
+head column-parallel (the logits gathered over ``model``). The batch is the
+rank's rows; nothing crosses the data axes but the global MoE dispatch's
+tokens. At a (1, 1) mesh every step is the unsharded one, bit for bit.
+Training across ranks is not ported: train mode refuses a sharded model.
 """
 from __future__ import annotations
 
@@ -25,16 +40,24 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch.launch.mesh import all_gather, all_reduce
+from repro_torch.launch.sharding import (
+    cache_specs,
+    mark,
+    model_dim,
+    param_specs,
+    spec_slice,
+)
 from repro_torch.models.transformer.blocks import (
     Block,
     block_apply,
     block_init,
     block_shapes,
     check_arch,
-    leaf_dtype,
+    check_mesh,
 )
 from repro_torch.models.transformer.config import ArchConfig
-from repro_torch.models.transformer.layers import _normal, rms_norm
+from repro_torch.models.transformer.layers import init_tree, leaf_dtype, rms_norm
 
 
 def _dtype(cfg: ArchConfig) -> torch.dtype:
@@ -49,7 +72,9 @@ class TransformerLM(nn.Module):
     """The model's parameters with the JAX package's names: ``embed`` (V, d)
     or, with codebooks, (nc, V, d); ``final_norm`` (d,) f32; ``lm_head``
     (d, V) or (d, nc*V) when untied; ``lead_blocks`` (a MoE model's leading
-    dense layers, else empty) and ``blocks``, one ``Block`` per layer."""
+    dense layers, else empty) and ``blocks``, one ``Block`` per layer.
+    ``mesh`` is None, or the mesh whose rank's slices it holds
+    (``shard_params``)."""
 
     def __init__(self, cfg: ArchConfig, embed, final_norm, blocks, lm_head=None,
                  lead_blocks=()):
@@ -60,6 +85,7 @@ class TransformerLM(nn.Module):
         self.lm_head = nn.Parameter(lm_head) if lm_head is not None else None
         self.lead_blocks = nn.ModuleList(lead_blocks)
         self.blocks = nn.ModuleList(blocks)
+        self.mesh = None
 
     def layers(self) -> list:
         """Every block in the order they run: the lead blocks, then the rest."""
@@ -77,24 +103,28 @@ def _top_shapes(cfg: ArchConfig) -> dict:
 # --------------------------------------------------------------------------- #
 # Params
 # --------------------------------------------------------------------------- #
-def init_params(cfg: ArchConfig, generator: torch.Generator) -> TransformerLM:
+def init_params(cfg: ArchConfig, generator: torch.Generator,
+                mesh=None) -> TransformerLM:
     """Random weights drawn from ``generator`` on its device, with the JAX
     package's shapes, dtypes and scales (normal * fan_in**-0.5; norms at 1;
     the SSM's ``A_log``/``dt_bias`` the reference's own). It does not
     reproduce ``jax.random``'s bits: carry the JAX package's weights over
-    with ``transformer_params_from_jax`` for parity."""
+    with ``transformer_params_from_jax`` for parity.
+
+    With ``mesh`` the model holds the rank's slices (``_leaf_slicer``):
+    each leaf is drawn whole, sliced and dropped before the next, so the
+    device holds the rank's slices and one whole leaf at most, and the
+    slices are those of the unsharded model's leaves, bit for bit."""
     check_arch(cfg)
+    keep = None if mesh is None else _leaf_slicer(cfg, mesh)
     dtype = _dtype(cfg)
-    d = cfg.d_model
-    top = _top_shapes(cfg)
-    embed = _normal(top["embed"], dtype, d, generator)
-    lm_head = None if cfg.tie_embeddings else _normal(top["lm_head"], dtype, d,
-                                                      generator)
-    blocks = [block_init(generator, cfg, i, dtype) for i in range(cfg.num_layers)]
+    top = init_tree(generator, _top_shapes(cfg), dtype, keep=keep)
+    blocks = [block_init(generator, cfg, i, dtype, keep)
+              for i in range(cfg.num_layers)]
     n_lead = _n_lead(cfg)
-    final_norm = torch.ones((d,), dtype=torch.float32, device=generator.device)
-    return TransformerLM(cfg, embed, final_norm, blocks[n_lead:], lm_head,
-                         blocks[:n_lead])
+    model = TransformerLM(cfg, top["embed"], top["final_norm"],
+                          blocks[n_lead:], top.get("lm_head"), blocks[:n_lead])
+    return model if mesh is None else _on_mesh(model, mesh)
 
 
 def empty_params(cfg: ArchConfig, device) -> TransformerLM:
@@ -148,7 +178,7 @@ def _unflatten(flat: dict) -> dict:
 
 
 def transformer_params_from_jax(np_params: dict, cfg: ArchConfig,
-                                device) -> TransformerLM:
+                                device, mesh=None) -> TransformerLM:
     """A ``TransformerLM`` holding the JAX package's parameters.
 
     ``np_params`` is the JAX ``init_params`` pytree as numpy arrays:
@@ -159,7 +189,9 @@ def transformer_params_from_jax(np_params: dict, cfg: ArchConfig,
     axis is unstacked; every name and shape is checked against the config
     (``block_shapes``; the norms, the SSM's vectors and the router float32,
     the rest in the config's dtype), and a mismatch raises ``ValueError``.
-    bfloat16 crosses bit for bit.
+    bfloat16 crosses bit for bit. Each leaf goes to ``device`` as it is
+    taken; with ``mesh`` only its rank's slice (``_leaf_slicer``, taken on
+    the host).
     """
     check_arch(cfg)
     dtype = _dtype(cfg)
@@ -170,11 +202,14 @@ def transformer_params_from_jax(np_params: dict, cfg: ArchConfig,
     if set(np_params) != names:
         raise ValueError(f"parameter names {sorted(np_params)} != {sorted(names)}")
 
+    keep = None if mesh is None else _leaf_slicer(cfg, mesh)
+
     def take(name, value, shape):
         t = _from_numpy(value)
         if tuple(t.shape) != tuple(shape):
             raise ValueError(f"{name}: shape {tuple(t.shape)} != {tuple(shape)}")
-        return t.to(leaf_dtype(name, shape, dtype))
+        t = t.to(leaf_dtype(name, shape, dtype))
+        return (t if keep is None else keep(name, t)).to(device)
 
     def block(flat: dict, layer: int, where: str, index=None) -> Block:
         want = _flatten(block_shapes(cfg, layer))
@@ -209,19 +244,83 @@ def transformer_params_from_jax(np_params: dict, cfg: ArchConfig,
         else take("lm_head", np_params["lm_head"], top["lm_head"]),
         lead_blocks,
     )
-    return model.to(device)
+    return model if mesh is None else _on_mesh(model, mesh)
+
+
+def _leaf_slicer(cfg: ArchConfig, mesh):
+    """``keep(name, leaf)`` for ``init_tree``: the rank's slice of a leaf
+    by its spec (``param_specs`` reads only the leaf's last name, rank and
+    shape)."""
+    check_mesh(cfg, mesh)
+
+    def keep(name, t):
+        return spec_slice(t, param_specs(cfg, {name: t}, mesh)[name], mesh)
+
+    return keep
+
+
+def _on_mesh(model: TransformerLM, mesh) -> TransformerLM:
+    """Mark each parameter of ``model`` (the rank's slices) with its spec
+    on ``mesh`` (``sharding.mark``) and record the mesh on the model."""
+    specs = param_specs(model.cfg, empty_params(model.cfg, "meta"), mesh)
+    for name, param in model.named_parameters():
+        mark(param, specs[name], mesh)
+    model.mesh = mesh
+    return model
+
+
+def shard_params(model: TransformerLM, mesh) -> TransformerLM:
+    """Keep the rank's slice of every parameter of a model built whole
+    (``param_specs`` on ``mesh``), in place, one leaf at a time: each
+    parameter's data becomes a tensor of its own, so the rest is freed.
+    Marks the parameters, records the mesh on the model and returns it.
+    A model that does not fit a card whole is built by ``init_params`` or
+    ``transformer_params_from_jax`` with the mesh instead."""
+    if model.mesh is not None:
+        raise ValueError("the model is sharded already")
+    keep = _leaf_slicer(model.cfg, mesh)
+    for name, param in model.named_parameters():
+        param.data = keep(name, param.detach())
+    return _on_mesh(model, mesh)
 
 
 # --------------------------------------------------------------------------- #
 # Embedding / head
 # --------------------------------------------------------------------------- #
+def _vocab_rows(table, tok, mesh):
+    """The rows of the rank's vocabulary block (``table`` (V/M, d)) for
+    ``tok``, zeros for the other ranks' ids."""
+    V_loc = table.shape[0]
+    local = tok - mesh.model_index * V_loc
+    ok = (local >= 0) & (local < V_loc)
+    rows = table[local.clamp(0, V_loc - 1)]
+    return torch.where(ok[..., None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
+
+
 def embed_tokens(model: TransformerLM, tokens: torch.Tensor,
                  patches: torch.Tensor | None = None) -> torch.Tensor:
     """(B, S) int -> (B, S, d); with codebooks (B, S, nc) int -> the sum of
     the codebooks' embeddings; with ``patches`` (B, Np, d) for a VLM, the
     patch rows prefixed -> (B, Np + S, d). No sqrt(d) scale, as in the
-    reference."""
+    reference. On a mesh whose ranks hold vocabulary blocks (V/M rows), a
+    rank looks up its own ids and one ``all_reduce`` over ``model`` sums
+    the blocks (the codebooks' stacked, then summed in order)."""
     cfg = model.cfg
+    mesh = model.mesh
+    if model_dim(model.embed) is not None:
+        if cfg.num_codebooks:
+            rows = all_reduce(torch.stack([
+                _vocab_rows(model.embed[c], tokens[..., c], mesh)
+                for c in range(cfg.num_codebooks)]), mesh)
+            h = rows[0]
+            for c in range(1, cfg.num_codebooks):
+                h = h + rows[c]
+            return h
+        h = all_reduce(_vocab_rows(model.embed, tokens, mesh), mesh)
+        if cfg.num_patches and patches is not None:
+            h = torch.cat([patches.to(h.dtype), h], dim=1)
+        return h
     if cfg.num_codebooks:
         h = model.embed[0][tokens[..., 0]]
         for c in range(1, cfg.num_codebooks):
@@ -234,14 +333,22 @@ def embed_tokens(model: TransformerLM, tokens: torch.Tensor,
 
 
 def lm_logits(model: TransformerLM, h: torch.Tensor) -> torch.Tensor:
-    """(B, S, d) -> (B, S, V), or (B, S, nc, V) with codebooks."""
+    """(B, S, d) -> (B, S, V), or (B, S, nc, V) with codebooks. On a mesh
+    whose ranks hold column blocks of the head (of the tied embedding's
+    vocabulary), each rank's logits are gathered over ``model``."""
     cfg = model.cfg
-    if model.lm_head is not None:
-        w = model.lm_head
+    nc = cfg.num_codebooks
+    if model.lm_head is None:
+        leaf, w = model.embed, model.embed.reshape(-1, cfg.d_model).T
     else:
-        w = model.embed.reshape(-1, cfg.d_model).T
+        leaf = w = model.lm_head
     logits = h @ w
-    if cfg.num_codebooks:
+    if model_dim(leaf) is not None:
+        B, S, _ = logits.shape
+        if model.lm_head is None and nc:  # columns (codebook, own vocab)
+            logits = logits.reshape(B, S, nc, -1)
+        logits = all_gather(logits, model.mesh, dim=-1)
+    if cfg.num_codebooks and logits.dim() == 3:
         B, S, _ = logits.shape
         logits = logits.reshape(B, S, cfg.num_codebooks, cfg.vocab_size)
     return logits
@@ -277,6 +384,9 @@ def forward(model: TransformerLM, tokens: torch.Tensor, *,
         raise ValueError(f"forward runs in train or prefill mode, not {mode!r}")
     if mode == "train":
         check_remat(cfg)
+        if model.mesh is not None:
+            raise ValueError("training across ranks is not ported: train "
+                             "mode takes an unsharded model")
     h = embed_tokens(model, tokens, patches)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = [] if mode == "prefill" else None
@@ -286,7 +396,8 @@ def forward(model: TransformerLM, tokens: torch.Tensor, *,
             block_apply, cfg=cfg, mode=mode), use_reentrant=False,
             preserve_rng_state=False)
     else:
-        run = functools.partial(block_apply, cfg=cfg, mode=mode)
+        run = functools.partial(block_apply, cfg=cfg, mode=mode,
+                                mesh=model.mesh)
     for blk in model.layers():
         h, c, a = run(blk, h)
         aux = aux + a
@@ -298,10 +409,13 @@ def forward(model: TransformerLM, tokens: torch.Tensor, *,
     return lm_logits(model, h), caches, aux
 
 
-def make_prefill_step(cfg: ArchConfig):
+def make_prefill_step(cfg: ArchConfig, mesh=None):
     """(model, tokens, patches=None) -> (last position's logits (B, 1, V)
-    or (B, 1, nc, V), caches)."""
-    check_arch(cfg)
+    or (B, 1, nc, V), caches). ``mesh`` is the mesh the model will be
+    sharded on, which the config is checked against (``check_mesh``); the
+    step runs on the model's own (``model.mesh``), with the rank's tokens,
+    patches and caches (module docstring)."""
+    check_mesh(cfg, mesh)
 
     def prefill_step(model, tokens, patches=None):
         logits, caches, _ = forward(model, tokens, patches=patches,
@@ -343,7 +457,7 @@ def make_train_step(cfg: ArchConfig, optimizer):
     then updates the parameters in place. ``metrics`` holds ``loss`` and
     ``aux`` as 0-d tensors on the model's device: the step makes no host
     sync. The reference returns the new params; here the model is them."""
-    check_arch(cfg)
+    check_mesh(cfg)
     check_remat(cfg)
 
     def train_step(model, opt_state, tokens, patches=None):
@@ -359,20 +473,33 @@ def make_train_step(cfg: ArchConfig, optimizer):
 # --------------------------------------------------------------------------- #
 # Decode
 # --------------------------------------------------------------------------- #
-def init_caches(cfg: ArchConfig, batch_size: int, context_len: int, device):
+def init_caches(cfg: ArchConfig, batch_size: int, context_len: int, device,
+                mesh=None):
     """Zero caches for decoding against a ``context_len`` context, one dict
     per layer: ``{"k", "v"}`` (B, S_phys, KV, hd); with MLA ``{"c_kv"
     (B, S_phys, kv_lora), "k_rope" (B, S_phys, dr)}``; for SSM ``{"state"
     (B, H, N, P) float32}``; for hybrid ``{"attn": {...}, "state"}``.
     Windowed attention uses a ring buffer of ``min(context_len, window)``
-    rows."""
+    rows.
+
+    With ``mesh``, the rank's slice of each (``cache_specs``), marked
+    (``sharding.mark``: a k/v or latent cache marked on dimension 1 is
+    sharded by sequence):
+    ``batch_size`` is the global batch, which the data axes must divide
+    (when they are more than one rank); on a model axis of M > 1 the
+    context is rounded up to a multiple of M (the rows past the context
+    stay masked), so that a cache that is not sharded by head is sharded by
+    sequence; a ring that M does not divide raises."""
     check_arch(cfg)
     dtype = _dtype(cfg)
     B = batch_size
+    M = 1 if mesh is None else mesh.model_size
+    context_len = -(-context_len // M) * M
     S_phys = min(context_len, cfg.attn_window) if cfg.attn_window else context_len
+    where = device if mesh is None else "meta"
 
     def zeros(*shape, dt=dtype):
-        return torch.zeros(shape, dtype=dt, device=device)
+        return torch.zeros(shape, dtype=dt, device=where)
 
     def one_layer():
         state = (B, cfg.ssm_nheads, cfg.ssm_state, cfg.ssm_headdim)
@@ -388,22 +515,50 @@ def init_caches(cfg: ArchConfig, batch_size: int, context_len: int, device):
             return {"attn": attn, "state": zeros(*state, dt=torch.float32)}
         return attn
 
-    return [one_layer() for _ in range(cfg.num_layers)]
+    caches = [one_layer() for _ in range(cfg.num_layers)]
+    if mesh is None:
+        return caches
+    check_mesh(cfg, mesh)
+    if mesh.data_size > 1 and (B % mesh.data_size or B == 1):
+        raise ValueError(f"a batch of {B} does not split over "
+                         f"{mesh.data_size} data ranks")
+
+    def local(cache, specs):
+        out = {}
+        for name, t in cache.items():
+            if isinstance(t, dict):
+                out[name] = local(t, specs[name])
+                continue
+            spec = specs[name]
+            if M > 1 and name in ("k", "v", "c_kv", "k_rope") \
+                    and "model" not in spec:
+                raise ValueError(f"{cfg.name}: a {name} cache of {S_phys} "
+                                 f"rows does not split over {M} model ranks")
+            out[name] = mark(torch.zeros(spec_slice(t, spec, mesh).shape,
+                                         dtype=t.dtype, device=device),
+                             spec, mesh)
+        return out
+
+    return [local(c, s) for c, s in zip(caches, cache_specs(cfg, caches, mesh),
+                                        strict=True)]
 
 
-def make_decode_step(cfg: ArchConfig):
+def make_decode_step(cfg: ArchConfig, mesh=None):
     """(model, tokens (B, 1) or (B, 1, nc), pos, caches) -> (logits
     (B, 1, V) or (B, 1, nc, V), caches).
 
     One new token at position ``pos`` (an int, or a 0-d integer tensor on
     the device, which keeps the loop free of host syncs). Every cache is
-    updated in place and returned."""
-    check_arch(cfg)
+    updated in place and returned. ``mesh`` as ``make_prefill_step``'s; on
+    a sharded model the tokens and caches are the rank's
+    (``init_caches(mesh=)``)."""
+    check_mesh(cfg, mesh)
 
     def decode_step(model, tokens, pos, caches):
         h = embed_tokens(model, tokens)
         for blk, c in zip(model.layers(), caches, strict=True):
-            h, _, _ = block_apply(blk, h, cfg, mode="decode", cache=c, pos=pos)
+            h, _, _ = block_apply(blk, h, cfg, mode="decode", cache=c, pos=pos,
+                                  mesh=model.mesh)
         h = rms_norm(h, model.final_norm, cfg.norm_eps)
         return lm_logits(model, h), caches
 

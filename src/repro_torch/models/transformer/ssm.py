@@ -22,35 +22,38 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.transformer.layers import _normal
+from repro_torch.models.transformer.layers import init_tree
+
+
+def _log_uniform_a(shape, device) -> torch.Tensor:
+    # A in (-exp range); log-uniform in [1, 16] as in the paper
+    return torch.as_tensor(np.log(np.random.default_rng(0).uniform(
+        1, 16, shape)).astype(np.float32), device=device)
+
+
+def _dt_bias(shape, device) -> torch.Tensor:
+    return torch.as_tensor(np.log(np.expm1(np.random.default_rng(1).uniform(
+        1e-3, 0.1, shape))).astype(np.float32), device=device)
+
+
+#: the SSD's leaves that no generator draws (``init_tree``'s ``fixed``):
+#: ``A_log`` and ``dt_bias`` from ``np.random.default_rng(0)`` and ``(1)``,
+#: as the JAX package draws them whatever its key, so those two leaves
+#: equal the reference's at any seed
+SSM_FIXED = {"A_log": _log_uniform_a, "dt_bias": _dt_bias}
+
+
+def ssm_shapes(cfg) -> dict:
+    d, di, H = cfg.d_model, cfg.d_inner, cfg.ssm_nheads
+    return {"in_proj": (d, 2 * di + 2 * cfg.ssm_ngroups * cfg.ssm_state + H),
+            "out_proj": (di, d), "A_log": (H,), "D": (H,), "dt_bias": (H,),
+            "norm_scale": (di,)}
 
 
 def ssm_init(generator: torch.Generator, cfg, dtype) -> dict:
-    """One SSD layer's parameters on the generator's device. ``A_log`` and
-    ``dt_bias`` are drawn from ``np.random.default_rng(0)`` and ``(1)``
-    whatever the generator, as the JAX package draws them whatever its key,
-    so those two leaves equal the reference's at any seed."""
-    d = cfg.d_model
-    di = cfg.d_inner
-    H = cfg.ssm_nheads
-    N = cfg.ssm_state
-    G = cfg.ssm_ngroups
-    dev = generator.device
-    proj_dim = 2 * di + 2 * G * N + H  # z, x, B, C, dt
-
-    def f32(a):
-        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
-
-    return {
-        "in_proj": _normal((d, proj_dim), dtype, d, generator),
-        "out_proj": _normal((di, d), dtype, di, generator),
-        # A in (-exp range); log-uniform in [1, 16] as in the paper
-        "A_log": f32(np.log(np.random.default_rng(0).uniform(1, 16, H))),
-        "D": torch.ones((H,), dtype=torch.float32, device=dev),
-        "dt_bias": f32(
-            np.log(np.expm1(np.random.default_rng(1).uniform(1e-3, 0.1, H)))),
-        "norm_scale": torch.ones((di,), dtype=torch.float32, device=dev),
-    }
+    """One SSD layer's parameters on the generator's device (``SSM_FIXED``
+    for ``A_log`` and ``dt_bias``)."""
+    return init_tree(generator, ssm_shapes(cfg), dtype, fixed=SSM_FIXED)
 
 
 def _split_proj(proj: torch.Tensor, cfg):

@@ -16,10 +16,19 @@ state in place and keeps the position on the device, so the decode loop
 makes no host sync; the tokens come back in one transfer at the end. On the
 card it prints the ``nvidia-smi`` name and power limit, the prefill time,
 the median decode time per step (CUDA events) and tokens per second.
+
+Across ranks, ``generate`` of a model sharded on a (data, model) mesh
+(``launch/mesh.py``; ``init_params(mesh=...)``) serves on that mesh: each
+rank takes its rows of the batch and its slice of the caches, and returns
+its rows' tokens and logits. ``serve_rank`` is a rank function for
+``launch/spmd.py::launch``: it builds the mesh and its slice of the weights
+(seeded, or the caller's) one leaf at a time, and serves, with its launches,
+collectives and peak memory counted.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import statistics
 import subprocess
@@ -29,12 +38,17 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch, list_archs
+from repro_torch.kernels.flash_decode import kernel as flash_decode_kernel
+from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.sharding import batch_slice, model_dim
 from repro_torch.models.transformer.model import (
     init_caches,
     init_params,
     make_decode_step,
     make_prefill_step,
+    transformer_params_from_jax,
 )
+from repro_torch.obs.memory import peak_profile
 
 
 def device_line() -> str:
@@ -66,16 +80,24 @@ def make_patches(cfg, batch: int, seed: int) -> np.ndarray | None:
                                dtype=np.float32)
 
 
-def fill_caches(caches: list, prefill: list) -> None:
+def fill_caches(caches: list, prefill: list, mesh=None) -> None:
     """Copy each layer's prefill cache into the decode-length caches, in
     place, whatever its keys: a row-indexed tensor (k/v, c_kv/k_rope) into
     rows [0, n) (a windowed prefill's last W rows into slots [0, W), as
-    ``examples/serve_transformer.py`` does), an SSM state whole."""
+    ``examples/serve_transformer.py`` does), an SSM state whole. A decode
+    cache sharded by sequence (``sharding.model_dim`` 1: MLA's latents, k/v
+    whose KV heads do not divide the model axis) holds rows [j * S_loc,
+    (j + 1) * S_loc) of ``mesh``'s model rank j, of the prefill's rows,
+    which are every row."""
     for dst, src in zip(caches, prefill, strict=True):
         for name, s in src.items():
             d = dst[name]
             if isinstance(s, dict):
-                fill_caches([d], [s])
+                fill_caches([d], [s], mesh)
+            elif model_dim(d) == 1:
+                off = mesh.model_index * d.shape[1]
+                rows = s[:, off:off + d.shape[1]]
+                d[:, : rows.shape[1]].copy_(rows)
             elif d.shape == s.shape:
                 d.copy_(s)
             else:
@@ -104,20 +126,37 @@ def generate(model, prompts: torch.Tensor, new_tokens: int,
     caches), ``step_ms`` (each decode step: CUDA events on the card, the
     host clock on the CPU) and ``decode_ms`` (the whole decode loop, host
     clock, ending in a sync).
+
+    On a model sharded on a mesh (``model.mesh``): ``prompts`` and
+    ``patches`` are the whole batch, of which the rank serves its rows
+    (``batch_specs``; the data axes, when more than one rank, must divide
+    the batch), and the results are those rows', with ``rows``, their
+    [start, stop) in the batch, and ``cache_shapes``, the shapes of the
+    rank's caches.
     """
     cfg = model.cfg
+    mesh = model.mesh
     device = prompts.device
     B, S = prompts.shape[:2]
     if patches is not None and not cfg.num_patches:
         raise ValueError(f"{cfg.name} takes no patches")
     start_pos = S + (patches.shape[1] if patches is not None else 0)
-    prefill = make_prefill_step(cfg)
-    decode = make_decode_step(cfg)
-    caches = init_caches(cfg, B, start_pos + new_tokens, device)
+    prefill = make_prefill_step(cfg, mesh)
+    decode = make_decode_step(cfg, mesh)
+    caches = init_caches(cfg, B, start_pos + new_tokens, device, mesh)
+    rows = (0, B)
+    if mesh is not None:  # init_caches raised unless the data axes split B
+        n = B // mesh.data_size
+        rows = (mesh.data_index * n, (mesh.data_index + 1) * n)
+        batch = {"tokens": prompts}
+        if patches is not None:
+            batch["patches"] = patches
+        batch = batch_slice(cfg, batch, mesh)
+        prompts, patches = batch["tokens"], batch.get("patches")
     _sync(device)
     t0 = time.perf_counter()
     logits, pre = prefill(model, prompts, patches)
-    fill_caches(caches, pre)
+    fill_caches(caches, pre, mesh)
     del pre
     _sync(device)
     prefill_ms = 1e3 * (time.perf_counter() - t0)
@@ -149,7 +188,7 @@ def generate(model, prompts: torch.Tensor, new_tokens: int,
     decode_ms = 1e3 * (time.perf_counter() - t0)
     step_ms = [s.elapsed_time(e) for s, e in marks] if on_card else marks
     step_logits = torch.stack(step_logits).float().cpu()
-    return {
+    out = {
         "tokens": torch.cat(generated, dim=1).cpu(),
         "step_logits": step_logits,
         "logits": step_logits[-1],
@@ -157,6 +196,81 @@ def generate(model, prompts: torch.Tensor, new_tokens: int,
         "step_ms": step_ms,
         "decode_ms": decode_ms,
     }
+    if mesh is not None:
+        out["rows"] = rows
+        out["cache_shapes"] = [_shapes(c) for c in caches]
+    return out
+
+
+def _shapes(cache: dict) -> dict:
+    return {k: _shapes(v) if isinstance(v, dict) else tuple(v.shape)
+            for k, v in cache.items()}
+
+
+def serve_rank(device, cfg, mesh_shape, new_tokens: int, batch: int = 8,
+               prompt_len: int = 1024, seed: int = 0, *, prompts=None,
+               patches=None, np_params=None, profile_peak: bool = False) -> dict:
+    """A rank function for ``launch``: ``generate`` of ``cfg`` (an
+    ``ArchConfig`` or an architecture's name) on a ``make_mesh(mesh_shape)``
+    mesh, on the rank's ``device``.
+
+    The weights are ``np_params`` (the JAX package's tree as numpy arrays,
+    ``transformer_params_from_jax``) or ``init_params`` from a generator on
+    the device seeded ``seed``, both built with the mesh: the rank makes one
+    leaf at a time and keeps its slice, so it never holds the whole model.
+    The prompts (and a VLM's patches) are the caller's, or
+    ``make_prompts``/``make_patches`` of ``batch`` x ``prompt_len`` from
+    ``seed``. Returns ``generate``'s results (host data) with the rank's
+    ``coords``, the shapes of its parameter slices (``param_shapes``), its
+    decode-kernel launches (``launches``) and its collectives
+    (``collectives``, ``mesh.collective_record``), both counted over the
+    ``generate`` call alone, and whether its collectives crossed the host
+    (``host_transport``). On a card also ``build_peak_bytes`` (the most
+    bytes allocated while the weights were built, beyond those allocated
+    before), ``param_bytes`` (the rank's slices), ``max_memory_allocated``
+    over the ``generate`` call and, with ``profile_peak``, ``peak_profile``
+    (``obs/memory.py``: what was alive at that peak; the profile's history
+    slows the run)."""
+    if isinstance(cfg, str):
+        cfg = get_arch(cfg)
+    mesh = mesh_mod.make_mesh(mesh_shape)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+        before = torch.cuda.memory_allocated(device)
+    if np_params is not None:
+        model = transformer_params_from_jax(np_params, cfg, device, mesh)
+    else:
+        model = init_params(cfg, torch.Generator(device).manual_seed(seed), mesh)
+    if on_card:
+        build_peak = torch.cuda.max_memory_allocated(device) - before
+    if prompts is None:
+        prompts = make_prompts(cfg, batch, prompt_len, seed)
+        patches = make_patches(cfg, batch, seed)
+    prompts = torch.as_tensor(prompts, device=device)
+    if patches is not None:
+        patches = torch.as_tensor(patches, device=device).to(model.embed.dtype)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats(device)
+    flash_decode_kernel.reset_launches()
+    mesh_mod.reset_collectives()
+    with (peak_profile(device) if profile_peak and on_card
+          else contextlib.nullcontext()) as peak:
+        out = generate(model, prompts, new_tokens, patches)
+    out["launches"] = dict(flash_decode_kernel.LAUNCHES)
+    out["collectives"] = mesh_mod.collective_record()
+    out["coords"] = dict(mesh.coords)
+    out["param_shapes"] = {k: tuple(v.shape)
+                           for k, v in model.named_parameters()}
+    out["host_transport"] = mesh.host_transport
+    if on_card:
+        out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        out["build_peak_bytes"] = build_peak
+        out["param_bytes"] = sum(p.numel() * p.element_size()
+                                 for p in model.parameters())
+    if peak is not None:
+        out["peak_profile"] = peak
+    return out
 
 
 def serve_config(arch: str, reduced: bool, layers: int | None = None):

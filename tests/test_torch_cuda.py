@@ -20,7 +20,10 @@ pipelined sources train bit for bit as its inline ones. The spmd path runs
 in one NCCL rank spawned by ``launch`` at world size 1: its all-to-all is
 the sim form's bit for bit, and its trainer trains bit for bit as the sim
 one at one split. The transformer train step (reduced, f32) agrees with
-the CPU, and a MoE and an SSD train step repeat bit for bit.
+the CPU, and a MoE and an SSD train step repeat bit for bit. The decode
+kernel's partial output (o, m, d), which the sequence-sharded decode merges
+across ranks, is held against its plain version, a shard with no valid row
+exactly.
 """
 import copy
 
@@ -635,6 +638,72 @@ def test_cuda_flash_decode_at_the_reference_decode_shapes(cuda, B, H, KV, D, Dv,
         assert bool((diff <= bound).all()), (L, float(diff.max()))
         assert torch.equal(out, fd.flash_decode(q, k, v, n))
     assert fd.LAUNCHES["flash_decode"] == 6
+
+
+#: a rank's rows of a cache sharded by sequence over two ranks at the
+#: transformer-across-ranks phase's shapes (8 prompts of 1024 rows, 9 new
+#: tokens, the context 1034 rows): Granite-20B's MQA k/v and
+#: DeepSeek-V2-Lite's MLA latents expanded to its 16 heads; and the reduced
+#: configs' head dim: B, H, KV, D, Dv, S_loc
+DECODE_PARTIAL_CASES = [
+    (8, 48, 1, 128, 128, 517),
+    (8, 16, 16, 192, 128, 517),
+    (2, 4, 1, 32, 32, 11),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,H,KV,D,Dv,S", DECODE_PARTIAL_CASES)
+def test_cuda_flash_decode_partial_matches_plain(cuda, B, H, KV, D, Dv, S,
+                                                 dtype):
+    """The decode kernel's partial output (o f32, m, d) on one shard's rows:
+    at cache_len 0 (a shard with no valid row) exactly o = 0, m = -1e30,
+    d = 0, as its plain version; at 1, mid and S, o within
+    ``decode_attention_bound`` and m and d within the f32 tolerance of the
+    plain version on float32 copies; bit for bit on repeat; and two shards,
+    the valid rows all in the first, merged (``merge_partials``) within the
+    bound of the whole cache's result."""
+    from repro_torch.kernels.flash_decode import kernel as fd
+    from repro_torch.kernels.flash_decode import ref as fd_ref
+
+    gen = torch.Generator(device=cuda).manual_seed(H * D + S + 1)
+    q = torch.randn(B, H, D, device=cuda, generator=gen).to(dtype)
+    k = torch.randn(B, 2 * S, KV, D, device=cuda, generator=gen).to(dtype)
+    v = torch.randn(B, 2 * S, KV, Dv, device=cuda, generator=gen).to(dtype)
+    k0, v0, k1, v1 = k[:, :S], v[:, :S], k[:, S:], v[:, S:]
+    fd.reset_launches()
+    for L in (0, 1, S // 2 + 3, S):
+        n = torch.tensor([L], dtype=torch.int32, device=cuda)
+        o, m, d = fd.flash_decode_partial(q, k0, v0, n)
+        assert o.dtype == m.dtype == d.dtype == torch.float32
+        assert o.shape == (B, H, Dv) and m.shape == d.shape == (B, H)
+        want_o, want_m, want_d = fd_ref.decode_attention_partial_ref(
+            q.float(), k0.float(), v0.float(), n.reshape(()))
+        if L == 0:
+            assert bool((o == 0).all()) and bool((d == 0).all())
+            assert bool((m == -1e30).all())
+        else:
+            want, bound = fd_ref.decode_attention_bound(q, k0, v0,
+                                                        n.reshape(()),
+                                                        **DECODE_TOL)
+            assert bool(((o - want).abs() <= bound).all()), L
+            torch.testing.assert_close(m, want_m, **DECODE_TOL)
+            torch.testing.assert_close(d, want_d, **DECODE_TOL)
+        again = fd.flash_decode_partial(q, k0, v0, n)
+        assert all(torch.equal(a, b) for a, b in zip((o, m, d), again))
+        # the cache's valid rows all in the first shard: the second weighs 0
+        parts = [(o, m, d), fd.flash_decode_partial(
+            q, k1, v1, torch.zeros(1, dtype=torch.int32, device=cuda))]
+        merged = fd_ref.merge_partials(*(torch.stack(t) for t in zip(*parts)),
+                                       dtype)
+        if L:
+            want, bound = fd_ref.decode_attention_bound(q, k, v,
+                                                        n.reshape(()),
+                                                        **DECODE_TOL)
+            assert bool(((merged.float() - want).abs() <= bound).all()), L
+    assert fd.LAUNCHES["flash_decode_partial"] == 12
+    assert fd.LAUNCHES["flash_decode"] == 0
 
 
 FAMILY_ARCHS = ["deepseek-v2-lite-16b", "deepseek-v2-236b", "mamba2-2.7b",

@@ -34,6 +34,7 @@ from repro_torch import serve
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels.flash_decode import kernel as fd_kernel
 from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.launch.mesh import abstract_mesh
 from repro_torch.models.transformer import blocks as tb
 from repro_torch.models.transformer import model as tm
 from repro_torch.models.transformer import moe as tmoe
@@ -190,14 +191,21 @@ def test_moe_combine_sums_each_token_in_expert_order():
 
 
 def test_moe_shard_map_raises():
+    """``opt_moe_shard_map`` selects the expert-local dispatch, which needs a
+    model axis: without a mesh the steps and ``moe_apply`` raise; with one
+    (an abstract (1, 1) mesh here) the steps build, and the weights need
+    none."""
     cfg = dataclasses.replace(get_arch("deepseek-v2-lite-16b").reduced(),
                               opt_moe_shard_map=True)
-    for build in (lambda: tm.init_params(cfg, torch.Generator().manual_seed(0)),
-                  lambda: tm.make_decode_step(cfg),
+    for build in (lambda: tm.make_decode_step(cfg),
                   lambda: tm.make_prefill_step(cfg),
                   lambda: tmoe.moe_apply({}, torch.zeros(1, 1, cfg.d_model), cfg)):
         with pytest.raises(ValueError, match="opt_moe_shard_map"):
             build()
+    mesh = abstract_mesh((1, 1))
+    tm.make_decode_step(cfg, mesh)
+    tm.make_prefill_step(cfg, mesh)
+    tm.init_params(cfg, torch.Generator().manual_seed(0))
 
 
 # --------------------------------------------------------------------------- #
