@@ -328,6 +328,28 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               slices and one leaf); bf16 tokens and ms a step, printed;
               then f32 again with the allocator's history on: what is
               alive at a rank's peak (``obs/memory.py``).
+25. tp-train -- the transformer train step across ranks, and Mamba2 and
+              Hymba on a model axis: Granite-20B, DeepSeek-V2-Lite-16B,
+              Mamba2-2.7B and Hymba-1.5B at full width cut to 2 layers,
+              B = 2 sequences of 1024 rows, 2 ``adamw(1e-3)`` steps
+              (``launch/shapes.py::train_rank``). (a) bf16: the (1, 1)
+              mesh over NCCL at world size 1, its losses and every weight
+              after the steps bitwise the unsharded train step's. (b) f32:
+              two ranks sharing ``cuda:0`` over gloo as the (1, 2) mesh,
+              the first step's loss within 1e-5 (relative) of the
+              unsharded run's, the second's within 1e-4,
+              each rank's first-step gradient slices within 1e-4 of the
+              leaf's max abs gradient, each weight slice after the steps
+              within 1e-4 of the leaf's max abs but for Adam's
+              noise-sensitive entries (within 2 lr a step; counted, with
+              their first-step |g| over the leaf's max), the replicated
+              leaves bitwise equal across the ranks, the same collectives
+              on both ranks and in both steps (calls and result bytes by
+              axis and kind), peak bytes and step ms a rank. (c) Mamba2 and Hymba served on the same
+              two ranks, f32, 2 prompts of 1024 rows and 8 decode steps:
+              logits within 1e-4 of the unsharded run's, equal tokens, the
+              SSM state sharded by head, Hymba's ring sharded by sequence
+              (the decode kernel's partial output, 2 x 8 launches a rank).
 
 Launch counts are set to 0 just before each trainer run, each serve run,
 each transformer train run, each shape run and the entry point's run and
@@ -4093,6 +4115,303 @@ def tp_phase(dev, total):
                       "launch_s": t_launch})
 
 
+#: phase 25: the configs, their depth cut, the batch, the rows, the steps
+TPT_ARCHS = ("granite-20b", "deepseek-v2-lite-16b", "mamba2-2.7b",
+             "hymba-1.5b")
+TPT_LAYERS, TPT_BATCH, TPT_SEQ, TPT_STEPS = 2, 2, 1024, 2
+#: ``launch/shapes.py::TRAIN_LR``, the rate ``train_rank`` trains at
+TPT_LR = 1e-3
+#: the sharded float32 step against the unsharded one on the card: the
+#: first step's loss (relative: both runs from the same weights), a later
+#: step's within ``TPT_LATER_RTOL`` (after an Adam step whose noise-sensitive
+#: entries, below, differ; a MoE's routing may then flip a near tie, as in
+#: ``tests/test_torch_lm_train_step.py``'s free-running losses); the first
+#: step's gradient over its leaf's max abs (the repo's gradient tolerance
+#: between two float32 reduction orders, ``tests/test_torch_lm_train.py``:
+#: at full width cuBLAS sums the sharded products' shapes in other orders,
+#: and an embedding row adds its tokens' rows in another); a
+#: weight after the steps within ``launch/shapes.py::REF_TOL`` (1e-4) of
+#: its leaf's max abs, but for Adam's
+#: noise-sensitive entries: where a gradient is small against the float32
+#: noise of its sums, the two runs' normalised steps m / sqrt(v) differ by
+#: up to a whole lr, either way (within 2 lr x 1.01 a step;
+#: ``tests/test_torch_lm_train_step.py``); their count is reported
+TPT_LOSS_RTOL, TPT_LATER_RTOL = 1e-5, 1e-4
+TPT_GRAD_TOL = 1e-4
+TPT_FLIP = 2 * TPT_LR * 1.01
+#: (c): the served configs, the batch, the prompt rows, the new tokens
+TPT_SERVE = ("mamba2-2.7b", "hymba-1.5b")
+TPT_SERVE_BATCH, TPT_SERVE_PROMPT, TPT_SERVE_NEW = 2, 1024, 9
+
+
+def tp_train_reference(dev, cfg, path=None, with_grads=False):
+    """The unsharded train step of ``cfg`` on the card (weights from a
+    generator on the card seeded 0, ``train_rank``'s batch): its losses,
+    the seconds it took, and ``train_rank``'s ``reference``: its weights
+    after the steps with each leaf's max abs (and, with ``with_grads``,
+    AdamW's m after the first step, (1 - b1) times the first gradient, and
+    its max abs), on the card, or with
+    ``path`` saved there for the ranks (the run freed before they
+    start)."""
+    import torch
+
+    from repro_torch.launch.shapes import train_batch
+    from repro_torch.models.transformer.model import (
+        init_params,
+        make_train_step,
+    )
+    from repro_torch.train.optimizer import adamw
+
+    model = init_params(cfg, torch.Generator(dev).manual_seed(0))
+    data = train_batch(cfg, TPT_BATCH, TPT_SEQ, 0)
+    tokens = torch.as_tensor(data["tokens"], device=dev)
+    names = [n for n, _ in model.named_parameters()]
+    saved = {}
+    opt = adamw(TPT_LR)
+    state = opt.init(list(model.parameters()))
+    step = make_train_step(cfg, opt)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for k in range(TPT_STEPS):
+        state, metrics = step(model, state, tokens)
+        losses.append({n: float(v) for n, v in metrics.items()})
+        if k == 0 and with_grads:  # AdamW's first m: (1 - b1) g
+            saved["first_m"] = {n: m.to("cpu", copy=True) for n, m in zip(
+                names, state.slots["m"])}
+            saved["first_m_scale"] = {n: float(m.float().abs().max())
+                                      for n, m in zip(names, state.slots["m"])}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    named = {n: p.detach() for n, p in model.named_parameters()}
+    ref = {"params": named, "scale": {n: float(t.float().abs().max())
+                                      for n, t in named.items()}, **saved}
+    if path is None:
+        return losses, wall, ref
+    ref["params"] = {n: t.cpu() for n, t in named.items()}
+    try:  # the zip records' checksums halve the write's speed
+        from torch.utils.serialization import config
+        crc, config.save.compute_crc32 = config.save.compute_crc32, False
+    except ImportError:
+        config = None
+    try:
+        torch.save(ref, path)
+    finally:
+        if config is not None:
+            config.save.compute_crc32 = crc
+    del model, state, named, step, saved, ref
+    torch.cuda.empty_cache()
+    return losses, wall, path
+
+
+def tp_weights_check(name, out, losses, exact):
+    """A rank's losses and weights against the unsharded run's: bitwise
+    (``exact``), or within the tolerances (``TPT_*``); returns the line's
+    numbers."""
+    err = out["param_err"]
+    if exact:
+        check(out["losses"] == losses and all(e == 0.0 for e in err.values()),
+              f"tp-train {name}: the (1, 1) mesh is not bitwise the "
+              f"unsharded train step: losses {out['losses']} vs {losses}, "
+              f"weights off {[n for n, e in err.items() if e]}")
+        return {"entries": out["param_count"]}
+    for i, (got, want) in enumerate(zip(out["losses"], losses, strict=True)):
+        rtol = TPT_LATER_RTOL if i else TPT_LOSS_RTOL
+        for k in ("loss", "aux"):
+            check(abs(got[k] - want[k]) <= rtol * abs(want[k]),
+                  f"tp-train {name}: step {i + 1} {k} {got[k]} vs {want[k]}")
+    grad_err = out["grad_err"]
+    check(all(e <= TPT_GRAD_TOL for e in grad_err.values()),
+          f"tp-train {name}: first-step gradients off "
+          f"{ {n: e for n, e in grad_err.items() if e > TPT_GRAD_TOL} }")
+    check(all(d <= TPT_FLIP * TPT_STEPS for d in out["param_off_max"].values()),
+          f"tp-train {name}: weights off by more than {TPT_STEPS} Adam "
+          f"steps: {out['param_off_max']}")
+    off = {n: c for n, c in out["param_off"].items() if c}
+    return {"max_param_err_over_maxabs": max(err.values()),
+            "worst_leaf": max(err, key=err.get),
+            "max_grad_err_over_maxabs": max(grad_err.values()),
+            "entries_beyond_tol": sum(off.values()),
+            "entries_beyond_tol_by_leaf": off,
+            "their_max_grad_over_leaf_max": max(
+                [out["param_off_grad"][n] for n in off], default=0.0),
+            "their_max_abs_err": max(out["param_off_max"].values()),
+            "entries": out["param_count"],
+            "loss_rel_err": [max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-30)
+                                 for k in ("loss", "aux"))
+                             for g, w in zip(out["losses"], losses)]}
+
+
+def tp_train_phase(dev, total):
+    """Phase 25: the transformer train step across ranks
+    (``make_train_step(cfg, adamw, mesh)`` through
+    ``launch/shapes.py::train_rank``) and Mamba2 and Hymba on a model axis,
+    at full width cut to ``TPT_LAYERS`` layers (the header's (a)-(c)). The
+    unsharded runs go first, one config at a time, each freed before the
+    next run but for its weights after the steps: on the card for the
+    (1, 1) run beside it in (a), in a file the ranks read their slices of
+    in (b). Launch counts are set to 0 just before each run and read just
+    after (the ranks' in their own processes); all are added to
+    ``total``; the train step launches none."""
+    import tempfile
+    from dataclasses import replace
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import serve
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import spmd
+    from repro_torch.launch.shapes import TRAIN_LR, attention_layers, train_rank
+    from repro_torch.models.transformer.model import init_params
+
+    check(TPT_LR == TRAIN_LR, f"tp-train: the ranks train at {TRAIN_LR}")
+    t_phase = time.perf_counter()
+    base = {arch: replace(get_arch(arch), num_layers=TPT_LAYERS)
+            for arch in TPT_ARCHS}
+    refs, t_parts = {}, {}
+    with tempfile.TemporaryDirectory(prefix="tp-train-") as tmp:
+        # (a) bf16: the unsharded step, then the (1, 1) mesh over NCCL in
+        # this process, against the unsharded weights on the card
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "rdv"), 1), rank=0, world_size=1, device_id=dev)
+        try:
+            for arch, cfg in base.items():
+                cfg = replace(cfg, dtype="bfloat16")
+                reset_launches()
+                refs[arch] = tp_train_reference(dev, cfg)
+                check(sum(read_launches().values()) == 0,
+                      f"tp-train {arch}: the train step launched a kernel")
+                out = train_rank(dev, cfg, (1, 1), TPT_STEPS, TPT_BATCH,
+                                 TPT_SEQ, reference=refs[arch][2],
+                                 record=False)
+                refs[arch] = refs[arch][:2]
+                torch.cuda.empty_cache()
+                line = tp_weights_check(f"{arch} (1, 1)", out, refs[arch][0],
+                                        exact=True)
+                check(out["collectives"][0]["count"] == 0,
+                      f"tp-train {arch}: collectives at (1, 1)")
+                emit("tp_train", {"model": arch, "dtype": "bfloat16",
+                                  "mesh": [1, 1], "backend": "nccl",
+                                  "bitwise_unsharded": True,
+                                  "losses": out["losses"],
+                                  "step_ms": out["step_ms"],
+                                  "unsharded_wall_s": refs[arch][1],
+                                  "peak_bytes": out.get("peak_bytes"),
+                                  "entries": line["entries"]})
+        finally:
+            dist.destroy_process_group()
+        t_parts["a_s"] = time.perf_counter() - t_phase
+        # (b) f32: the unsharded step of each config; (c) the unsharded
+        # serve runs
+        f32 = {arch: replace(cfg, dtype="float32") for arch, cfg in base.items()}
+        for arch, cfg in f32.items():
+            refs[arch] = tp_train_reference(dev, cfg, os.path.join(
+                tmp, f"{arch}-f32.pt"), with_grads=True)
+        t_parts["f32_references_s"] = (time.perf_counter() - t_phase
+                                       - t_parts["a_s"])
+        want = {}
+        for arch in TPT_SERVE:
+            cfg = f32[arch]
+            model = init_params(cfg, torch.Generator(dev).manual_seed(0))
+            prompts = torch.as_tensor(serve.make_prompts(
+                cfg, TPT_SERVE_BATCH, TPT_SERVE_PROMPT, 0), device=dev)
+            reset_launches()
+            want[arch] = serve.generate(model, prompts, TPT_SERVE_NEW)
+            launches = read_launches()
+            for k in total:
+                total[k] += launches[k]
+            check(launches["flash_decode"] == attention_layers(cfg)
+                  * (TPT_SERVE_NEW - 1),
+                  f"tp-train {arch}: {launches} unsharded")
+            del model, prompts
+        torch.cuda.empty_cache()
+        tasks = [(functools.partial(train_rank, reference=refs[arch][2],
+                                    record=False),
+                  (cfg, (1, 2), TPT_STEPS, TPT_BATCH, TPT_SEQ))
+                 for arch, cfg in f32.items()]
+        tasks += [(serve.serve_rank, (f32[arch], (1, 2), TPT_SERVE_NEW,
+                                      TPT_SERVE_BATCH, TPT_SERVE_PROMPT))
+                  for arch in TPT_SERVE]
+        t0 = time.perf_counter()
+        ranks = spmd.launch(tasks, world=2, shared_card=True, timeout_s=600.0)
+        t_launch = time.perf_counter() - t0
+    for i, arch in enumerate(TPT_ARCHS):
+        outs = [r[i] for r in ranks]
+        lines = [tp_weights_check(f"{arch} rank {rank}", out, refs[arch][0],
+                                  exact=False)
+                 for rank, out in enumerate(outs)]
+        check(outs[0]["digests"] == outs[1]["digests"] and outs[0]["digests"],
+              f"tp-train {arch}: the replicated leaves differ across ranks")
+        for out in outs:
+            check(out["collectives"][0] == out["collectives"][1],
+                  f"tp-train {arch}: the two steps' collectives differ")
+        check(outs[0]["collectives"] == outs[1]["collectives"],
+              f"tp-train {arch}: the two ranks' collectives differ")
+        by = outs[0]["collectives"][0]["by_axis"]
+        emit("tp_train", {
+            "model": arch, "dtype": "float32", "mesh": [1, 2],
+            "backend": "gloo, both ranks on cuda:0",
+            "transport": "every collective copies through the host",
+            "layers": TPT_LAYERS, "batch": TPT_BATCH, "seq": TPT_SEQ,
+            "steps": TPT_STEPS, "losses": outs[0]["losses"],
+            "unsharded_losses": refs[arch][0],
+            "loss_rel_err_by_step": [max(e) for e in zip(
+                *(ln["loss_rel_err"] for ln in lines))],
+            "max_grad_err_over_maxabs": [ln["max_grad_err_over_maxabs"]
+                                         for ln in lines],
+            "max_param_err_over_maxabs": [ln["max_param_err_over_maxabs"]
+                                          for ln in lines],
+            "worst_leaf": [ln["worst_leaf"] for ln in lines],
+            "entries_beyond_1e-4": [ln["entries_beyond_tol"] for ln in lines],
+            "entries_per_rank": [ln["entries"] for ln in lines],
+            "beyond_by_leaf_rank0": lines[0]["entries_beyond_tol_by_leaf"],
+            "their_max_grad_over_leaf_max": [
+                ln["their_max_grad_over_leaf_max"] for ln in lines],
+            "their_max_abs_err": [ln["their_max_abs_err"] for ln in lines],
+            "replicated_leaves_bitwise": len(outs[0]["digests"]),
+            "collectives_per_step": by,
+            "collective_bytes_per_step": outs[0]["collectives"][0]["total"],
+            "peak_bytes_per_rank": [o.get("peak_bytes") for o in outs],
+            "step_ms_per_rank": [o["step_ms"] for o in outs],
+            "unsharded_wall_s": refs[arch][1], "card": CARD})
+    for j, arch in enumerate(TPT_SERVE):
+        outs = [r[len(TPT_ARCHS) + j] for r in ranks]
+        cfg = f32[arch]
+        steps = TPT_SERVE_NEW - 1
+        for rank, out in enumerate(outs):
+            torch.testing.assert_close(out["step_logits"],
+                                       want[arch]["step_logits"],
+                                       rtol=1e-4, atol=1e-4)
+            check(torch.equal(out["tokens"], want[arch]["tokens"]),
+                  f"tp-train {arch} rank {rank}: tokens differ")
+            state = out["cache_shapes"][0]["state"]
+            check(state[1] == cfg.ssm_nheads // 2,
+                  f"tp-train {arch}: state {state} not sharded by head")
+            launches = out["launches"]
+            total["flash_decode"] += launches["flash_decode"]
+            total["flash_decode_partial"] += launches["flash_decode_partial"]
+            check(launches["flash_decode"] == 0 and
+                  launches["flash_decode_partial"]
+                  == attention_layers(cfg) * steps,
+                  f"tp-train {arch} rank {rank}: launches {launches}")
+        emit("tp_train_serve", {
+            "model": arch, "dtype": "float32", "mesh": [1, 2],
+            "batch": TPT_SERVE_BATCH, "prompt": TPT_SERVE_PROMPT,
+            "steps": steps, "tokens_equal_unsharded": True,
+            "max_abs_logit_diff": max(
+                float((o["step_logits"] - want[arch]["step_logits"]).abs()
+                      .max()) for o in outs),
+            "cache_shapes_layer0": outs[0]["cache_shapes"][0],
+            "launches_per_rank": [o["launches"] for o in outs],
+            "collectives_per_rank": [o["collectives"]["by_axis"] for o in outs],
+            "decode_ms_per_step": [statistics.median(o["step_ms"])
+                                   for o in outs],
+            "card": CARD})
+    emit("tp_train_phase", {"wall_s": time.perf_counter() - t_phase,
+                            "launch_s": t_launch, **t_parts})
+
+
 def main():
     import torch
 
@@ -4275,6 +4594,9 @@ def main():
 
     # ---- 24. the transformer across ranks ---------------------------------
     tp_phase(dev, total)
+
+    # ---- 25. the train step across ranks, Mamba2 and Hymba on a model axis -
+    tp_train_phase(dev, total)
 
     emit("smoke", {"wall_s": time.perf_counter() - t_smoke, "card": CARD})
     for k, r in results.items():

@@ -18,14 +18,43 @@ sizes alone, with no process group: what the spec functions of
 ``launch/sharding.py`` need, so the production mesh's specs can be computed
 in one process.
 
-The collectives (``all_reduce``, ``all_gather``) count their calls and the
+The collectives (``all_reduce``, ``all_gather``, ``enter`` and the
+reduce-scatter that is an all-gather's adjoint) count their calls and the
 bytes of their results (the measure the reference's
 ``collective_bytes_from_hlo`` takes from the HLO) in ``COLLECTIVES``, by
 axis and kind; ``launch/shapes.py::roofline_record`` reads them
 (``collective_record``). On an axis of size 1 they return their input and
 count nothing. Gloo takes no CUDA tensor for an all-gather, so a mesh over
 gloo (``host_transport``, the rehearsal of several ranks on one card) copies
-a CUDA tensor to the host around every collective.
+a CUDA tensor to the host around every collective; over gloo a
+reduce-scatter is an all-reduce of which the rank keeps its block.
+
+Without autograd (``torch.no_grad``, ``inference_mode``, or a tensor that
+needs no gradient) ``all_reduce`` sums in place, as serving runs. Where
+autograd records, each collective is a ``torch.autograd.Function`` whose
+backward is itself a counted collective, chosen by the role of the value
+on each axis:
+
+* ``model``: the loss is one value that every rank computes the same way,
+  and no gradient is averaged over ``model``. A value is either replicated
+  (the same on every rank of the model group, its gradient the whole one
+  on each) or partial (each rank computes its own part: its heads, hidden
+  columns, experts or vocabulary block). ``all_reduce`` of partial sums
+  gives a replicated value: its adjoint is the identity. ``enter`` marks
+  where replicated values enter a partial region: the identity forward,
+  an all-reduce of the gradients backward (without it every replicated
+  leaf would get a partial gradient that differs from rank to rank).
+  ``all_gather`` has two adjoints: before replicated code (the logits
+  before the loss) the rank's slice of the gradient; into a partial
+  region (``partial=True``: a weight gathered where a column shard cuts a
+  head, the SSM projection) a reduce-scatter.
+* ``data`` (the pod and data axes): each rank's loss is its own term of a
+  mean, and the train step averages the gradients over these axes after
+  the backward. A value computed from every data rank's rows feeds every
+  rank's term: ``all_gather`` (the global MoE dispatch's tokens) has a
+  reduce-scatter adjoint and ``all_reduce`` (the expert-local dispatch's
+  ``aux``) an all-reduce adjoint. A slicing or identity adjoint there
+  would be off by the data size.
 """
 from __future__ import annotations
 
@@ -38,7 +67,7 @@ import torch.distributed as dist
 #: the axis names of a mesh of two and of three axes
 AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
 DATA_AXES = ("pod", "data")
-KINDS = ("all-reduce", "all-gather")
+KINDS = ("all-reduce", "all-gather", "reduce-scatter")
 #: collectives since the last ``reset_collectives()``: axis ("model", or
 #: "data" for the pod and data axes together) -> kind -> [calls, bytes]
 COLLECTIVES = {axis: {kind: [0, 0] for kind in KINDS}
@@ -190,12 +219,10 @@ def _count(axis: str, kind: str, nbytes: int) -> None:
     c[1] += nbytes
 
 
-def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
-    """The sum of ``t`` over the ranks of ``axis``, in place (``t`` is
-    returned)."""
-    group, n = _group(mesh, axis)
-    if n == 1:
-        return t
+def _sum_(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The counted in-place sum of ``t`` over ``axis`` (of more than one
+    rank)."""
+    group, _ = _group(mesh, axis)
     _count(axis, "all-reduce", t.numel() * t.element_size())
     if mesh.host_transport and t.is_cuda:
         h = t.cpu()
@@ -205,13 +232,9 @@ def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor
     return t
 
 
-def all_gather(t: torch.Tensor, mesh: Mesh, dim: int,
-               axis: str = "model") -> torch.Tensor:
-    """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in rank
-    order."""
+def _gather(t: torch.Tensor, mesh: Mesh, dim: int, axis: str) -> torch.Tensor:
+    """The counted concatenation of the ranks' ``t`` along ``dim``."""
     group, n = _group(mesh, axis)
-    if n == 1:
-        return t
     _count(axis, "all-gather", n * t.numel() * t.element_size())
     src = t.contiguous()
     if mesh.host_transport and t.is_cuda:
@@ -219,3 +242,121 @@ def all_gather(t: torch.Tensor, mesh: Mesh, dim: int,
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
     return torch.cat(parts, dim=dim).to(t.device)
+
+
+def _scatter(t: torch.Tensor, mesh: Mesh, dim: int, axis: str) -> torch.Tensor:
+    """The counted reduce-scatter: the sum of the ranks' ``t``, of which the
+    rank keeps its block along ``dim`` (its index on ``axis``)."""
+    group, n = _group(mesh, axis)
+    size = t.shape[dim] // n
+    idx = mesh.model_index if axis == "model" else mesh.data_index
+    _count(axis, "reduce-scatter", t.numel() // n * t.element_size())
+    if mesh.host_transport:  # gloo: an all-reduce, the rank's block kept
+        h = t.detach().to("cpu", copy=True).contiguous()
+        dist.all_reduce(h, group=group)
+        return h.narrow(dim, idx * size, size).to(t.device, copy=True)
+    src = t.movedim(dim, 0).contiguous()
+    out = src.new_empty((size,) + src.shape[1:])
+    dist.reduce_scatter_tensor(out, src, group=group)
+    return out.movedim(0, dim)
+
+
+def _records(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class _AllReduce(torch.autograd.Function):
+    """The sum over ``axis``; backward: the identity over ``model``, an
+    all-reduce over ``data`` (module docstring)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return _sum_(t.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.axis == "model":
+            return g, None, None
+        return _sum_(g.clone(), ctx.mesh, ctx.axis), None, None
+
+
+class _AllGather(torch.autograd.Function):
+    """The ranks' blocks concatenated; backward: the rank's block of the
+    gradient, or (``partial``, and always over ``data``) the
+    reduce-scatter of the gradients."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, dim, axis, partial):
+        ctx.mesh, ctx.dim, ctx.axis = mesh, dim % t.dim(), axis
+        ctx.scatter = partial or axis == "data"
+        return _gather(t, mesh, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, dim, axis = ctx.mesh, ctx.dim, ctx.axis
+        if ctx.scatter:
+            return _scatter(g, mesh, dim, axis), None, None, None, None
+        n = _group(mesh, axis)[1]
+        size = g.shape[dim] // n
+        return (g.narrow(dim, mesh.model_index * size, size), None, None,
+                None, None)
+
+
+class _Enter(torch.autograd.Function):
+    """Replicated values entering a partial region of ``model``: the
+    identity forward; backward, the gradients summed over ``model`` in one
+    all-reduce a dtype."""
+
+    @staticmethod
+    def forward(ctx, mesh, *ts):
+        ctx.mesh = mesh
+        return tuple(t.view_as(t) for t in ts)
+
+    @staticmethod
+    def backward(ctx, *gs):
+        out = list(gs)
+        for dtype in dict.fromkeys(g.dtype for g in gs):
+            idx = [i for i, g in enumerate(gs) if g.dtype == dtype]
+            flat = _sum_(torch.cat([gs[i].reshape(-1) for i in idx]),
+                         ctx.mesh, "model")
+            for i, part in zip(idx, flat.split([gs[i].numel() for i in idx]),
+                               strict=True):
+                out[i] = part.view_as(gs[i])
+        return (None, *out)
+
+
+def all_reduce(t: torch.Tensor, mesh: Mesh, axis: str = "model") -> torch.Tensor:
+    """The sum of ``t`` over the ranks of ``axis``: in place (``t`` is
+    returned) without autograd; where autograd records, a new tensor with
+    the adjoint of ``axis`` (module docstring)."""
+    if _group(mesh, axis)[1] == 1:
+        return t
+    if _records(t):
+        return _AllReduce.apply(t, mesh, axis)
+    return _sum_(t, mesh, axis)
+
+
+def all_gather(t: torch.Tensor, mesh: Mesh, dim: int, axis: str = "model",
+               partial: bool = False) -> torch.Tensor:
+    """The ranks' ``t`` of ``axis`` concatenated along ``dim`` in rank
+    order. Its adjoint (where autograd records) is the rank's slice of the
+    gradient, or with ``partial`` (the result feeds a partial region of
+    ``model``), and over ``data`` always, a reduce-scatter."""
+    if _group(mesh, axis)[1] == 1:
+        return t
+    if _records(t):
+        return _AllGather.apply(t, mesh, dim, axis, partial)
+    return _gather(t, mesh, dim, axis)
+
+
+def enter(*ts: torch.Tensor, mesh: Mesh):
+    """``ts`` (replicated over ``model``) as they enter a partial region:
+    the same tensors, whose gradients are summed over ``model`` (one
+    counted all-reduce a dtype) where autograd records. One tensor in, one
+    out; several in, a tuple out. Without autograd, or on a model axis of
+    one rank (or no mesh), ``ts`` themselves."""
+    if mesh is None or mesh.model_size == 1 or not _records(*ts):
+        return ts[0] if len(ts) == 1 else ts
+    out = _Enter.apply(mesh, *ts)
+    return out[0] if len(ts) == 1 else out

@@ -45,12 +45,22 @@ wrapper refuses a ``meta`` tensor, plus the kernel's own count
 (``flash_decode.kernel.decode_flops``) for each attention layer: the
 counter never sees its launch. ``bytes_accessed`` is
 ``roofline.step_bytes``, from shapes.
+
+``train_rank`` is a rank function for ``launch/spmd.py::launch`` (beside
+``serve.serve_rank``): ``make_train_step`` with ``adamw`` on a rank of a
+(data, model) mesh, its weights built with the mesh one leaf at a time,
+its rows of one seeded batch; it returns the rank's losses, its slices
+after the steps (or their errors against an unsharded run's), digests of
+its replicated leaves, its collectives (each step's, the adjoints and the
+data-axis gradient mean included, and a ``roofline_record`` of the last),
+its peak bytes on a card and its coordinates.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
 import gc
+import hashlib
 import json
 import math
 import statistics
@@ -69,14 +79,23 @@ from repro_torch.launch.input_specs import (
     input_specs,
     variant_config,
 )
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.launch.mesh import collective_record
+from repro_torch.launch.sharding import (
+    batch_slice,
+    model_dim,
+    param_specs,
+    spec_slice,
+)
 from repro_torch.models.transformer.model import (
     empty_params,
     init_params,
+    lm_grads,
     lm_loss,
     make_decode_step,
     make_prefill_step,
     make_train_step,
+    transformer_params_from_jax,
 )
 from repro_torch.train.optimizer import adamw
 
@@ -86,6 +105,9 @@ PREFILL_BATCH = 1
 DECODE_WARM, DECODE_TIMED = 2, 5
 TRAIN_TIMED = 3
 TRAIN_LR = 1e-3
+#: ``train_rank``'s count of weights off the reference: by more than this
+#: share of their leaf's max abs
+REF_TOL = 1e-4
 
 
 def _sync(device) -> None:
@@ -321,6 +343,171 @@ def run_one(arch: str, shape_name: str, device="cuda", *, layers=None,
     if after is not None:
         after(model, cfg, specs)
     return record
+
+
+def train_batch(cfg, batch: int, seq: int, seed: int) -> dict:
+    """One seeded train batch (numpy): ``tokens`` (B, S) or (B, S, nc) of
+    ``seq`` rows (``serve.make_prompts``), and a VLM's ``patches``
+    (``serve.make_patches``), whose rows come before the text's."""
+    from repro_torch.serve import make_patches, make_prompts
+
+    out = {"tokens": make_prompts(cfg, batch, seq, seed)}
+    patches = make_patches(cfg, batch, seed)
+    if patches is not None:
+        out["patches"] = patches
+    return out
+
+
+def _digest(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def train_rank(device, cfg, mesh_shape, steps: int, batch: int = 2,
+               seq: int = 1024, seed: int = 0, *, data=None, np_params=None,
+               grad_terms=(), reference=None, keep_params: bool = False,
+               record: bool = True) -> dict:
+    """A rank function for ``launch``: ``steps`` steps of
+    ``make_train_step(cfg, adamw(TRAIN_LR), mesh)`` on a
+    ``make_mesh(mesh_shape)`` mesh, on the rank's ``device``.
+
+    The weights are ``np_params`` (the JAX package's tree as numpy arrays,
+    ``transformer_params_from_jax``) or ``init_params`` from a generator on
+    the device seeded ``seed``, both built with the mesh (one leaf at a
+    time: the rank never holds the whole model). The batch is ``data``
+    (``train_batch``'s dict, the whole batch) or ``train_batch(cfg, batch,
+    seq, seed)``; the rank takes its rows (``batch_slice``). Before the
+    steps, the gradients of each term of ``grad_terms`` (``lm_grads``:
+    ``"total"``, ``"loss"``, ``"aux"``) are kept as numpy slices.
+
+    Returns (host data): ``losses`` (a step's {"loss", "aux"}: the rank's
+    term), ``collectives`` (each step's ``collective_record``),
+    ``step_ms`` (CUDA events on a card, the host clock on the CPU),
+    with ``record`` a ``record`` (``roofline_record`` of the last step with
+    the mesh: its collectives, the adjoints and the data-axis gradient mean
+    included; its flops the unsharded step's over the rank's rows, counted
+    on ``meta``), ``coords``,
+    ``param_shapes`` and ``slot_shapes`` (AdamW's m and v), ``digests``
+    (the sha256 of each replicated leaf after the steps), ``grads`` (term
+    -> name -> slice), ``params`` (name -> slice after the steps) with
+    ``keep_params``, and with ``reference`` (a dict, or the path of its
+    ``torch.save``: {"params": name -> the unsharded leaf after the same
+    steps,
+    "scale": name -> its max abs; optionally "first_m": name -> AdamW's m
+    after the first step, (1 - b1) times its gradient, "first_m_scale": its
+    max abs}) ``param_err``: each slice's max abs error against the
+    reference's slice over the leaf's max abs, with ``param_off`` (its
+    entries off by more than ``REF_TOL`` times that max abs),
+    ``param_off_max`` (the largest of those errors) and ``param_count``
+    (the rank's entries); with the reference's first m also ``grad_err``
+    (the rank's first m, so its first-step gradient, against the
+    reference's slice over the leaf's max abs) and ``param_off_grad`` (the
+    largest |m| / max |m| of the reference's first m at the entries
+    off). On a card also ``peak_bytes`` (``max_memory_allocated``
+    over the steps)."""
+    if isinstance(cfg, str):
+        cfg = get_arch(cfg)
+    device = torch.device(device)
+    mesh = mesh_mod.make_mesh(mesh_shape)
+    on_card = device.type == "cuda"
+    if np_params is not None:
+        model = transformer_params_from_jax(np_params, cfg, device, mesh)
+    else:
+        model = init_params(cfg, torch.Generator(device).manual_seed(seed), mesh)
+    data = train_batch(cfg, batch, seq, seed) if data is None else data
+    rows = batch_slice(cfg, {k: torch.as_tensor(v) for k, v in data.items()},
+                       mesh)
+    tokens = rows["tokens"].to(device)
+    patches = rows.get("patches")
+    if patches is not None:
+        patches = patches.to(device, model.embed.dtype)
+    names = [n for n, _ in model.named_parameters()]
+    out = {"coords": dict(mesh.coords), "grads": {}}
+    for term in grad_terms:
+        grads, _ = lm_grads(model, tokens, patches, term)
+        out["grads"][term] = {n: g.float().cpu().numpy()
+                              for n, g in zip(names, grads, strict=True)}
+        del grads
+    ref = specs = None
+    if reference is not None:
+        ref = reference if isinstance(reference, dict) else torch.load(
+            reference, mmap=True)
+        specs = param_specs(cfg, ref["params"], mesh)
+
+        def ref_slice(kind, n):
+            return spec_slice(ref[kind][n], specs[n], mesh).to(device).float()
+
+    opt = adamw(TRAIN_LR)
+    state = opt.init(list(model.parameters()))
+    step = make_train_step(cfg, opt, mesh)
+    if on_card:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    losses, collectives, step_ms = [], [], []
+    for k in range(steps):
+        mesh_mod.reset_collectives()
+        if on_card:
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+        else:
+            t0 = time.perf_counter()
+        state, metrics = step(model, state, tokens, patches)
+        if on_card:
+            end.record()
+            end.synchronize()
+            step_ms.append(start.elapsed_time(end))
+        else:
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+        collectives.append(collective_record())
+        losses.append({n: float(v) for n, v in metrics.items()})
+        if k == 0 and ref is not None and "first_m" in ref:
+            # AdamW's first m is (1 - b1) g: the first step's gradient
+            out["grad_err"] = {
+                n: float((m.float() - ref_slice("first_m", n)).abs().max())
+                / max(ref["first_m_scale"][n], 1e-30)
+                for n, m in zip(names, state.slots["m"], strict=True)}
+    out.update(losses=losses, collectives=collectives, step_ms=step_ms)
+    if on_card:
+        out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+    if record:
+        # the flops of one rank's rows through the unsharded model (the
+        # expert-local dispatch counts as the global one)
+        B_loc = tokens.shape[0]
+        flops = meta_flops(dataclasses.replace(cfg, opt_moe_shard_map=False),
+                           "train", B_loc, seq)
+        out["record"] = roofline_record(
+            cfg, empty_params(cfg, "meta"), "train_4k", B_loc, seq,
+            statistics.median(step_ms) / 1e3, flops=flops, mesh=mesh)
+    named = dict(model.named_parameters())
+    out["param_shapes"] = {n: tuple(t.shape) for n, t in named.items()}
+    out["slot_shapes"] = {k: [tuple(t.shape) for t in v]
+                          for k, v in state.slots.items()}
+    out["digests"] = {n: _digest(t) for n, t in named.items()
+                      if model_dim(t) is None}
+    if keep_params:
+        out["params"] = {n: t.detach().float().cpu().numpy()
+                         for n, t in named.items()}
+    if ref is not None:
+        out.update(param_err={}, param_off={}, param_off_max={},
+                   param_count=sum(t.numel() for t in named.values()))
+        if "first_m" in ref:
+            out["param_off_grad"] = {}
+        for n, t in named.items():
+            diff = (t.detach().float() - ref_slice("params", n)).abs()
+            scale = max(ref["scale"][n], 1e-30)
+            off = diff > REF_TOL * scale
+            out["param_err"][n] = float(diff.max()) / scale
+            out["param_off"][n] = int(off.sum())
+            any_off = bool(off.any())
+            out["param_off_max"][n] = float(diff[off].max()) if any_off \
+                else 0.0
+            if "first_m" in ref:  # the largest first-step |g| / max |g| there
+                g = ref_slice("first_m", n).abs()[off]
+                out["param_off_grad"][n] = float(g.max()) / max(
+                    ref["first_m_scale"][n], 1e-30) if any_off else 0.0
+        del ref
+    return out
 
 
 def main(argv=None) -> dict:

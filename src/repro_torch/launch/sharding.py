@@ -42,6 +42,11 @@ have no such axis. The slicers (``param_slice``, ``cache_slice``,
 ``batch_slice``) take a rank's slice of each leaf by its spec, as a tensor
 of its own, so the rank keeps nothing of the rest.
 
+``opt_state_specs`` gives an optimizer's state the reference's
+``param_specs(cfg, opt_sds, mesh)``: each slot its leaf's spec, the step
+counter none; a rank's slots (``optimizer.init`` of its slices) have its
+slices' shapes.
+
 This module alone decides how a leaf lies: ``mark`` records on a tensor
 the dimension its spec shards over a model axis of more than one rank
 (``spec_slice`` marks every slice; ``model.py`` marks the parameters and
@@ -186,6 +191,40 @@ def param_specs(cfg, params, mesh) -> dict:
             e if e is None or leaf.shape[i] % _axis_size(e, mesh) == 0 else None
             for i, e in enumerate(spec))
     return out
+
+
+def opt_state_specs(cfg, opt_state, mesh):
+    """The specs of an ``OptimizerState`` of ``train/optimizer.py`` whose
+    slots follow ``list(model.parameters())`` of ``cfg``'s model (as
+    ``optimizer.init`` makes them): the same structure, each slot its
+    leaf's ``param_specs`` entry on ``mesh`` (from the whole leaves'
+    shapes), the step counter ``()``. Raises ``ValueError`` on a slot list
+    of another length, or a slot whose shape is neither its whole leaf's
+    nor the slice's that its spec gives a rank of ``mesh``."""
+    from repro_torch.models.transformer.model import empty_params
+
+    whole = dict(empty_params(cfg, "meta").named_parameters())
+    specs = param_specs(cfg, whole, mesh)
+
+    def local(name):
+        return tuple(n // (1 if e is None else _axis_size(e, mesh))
+                     for n, e in zip(whole[name].shape, specs[name]))
+
+    def slots(tree):
+        if isinstance(tree, dict):
+            return {k: slots(v) for k, v in tree.items()}
+        if isinstance(tree, tuple) and not tree:  # no slots (plain SGD)
+            return ()
+        if len(tree) != len(whole):
+            raise ValueError(f"{len(tree)} slots for {len(whole)} parameters")
+        for (name, leaf), t in zip(whole.items(), tree):
+            if tuple(t.shape) not in (tuple(leaf.shape), local(name)):
+                raise ValueError(f"slot of {name}: shape {tuple(t.shape)}, "
+                                 f"the leaf's {tuple(leaf.shape)}, a rank's "
+                                 f"{local(name)}")
+        return [specs[name] for name in whole]
+
+    return type(opt_state)((), slots(opt_state.slots))
 
 
 def batch_specs(cfg, batch: dict, mesh) -> dict:

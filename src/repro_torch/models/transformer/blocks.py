@@ -18,9 +18,9 @@ Each block runs in three modes:
 Per-layer remat (``opt_remat``) wraps a whole block and lives in
 ``model.forward``.
 
-On a (data, model) mesh (``launch/mesh.py``; prefill and decode) a rank holds
-its slice of each weight (``launch/sharding.py``) and the attention families
-run tensor-parallel over ``model`` (M ranks, rank j):
+On a (data, model) mesh (``launch/mesh.py``) a rank holds its slice of each
+weight (``launch/sharding.py``) and every family runs tensor-parallel over
+``model`` (M ranks, rank j), in all three modes:
 
 * column-parallel ``wq``/``wk``/``wv``/``wq_b``/``wkv_b`` and the MLP's
   ``w_in``/``w_gate``: a rank computes its own heads (its own hidden
@@ -37,18 +37,28 @@ run tensor-parallel over ``model`` (M ranks, rank j):
   (a counted collective), and every rank computes every head; a row shard
   of ``wo`` then takes its block of every head's output. At full width and
   M = 2 or 4 these leaves are SmolLM-135M's ``wq`` (9 heads) and
-  ``wk``/``wv`` (3 KV heads) and Granite-20B's ``wk``/``wv`` (one KV head
-  of 128 columns); every other ``wq``, ``wk``, ``wv``, ``wq_b`` and
-  ``wkv_b`` of the eight attention configs holds whole heads there.
+  ``wk``/``wv`` (3 KV heads), Granite-20B's ``wk``/``wv`` (one KV head
+  of 128 columns) and Hymba-1.5B's ``wq`` (25 heads) and ``wk``/``wv`` (5
+  KV heads); every other ``wq``, ``wk``, ``wv``, ``wq_b`` and ``wkv_b`` of
+  the attention configs holds whole heads there;
+* the SSD layer of Mamba2 and Hymba (``ssm.py``): its projection gathered
+  over ``model``, the rank's heads where M divides them, ``out_proj``
+  row-parallel.
+
+In train mode each branch is a partial region of ``model`` (the
+conventions of ``launch/mesh.py``): the replicated normed input enters it
+through ``mesh.enter`` (MLA's after its replicated ``wq_a``/``wkv_a``
+products and norms, the MoE's with its routing weights), the gathered
+weights feed it (a reduce-scatter adjoint), and its ``all_reduce`` leaves
+it (an identity adjoint), so that every replicated leaf gets the whole
+gradient, the same on every rank.
 
 ``gqa_apply`` and ``mla_apply`` are one function each for one rank and
 for a rank of a mesh: ``launch/sharding.py::model_dim`` says which leaves
 and caches are sharded (None everywhere off a mesh and at M = 1, where
-``_heads`` gives the whole weight and ``_row_parallel`` sums nothing), and
-the decode branches only where the cache is sharded by sequence. Train
-mode runs unsharded (``model.forward`` refuses a sharded model).
-
-Mamba2 and Hymba have no model-axis sharding (``check_mesh``).
+``_heads`` gives the whole weight, ``row_parallel`` sums nothing and
+``enter`` is the identity), and the decode branches only where the cache is
+sharded by sequence.
 """
 from __future__ import annotations
 
@@ -57,7 +67,7 @@ import math
 import torch
 from torch import nn
 
-from repro_torch.launch.mesh import all_gather, all_reduce
+from repro_torch.launch.mesh import all_gather, all_reduce, enter
 from repro_torch.launch.sharding import model_dim
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.models.transformer.layers import (
@@ -72,14 +82,18 @@ from repro_torch.models.transformer.layers import (
     mlp_apply,
     mlp_shapes,
     rms_norm,
+    row_parallel,
 )
 from repro_torch.models.transformer.moe import check_moe, moe_apply, moe_shapes
 from repro_torch.models.transformer.ssm import (
     SSM_FIXED,
-    _split_proj,
     ssm_apply_decode,
     ssm_apply_train,
     ssm_shapes,
+)
+# the reference's name for the prefill -> decode handoff of the SSD
+from repro_torch.models.transformer.ssm import (  # noqa: F401
+    ssd_final_state as _ssd_final_state,
 )
 
 FLASH_THRESHOLD = 2048  # chunked-flash attention for S >= this
@@ -101,17 +115,9 @@ def check_arch(cfg: ArchConfig) -> None:
 def check_mesh(cfg: ArchConfig, mesh=None) -> None:
     """``check_arch``, and raise ``ValueError`` on what a step cannot run on
     ``mesh`` (None: one rank): ``opt_moe_shard_map`` without a mesh
-    (``moe.check_moe``), and a model axis above 1 for the SSM and hybrid
-    families, whose ``in_proj`` packs z/x/B/C/dt columns that no column
-    shard splits along heads (and Hymba's 50 SSM heads divide no even M)."""
+    (``moe.check_moe``)."""
     check_arch(cfg)
     check_moe(cfg, mesh)
-    if mesh is not None and mesh.model_size > 1 and cfg.family in (
-            "ssm", "hybrid"):
-        raise ValueError(
-            f"{cfg.name}: the {cfg.family} family has no model-axis sharding "
-            f"(model axis of {mesh.model_size}); ROADMAP Queue A: model-axis "
-            "sharding for Mamba2 and Hymba")
 
 
 def _uses_moe(cfg: ArchConfig, layer_idx: int) -> bool:
@@ -209,21 +215,13 @@ def _heads(w, n_heads: int, width: int, mesh):
     if n_heads % mesh.model_size == 0:
         nh = n_heads // mesh.model_size
         return w, mesh.model_index * nh, nh
-    return all_gather(w, mesh, dim=-1), 0, n_heads
+    return all_gather(w, mesh, dim=-1, partial=True), 0, n_heads
 
 
-def _row_parallel(out, nh: int, n_heads: int, wo, mesh):
-    """``out`` (B, S, nh * width), nh of ``n_heads`` heads (every head, or
-    the rank's own block), times ``wo``, in ``out``'s dtype: all of ``out``
-    against a whole ``wo`` (every head is then here); the rows of a sharded
-    ``wo`` against its columns of ``out`` (its own heads, or its block of
-    every head), summed over ``model``."""
-    if model_dim(wo) is None:
-        return (out @ wo).to(out.dtype)
-    if nh == n_heads:
-        j, R = mesh.model_index, wo.shape[0]
-        out = out[..., j * R:(j + 1) * R]
-    return all_reduce((out @ wo).to(out.dtype), mesh)
+def _enters(p) -> bool:
+    """Whether the attention branch of ``p`` is a partial region of the
+    model axis (its ``wo`` row-parallel)."""
+    return model_dim(p["wo"]) is not None
 
 
 def _kv_for_heads(k, v, q0: int, nq: int, groups: int):
@@ -279,6 +277,8 @@ def gqa_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
     """
     B, S, _ = x.shape
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    if _enters(p):
+        x = enter(x, mesh=mesh)
     wq, q0, nq = _heads(p["wq"], H, hd, mesh)
     wk, _, nk = _heads(p["wk"], KV, hd, mesh)
     wv, _, _ = _heads(p["wv"], KV, hd, mesh)
@@ -295,7 +295,7 @@ def gqa_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
         ka, va = (k, v) if nq == H or nk != KV else _kv_for_heads(
             k, v, q0, nq, H // KV)
         out = _full_attention(q, ka, va, cfg).reshape(B, S, nq * hd)
-        out = _row_parallel(out, nq, H, p["wo"], mesh).to(x.dtype)
+        out = row_parallel(out, nq, H, p["wo"], mesh).to(x.dtype)
         if mode == "train":
             return out, None
         window = cfg.attn_window
@@ -317,7 +317,7 @@ def gqa_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
         cache["k"].index_copy_(1, slot, k)
         cache["v"].index_copy_(1, slot, v)
         out = attention_decode(q, cache["k"], cache["v"], cache_len)
-    out = _row_parallel(out.reshape(B, 1, nq * hd), nq, H, p["wo"], mesh)
+    out = row_parallel(out.reshape(B, 1, nq * hd), nq, H, p["wo"], mesh)
     return out.to(x.dtype), cache
 
 
@@ -372,9 +372,11 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
     wq, q0, nq = _heads(p["wq_b"] if cfg.q_lora_rank else p["wq"], H,
                         dn + dr, mesh)
 
-    def q_proj(positions):
-        h = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) \
+    def q_in():
+        return rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) \
             if cfg.q_lora_rank else x
+
+    def q_proj(h, positions):
         q = (h @ wq).reshape(B, -1, nq, dn + dr)
         q_rope = apply_rope(q[..., dn:], positions, cfg.rope_theta)
         return torch.cat([q[..., :dn], q_rope], dim=-1)
@@ -389,13 +391,16 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
     if mode in ("train", "prefill"):
         positions = torch.arange(S, device=x.device)[None, :]
         c_kv, k_rope = latents(positions)
-        q = q_proj(positions)
+        h = q_in()
+        if _enters(p):  # after the replicated products and norms
+            h, c_kv, k_rope = enter(h, c_kv, k_rope, mesh=mesh)
+        q = q_proj(h, positions)
         wkv_b, k0, nk = _heads(p["wkv_b"], H, dn + dv, mesh)
         k, v = mla_kv_expand({"wkv_b": wkv_b}, cfg, c_kv, k_rope)
         if (k0, nk) != (q0, nq):
             k, v = k[:, :, q0:q0 + nq], v[:, :, q0:q0 + nq]
         out = _full_attention(q, k, v, cfg).reshape(B, S, nq * dv)
-        out = _row_parallel(out, nq, H, p["wo"], mesh).to(x.dtype)
+        out = row_parallel(out, nq, H, p["wo"], mesh).to(x.dtype)
         if mode == "train":
             return out, None
         window = cfg.attn_window
@@ -411,7 +416,7 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
     positions, slot, cache_len = _decode_position(
         x, pos, S_loc * (mesh.model_size if by_seq else 1))
     c_kv, k_rope = latents(positions)
-    q = q_proj(positions)
+    q = q_proj(q_in(), positions)
     wkv_b = p["wkv_b"]
     if by_seq:  # every head's query against the rank's rows
         _write_owned(cc, c_kv, slot, mesh)
@@ -450,7 +455,7 @@ def mla_apply(p, x, cfg: ArchConfig, *, mode: str, cache: dict | None = None,
         k, v = mla_kv_expand({"wkv_b": wkv_b}, cfg, cc, cr)  # decode-time
         out = attention_decode_seq(q, k, v, cache_len, mesh) if by_seq \
             else attention_decode(q, k, v, cache_len)
-    out = _row_parallel(out.reshape(B, 1, H * dv), H, H, p["wo"], mesh)
+    out = row_parallel(out.reshape(B, 1, H * dv), H, H, p["wo"], mesh)
     return out.to(x.dtype), cache
 
 
@@ -493,14 +498,23 @@ def block_init(generator: torch.Generator, cfg: ArchConfig, layer_idx: int,
                            fixed=SSM_FIXED, keep=keep))
 
 
-def _ssm_branch(p, h, cfg, mode, cache):
+def _ssm_branch(p, h, cfg, mode, cache, mesh=None):
     """(out, state) of the SSD layer: decode updates ``cache["state"]`` in
-    place; prefill emits the final state for the decode that follows;
-    train emits none."""
+    place; prefill emits the final state for the decode that follows (the
+    rank's heads on a mesh); train emits none."""
     if mode == "decode":
-        return ssm_apply_decode(p, h, cache["state"], cfg)
-    y = ssm_apply_train(p, h, cfg)
-    return y, (_ssd_final_state(p, h, cfg) if mode == "prefill" else None)
+        return ssm_apply_decode(p, h, cache["state"], cfg, mesh)
+    if mode == "prefill":
+        return ssm_apply_train(p, h, cfg, mesh, final_state=True)
+    return ssm_apply_train(p, h, cfg, mesh), None
+
+
+def _mlp(p, h, cfg, mesh):
+    """The dense MLP; row-parallel on a mesh whose ranks hold hidden
+    columns (``h`` entering, the partial outputs summed over ``model``)."""
+    if model_dim(p["w_out"]) is None:
+        return mlp_apply(p, h, cfg.mlp_type)
+    return all_reduce(mlp_apply(p, enter(h, mesh=mesh), cfg.mlp_type), mesh)
 
 
 def block_apply(p: Block, x, cfg: ArchConfig, *, mode: str,
@@ -509,25 +523,26 @@ def block_apply(p: Block, x, cfg: ArchConfig, *, mode: str,
     out one layer's (``{"k","v"}``, ``{"c_kv","k_rope"}``, ``{"state"}``
     or ``{"attn", "state"}``), None in train mode; aux a float32 scalar
     (nonzero on MoE layers). On ``mesh`` ``p``, ``x`` and ``cache`` are the
-    rank's slices and the attention families run tensor-parallel (module
+    rank's slices and every family runs tensor-parallel (module
     docstring)."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r} {MODES}")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     h = rms_norm(x, p.ln1, cfg.norm_eps)
     if cfg.family == "ssm":
-        y, state = _ssm_branch(p.ssm, h, cfg, mode, cache)
+        y, state = _ssm_branch(p.ssm, h, cfg, mode, cache, mesh)
         return x + y, (None if mode == "train" else {"state": state}), aux
 
     attn_fn = mla_apply if cfg.use_mla else gqa_apply
     if cfg.family == "hybrid":
         a_out, a_cache = attn_fn(p.attn, h, cfg, mode=mode,
-                                 cache=(cache or {}).get("attn"), pos=pos)
-        s_out, state = _ssm_branch(p.ssm, h, cfg, mode, cache)
+                                 cache=(cache or {}).get("attn"), pos=pos,
+                                 mesh=mesh)
+        s_out, state = _ssm_branch(p.ssm, h, cfg, mode, cache, mesh)
         # parallel heads, mean-fused (Hymba fuses attn+SSM head outputs)
         x = x + 0.5 * (a_out + s_out)
         h2 = rms_norm(x, p.ln2, cfg.norm_eps)
-        x = x + mlp_apply(p.mlp, h2, cfg.mlp_type)
+        x = x + _mlp(p.mlp, h2, cfg, mesh)
         if mode == "train":
             return x, None, aux
         return x, {"attn": a_cache, "state": state}, aux
@@ -540,27 +555,6 @@ def block_apply(p: Block, x, cfg: ArchConfig, *, mode: str,
     if "moe" in p:
         m_out, aux = moe_apply(p.moe, h2, cfg, mesh)
     else:
-        m_out = mlp_apply(p.mlp, h2, cfg.mlp_type)
-        if model_dim(p.mlp["w_out"]) is not None:
-            m_out = all_reduce(m_out, mesh)  # row-parallel w_out
+        m_out = _mlp(p.mlp, h2, cfg, mesh)
     return x + m_out, a_cache, aux
 
-
-def _ssd_final_state(params, h, cfg):
-    """Final SSM state after a full sequence (for the prefill -> decode
-    handoff): state = sum_t exp(sum_{t'>t} dA_t') * dt_t * B_t x_t^T,
-    (B, H, N, P) float32."""
-    Bsz, S, _ = h.shape
-    H, P, N, G = cfg.ssm_nheads, cfg.ssm_headdim, cfg.ssm_state, cfg.ssm_ngroups
-    proj = h @ params["in_proj"]
-    _, xs, Bm, _, dt = _split_proj(proj, cfg)
-    xs = xs.reshape(Bsz, S, H, P).float()
-    Bh = Bm.reshape(Bsz, S, G, N).repeat_interleave(H // G, dim=2).float()
-    A = -torch.exp(params["A_log"])
-    dt = torch.nn.functional.softplus(dt.float() + params["dt_bias"])
-    dA = dt * A  # (B, S, H)
-    # suffix sums of dA, excluding t
-    tail = torch.flip(torch.cumsum(torch.flip(dA, [1]), dim=1), [1]) - dA
-    w = torch.exp(tail)  # (B, S, H)
-    return torch.einsum("bshn,bshp->bhnp", Bh * w[..., None],
-                        xs * dt[..., None])

@@ -23,7 +23,8 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.flash_decode import ops as flash_decode_ops
 from repro_torch.kernels.flash_decode.ref import merge_partials
-from repro_torch.launch.mesh import all_gather
+from repro_torch.launch.mesh import all_gather, all_reduce
+from repro_torch.launch.sharding import model_dim
 
 #: the masked-score fill of the JAX package (finite: an all-masked row gives
 #: a uniform softmax, never NaN)
@@ -260,6 +261,20 @@ def attention_decode(
     """
     return flash_decode_ops.decode_attention(
         q[:, 0], k_cache, v_cache, cache_len)[:, None]
+
+
+def row_parallel(out, nh: int, n_heads: int, wo, mesh):
+    """``out`` (..., nh * width), nh of ``n_heads`` heads (every head, or
+    the rank's own block), times ``wo``, in ``out``'s dtype: all of ``out``
+    against a whole ``wo`` (every head is then here); the rows of a sharded
+    ``wo`` against its columns of ``out`` (its own heads, or its block of
+    every head), summed over ``model``."""
+    if model_dim(wo) is None:
+        return (out @ wo).to(out.dtype)
+    if nh == n_heads:
+        j, R = mesh.model_index, wo.shape[0]
+        out = out[..., j * R:(j + 1) * R]
+    return all_reduce((out @ wo).to(out.dtype), mesh)
 
 
 def merge_over_model(o, m, d, mesh, dtype) -> torch.Tensor:

@@ -15,20 +15,26 @@ Train mode runs each block under ``torch.utils.checkpoint`` when
 lead blocks and the scanned body): a layer keeps only its input for the
 backward and recomputes the rest.
 
-Serving runs on a (data, model) mesh too (``launch/mesh.py``): a rank holds
-its slice of every weight (``launch/sharding.py``'s specs), made so by
-``init_params(mesh=...)`` or ``transformer_params_from_jax(mesh=...)`` one
-leaf at a time (a rank never holds the whole model), or by ``shard_params``
-for a model already built; each parameter is marked with its sharded
-dimension (``sharding.mark``) and the mesh is recorded on the model.
+Serving and training run on a (data, model) mesh too (``launch/mesh.py``): a
+rank holds its slice of every weight (``launch/sharding.py``'s specs), made
+so by ``init_params(mesh=...)`` or ``transformer_params_from_jax(mesh=...)``
+one leaf at a time (a rank never holds the whole model), or by
+``shard_params`` for a model already built; each parameter is marked with
+its sharded dimension (``sharding.mark``) and the mesh is recorded on the
+model.
 ``init_caches(mesh=...)`` makes the rank's marked slice of the caches. The
-prefill and decode steps take the mesh from the model and run the blocks
-tensor-parallel (``blocks.py``), the embedding vocab-parallel (a masked
-lookup of the rank's rows and an ``all_reduce`` over ``model``) and the
-head column-parallel (the logits gathered over ``model``). The batch is the
-rank's rows; nothing crosses the data axes but the global MoE dispatch's
-tokens. At a (1, 1) mesh every step is the unsharded one, bit for bit.
-Training across ranks is not ported: train mode refuses a sharded model.
+prefill, decode and train steps take the mesh from the model and run the
+blocks tensor-parallel (``blocks.py``), the embedding vocab-parallel (a
+masked lookup of the rank's rows and an ``all_reduce`` over ``model``) and
+the head column-parallel (the logits gathered over ``model``, the loss then
+replicated: no vocab-parallel cross-entropy, as in the reference). The
+batch is the rank's rows; in the forward nothing crosses the data axes but
+the global MoE dispatch's tokens (and the expert-local dispatch's aux). A
+train step is each rank's backward (each collective's adjoint a counted
+collective, ``launch/mesh.py``), then the gradients averaged over the data
+axes, then the optimizer on the rank's slices; its state has the slices'
+shapes (``sharding.opt_state_specs``). At a (1, 1) mesh every step is the
+unsharded one, bit for bit.
 """
 from __future__ import annotations
 
@@ -40,7 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.launch.mesh import all_gather, all_reduce
+from repro_torch.launch.mesh import all_gather, all_reduce, enter
 from repro_torch.launch.sharding import (
     cache_specs,
     mark,
@@ -335,13 +341,17 @@ def embed_tokens(model: TransformerLM, tokens: torch.Tensor,
 def lm_logits(model: TransformerLM, h: torch.Tensor) -> torch.Tensor:
     """(B, S, d) -> (B, S, V), or (B, S, nc, V) with codebooks. On a mesh
     whose ranks hold column blocks of the head (of the tied embedding's
-    vocabulary), each rank's logits are gathered over ``model``."""
+    vocabulary), ``h`` enters the product (``mesh.enter``) and each rank's
+    logits are gathered over ``model`` (into replicated code: the gather's
+    adjoint is the rank's slice). A tied table's two gradients add."""
     cfg = model.cfg
     nc = cfg.num_codebooks
     if model.lm_head is None:
         leaf, w = model.embed, model.embed.reshape(-1, cfg.d_model).T
     else:
         leaf = w = model.lm_head
+    if model_dim(leaf) is not None:
+        h = enter(h, mesh=model.mesh)
     logits = h @ w
     if model_dim(leaf) is not None:
         B, S, _ = logits.shape
@@ -378,23 +388,23 @@ def forward(model: TransformerLM, tokens: torch.Tensor, *,
     the float32 sum of every layer's MoE load-balance loss (0 without MoE).
     ``mode="train"``: caches None, each block under per-layer remat when
     ``cfg.opt_remat == "full"``; ``mode="prefill"``: caches one dict per
-    layer, as ``init_caches`` lays them out. Both compute the same logits."""
+    layer, as ``init_caches`` lays them out. Both compute the same logits.
+    On a sharded model (``model.mesh``) the rank's tokens, its slices, its
+    caches; the logits whole (module docstring)."""
     cfg = model.cfg
     if mode not in ("train", "prefill"):
         raise ValueError(f"forward runs in train or prefill mode, not {mode!r}")
     if mode == "train":
         check_remat(cfg)
-        if model.mesh is not None:
-            raise ValueError("training across ranks is not ported: train "
-                             "mode takes an unsharded model")
     h = embed_tokens(model, tokens, patches)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
     caches = [] if mode == "prefill" else None
     if mode == "train" and cfg.opt_remat == "full":
         # the blocks draw no random numbers: no RNG state to stash
+        # every rank recomputes a block's collectives in the same order
         run = functools.partial(checkpoint, functools.partial(
-            block_apply, cfg=cfg, mode=mode), use_reentrant=False,
-            preserve_rng_state=False)
+            block_apply, cfg=cfg, mode=mode, mesh=model.mesh),
+            use_reentrant=False, preserve_rng_state=False)
     else:
         run = functools.partial(block_apply, cfg=cfg, mode=mode,
                                 mesh=model.mesh)
@@ -437,7 +447,10 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     ``F.cross_entropy`` on float32 logits, the reference's ``log_softmax``
     + ``take_along_axis`` in one call. Codebook targets are (B, S-1, nc),
     one per codebook; a VLM's text logits start after the patch rows. The
-    token ids may be int32, as ``launch/input_specs.py`` makes them."""
+    token ids may be int32, as ``launch/input_specs.py`` makes them. On a
+    sharded model ``tokens`` are the rank's rows and the loss is the mean
+    over them: the rank's term of the batch's mean, which the train step
+    averages over the data axes."""
     cfg = model.cfg
     logits, _, aux = forward(model, tokens, patches=patches, mode="train")
     if cfg.num_patches and patches is not None:
@@ -448,24 +461,59 @@ def lm_loss(model: TransformerLM, tokens: torch.Tensor,
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def make_train_step(cfg: ArchConfig, optimizer):
+#: what ``lm_grads`` differentiates: the total, or one of its two terms
+TERMS = ("total", "loss", "aux")
+
+
+def lm_grads(model: TransformerLM, tokens: torch.Tensor,
+             patches: torch.Tensor | None = None, term: str = "total"):
+    """(gradients of ``lm_loss``'s ``term`` over ``list(model.parameters())``,
+    metrics). On a sharded model each gradient is the rank's slice of the
+    batch's gradient: the rank's backward, then the mean over the data axes
+    (one counted ``all_reduce`` on ``"data"`` a leaf, in place). A leaf the
+    term does not reach gets zeros (only ``"aux"`` leaves any: a model
+    without MoE has no aux to differentiate, and raises)."""
+    if term not in TERMS:
+        raise ValueError(f"term {term!r} is not one of {TERMS}")
+    params = list(model.parameters())
+    total, metrics = lm_loss(model, tokens, patches)
+    value = total if term == "total" else metrics[term]
+    if not value.requires_grad:
+        raise ValueError(f"{model.cfg.name}: its {term!r} term has no "
+                         "gradient")
+    grads = torch.autograd.grad(value, params, allow_unused=term == "aux")
+    grads = [torch.zeros_like(p) if g is None else g
+             for p, g in zip(params, grads, strict=True)]
+    mesh = model.mesh
+    if mesh is not None and mesh.data_size > 1:
+        with torch.no_grad():
+            for g in grads:
+                all_reduce(g, mesh, axis="data").div_(mesh.data_size)
+    return grads, {k: v.detach() for k, v in metrics.items()}
+
+
+def make_train_step(cfg: ArchConfig, optimizer, mesh=None):
     """(model, opt_state, tokens, patches=None) -> (opt_state, metrics).
 
     The gradients of ``lm_loss``'s total over ``list(model.parameters())``
     (a fixed order; ``optimizer.init`` takes the same list) come from
-    ``torch.autograd.grad``; every parameter must get one. The optimizer
-    then updates the parameters in place. ``metrics`` holds ``loss`` and
-    ``aux`` as 0-d tensors on the model's device: the step makes no host
-    sync. The reference returns the new params; here the model is them."""
-    check_mesh(cfg)
+    ``torch.autograd.grad`` (``lm_grads``); every parameter must get one.
+    The optimizer then updates the parameters in place. ``metrics`` holds
+    ``loss`` and ``aux`` as 0-d tensors on the model's device: the step
+    makes no host sync. The reference returns the new params; here the
+    model is them. ``mesh`` is the mesh the model is sharded on, which the
+    config is checked against (``check_mesh``); on it the step takes the
+    rank's rows, averages the gradients over the data axes and updates the
+    rank's slices (module docstring): the loss in ``metrics`` is the rank's
+    own term."""
+    check_mesh(cfg, mesh)
     check_remat(cfg)
 
     def train_step(model, opt_state, tokens, patches=None):
         params = list(model.parameters())
-        total, metrics = lm_loss(model, tokens, patches)
-        grads = torch.autograd.grad(total, params)
-        _, opt_state = optimizer.update(list(grads), opt_state, params)
-        return opt_state, {k: v.detach() for k, v in metrics.items()}
+        grads, metrics = lm_grads(model, tokens, patches)
+        _, opt_state = optimizer.update(grads, opt_state, params)
+        return opt_state, metrics
 
     return train_step
 

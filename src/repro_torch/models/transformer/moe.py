@@ -37,6 +37,12 @@ On a (data, model) mesh (``launch/mesh.py``) the experts are sharded over
   one ``all_reduce`` combines them; the rank keeps its own rows.
 
 At a (1, 1) mesh the global dispatch is ``moe_apply`` itself, bit for bit.
+In train mode the experts' and the shared experts' sums are a partial
+region of ``model`` (``launch/mesh.py``): the tokens and the routing
+weights enter it (``mesh.enter``), so that the router and everything
+before it get the whole gradient. The data-axis gather of the tokens has
+a reduce-scatter adjoint, the data-axis sum of the expert-local ``aux`` an
+all-reduce one (each data rank's loss is its own term of the mean).
 ``opt_moe_shard_hints`` is a no-op, as in JAX off a mesh.
 """
 from __future__ import annotations
@@ -47,7 +53,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import all_gather, all_reduce
+from repro_torch.launch.mesh import all_gather, all_reduce, enter
 from repro_torch.launch.sharding import model_dim
 from repro_torch.models.transformer.layers import init_tree, mlp_apply, mlp_shapes
 
@@ -187,14 +193,21 @@ def _moe_ranked(params, xt, cfg, mesh, C: int):
     experts' (row-parallel where their width is), the partial parts summed
     by one ``all_reduce`` over ``model``."""
     gates, topw, tope = _route(xt, params["router"], cfg.moe_top_k)
-    routed = _dispatch(params, xt, topw, tope, cfg, C,
+    routed_part = model_dim(params["w_in"]) is not None
+    shared_part = bool(cfg.num_shared_experts) and model_dim(
+        params["shared"]["w_in"]) is not None
+    # the tokens (and, for the experts, their routing weights) entering the
+    # partial region; a replicated part takes them as they are
+    x_r, w_r = enter(xt, topw, mesh=mesh) if routed_part else (xt, topw)
+    x_s = (x_r if routed_part else enter(xt, mesh=mesh)) if shared_part \
+        else xt
+    routed = _dispatch(params, x_r, w_r, tope, cfg, C,
                        e_lo=mesh.model_index * params["w_in"].shape[0])
     partial, full = [], []
-    (full if model_dim(params["w_in"]) is None else partial).append(routed)
+    (partial if routed_part else full).append(routed)
     if cfg.num_shared_experts:
-        sh = params["shared"]
-        y = mlp_apply(sh, xt, cfg.mlp_type)
-        (full if model_dim(sh["w_in"]) is None else partial).append(y)
+        y = mlp_apply(params["shared"], x_s, cfg.mlp_type)
+        (partial if shared_part else full).append(y)
     out = None
     if partial:
         out = all_reduce(functools.reduce(torch.add, partial), mesh)

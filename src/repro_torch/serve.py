@@ -88,13 +88,14 @@ def fill_caches(caches: list, prefill: list, mesh=None) -> None:
     cache sharded by sequence (``sharding.model_dim`` 1: MLA's latents, k/v
     whose KV heads do not divide the model axis) holds rows [j * S_loc,
     (j + 1) * S_loc) of ``mesh``'s model rank j, of the prefill's rows,
-    which are every row."""
+    which are every row. An SSM state sharded by head is the rank's heads
+    already (the prefill computes only those)."""
     for dst, src in zip(caches, prefill, strict=True):
         for name, s in src.items():
             d = dst[name]
             if isinstance(s, dict):
                 fill_caches([d], [s], mesh)
-            elif model_dim(d) == 1:
+            elif model_dim(d) == 1 and name != "state":
                 off = mesh.model_index * d.shape[1]
                 rows = s[:, off:off + d.shape[1]]
                 d[:, : rows.shape[1]].copy_(rows)

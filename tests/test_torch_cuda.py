@@ -20,7 +20,8 @@ pipelined sources train bit for bit as its inline ones. The spmd path runs
 in one NCCL rank spawned by ``launch`` at world size 1: its all-to-all is
 the sim form's bit for bit, and its trainer trains bit for bit as the sim
 one at one split. The transformer train step (reduced, f32) agrees with
-the CPU, and a MoE and an SSD train step repeat bit for bit. The decode
+the CPU, and a MoE and an SSD train step repeat bit for bit, and so does
+a (1, 1) mesh's train step against the unsharded one. The decode
 kernel's partial output (o, m, d), which the sequence-sharded decode merges
 across ranks, is held against its plain version, a shard with no valid row
 exactly.
@@ -866,6 +867,43 @@ def test_cuda_train_steps_repeat_bitwise(cuda, arch, dtype):
     assert torch.isfinite(runs[0][0]).all() and runs[0][0][-1] < runs[0][0][0]
     assert torch.equal(runs[0][0], runs[1][0])
     for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "hymba-1.5b"])
+def test_cuda_one_by_one_mesh_train_step_is_bitwise(cuda, arch):
+    """Two train steps of the reduced model sharded on a (1, 1) mesh
+    (``make_train_step(cfg, adamw, mesh)``; no collective runs, so no
+    process group is needed) on the card: the losses and weights of the
+    unsharded step bit for bit."""
+    from repro_torch import serve
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.models.transformer.model import (
+        init_params,
+        make_train_step,
+        shard_params,
+    )
+    from repro_torch.train.optimizer import adamw
+
+    cfg = serve.serve_config(arch, reduced=True)
+    tokens, patches = _train_batch(cfg, 2, 64, cuda)
+    runs = []
+    for mesh in (None, mesh_mod.abstract_mesh((1, 1))):
+        model = init_params(cfg, torch.Generator(cuda).manual_seed(0))
+        if mesh is not None:
+            shard_params(model, mesh)
+        opt = adamw(1e-3)
+        state = opt.init(list(model.parameters()))
+        step = make_train_step(cfg, opt, mesh)
+        losses = []
+        for _ in range(2):
+            state, metrics = step(model, state, tokens, patches)
+            losses.append(torch.stack([metrics["loss"], metrics["aux"]]))
+        runs.append((torch.stack(losses).cpu(),
+                     [p.detach().clone() for p in model.parameters()]))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1], strict=True):
         assert torch.equal(a, b)
 
 

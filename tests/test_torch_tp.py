@@ -23,7 +23,9 @@ expert-local MoE, held on the CPU against the JAX package.
   through ``transformer_params_from_jax``, the others draw them): logits
   within 1e-4 and equal tokens; each rank holds its spec's slice of every
   parameter and cache leaf. A (1, 1) mesh is the unsharded path bit for bit
-  for all ten configs; Mamba2 and Hymba refuse a model axis.
+  for all ten configs; Mamba2 and Hymba build their slices and caches on a
+  model axis (``tests/test_torch_tp_train.py`` serves and trains them
+  there).
 * MoE: the port's ``moe_apply_shard_map`` on the ranks against JAX's under
   ``shard_map`` on a (2, 2) mesh of 4 forced host devices (one
   subprocess), 2e-4 / 2e-5, at the reference test's capacity 8.0 and at
@@ -503,24 +505,48 @@ def test_one_by_one_mesh_is_the_unsharded_path_bitwise(arch):
 
 
 @pytest.mark.parametrize("arch", ["mamba2-2.7b", "hymba-1.5b"])
-def test_ssm_and_hybrid_refuse_a_model_axis(arch):
+def test_ssm_and_hybrid_shard_on_a_model_axis(arch):
+    """Mamba2 and Hymba build on a (1, 2) mesh, at each model coordinate:
+    ``shard_params`` and ``init_params(mesh=)`` give each parameter its
+    spec's slice (``in_proj`` in column blocks, ``out_proj`` in row
+    blocks), ``init_caches(mesh=)`` each cache its spec's shape (the SSM
+    state by head), and the steps build; a data axis alone too."""
     cfg = serve.serve_config(arch, reduced=True)
-    mesh = mesh_mod.abstract_mesh((1, 2))
-    model = tm.init_params(cfg, torch.Generator().manual_seed(0))
-    for build in (lambda: tm.shard_params(model, mesh),
-                  lambda: tm.make_decode_step(cfg, mesh),
-                  lambda: tm.make_prefill_step(cfg, mesh),
-                  lambda: tm.init_caches(cfg, 2, 8, "cpu", mesh)):
-        with pytest.raises(ValueError, match="Mamba2 and Hymba"):
-            build()
+    whole = tm.init_params(cfg, torch.Generator().manual_seed(0))
+    named = dict(whole.named_parameters())
+    caches = tm.init_caches(cfg, 2, 8, "meta")
+    for j in range(2):
+        mesh = mesh_mod.abstract_mesh((1, 2), coords={"model": j})
+        specs = sharding.param_specs(cfg, whole, mesh)
+        assert specs["blocks.0.ssm.in_proj"] == (None, "model")
+        assert specs["blocks.0.ssm.out_proj"] == ("model", None)
+        want = sharding.param_slice(cfg, whole, mesh)
+        built = dict(tm.init_params(cfg, torch.Generator().manual_seed(0),
+                                    mesh).named_parameters())
+        for name, t in want.items():
+            assert tuple(t.shape) == _local(named[name].shape, specs[name],
+                                            mesh), name
+            assert torch.equal(built[name], t), name
+        model = tm.init_params(cfg, torch.Generator().manual_seed(0))
+        tm.shard_params(model, mesh)
+        assert {k: tuple(v.shape) for k, v in model.named_parameters()} == {
+            k: tuple(v.shape) for k, v in want.items()}
+        local = tm.init_caches(cfg, 2, 8, "cpu", mesh)
+        assert [serve._shapes(c) for c in local] == [
+            serve._shapes(c) for c in sharding.cache_slice(cfg, caches, mesh)]
+        state = local[0]["state"]
+        assert state.shape[1] == cfg.ssm_nheads // 2
+        assert sharding.model_dim(state) == 1
+        tm.make_decode_step(cfg, mesh)
+        tm.make_prefill_step(cfg, mesh)
     # a data axis alone is fine
     tm.make_decode_step(cfg, mesh_mod.abstract_mesh((2, 1)))
 
 
 def test_mesh_refusals():
     """A batch the data axes do not divide, a ring the model axis does not
-    divide (a sequence-sharded MQA cache), bad axes, training a sharded
-    model and sharding it twice all raise."""
+    divide (a sequence-sharded MQA cache), bad axes and sharding a model
+    twice all raise."""
     cfg = serve.serve_config("granite-20b", reduced=True)
     with pytest.raises(ValueError, match="does not split over 2 data ranks"):
         tm.init_caches(cfg, 3, 8, "cpu", mesh_mod.abstract_mesh((2, 1)))
@@ -536,8 +562,6 @@ def test_mesh_refusals():
         mesh_mod.abstract_mesh((2, 2), coords={"model": 2})
     model = tm.init_params(cfg, torch.Generator().manual_seed(0))
     tm.shard_params(model, mesh_mod.abstract_mesh((1, 1)))
-    with pytest.raises(ValueError, match="training across ranks"):
-        tm.lm_loss(model, torch.zeros(2, 8, dtype=torch.long))
     with pytest.raises(ValueError, match="sharded already"):
         tm.shard_params(model, mesh_mod.abstract_mesh((1, 1)))
 

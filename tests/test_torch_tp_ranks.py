@@ -1,15 +1,19 @@
-"""Rank functions for ``tests/test_torch_tp.py``'s launch of the transformer
-across ranks (``repro_torch.launch.spmd.launch``); this module holds no
-tests and imports no JAX, so the spawned ranks can import it.
+"""Rank functions for the launches of the transformer across ranks in
+``tests/test_torch_tp.py`` and ``tests/test_torch_tp_train.py``
+(``repro_torch.launch.spmd.launch``); this module holds no tests and
+imports no JAX, so the spawned ranks can import it.
 
 ``serve_cases_rank`` serves each case on a (data, model) mesh
 (``serve.serve_rank``); ``moe_cases_rank`` runs the expert-local dispatch
-(``moe_apply_shard_map``) and the global one on the rank's slices.
+(``moe_apply_shard_map``) and the global one on the rank's slices;
+``train_cases_rank`` trains each case on its mesh
+(``launch/shapes.py::train_rank``).
 """
 import numpy as np
 import torch
 
 from repro_torch import serve
+from repro_torch.launch import shapes
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.launch.sharding import batch_slice, param_slice
 from repro_torch.models.transformer import moe
@@ -23,6 +27,19 @@ def serve_cases_rank(device, mesh_shape, cases: list) -> list:
     return [serve.serve_rank(device, c["cfg"], mesh_shape, c["new"],
                              prompts=c["prompts"], patches=c["patches"],
                              np_params=c["np_params"])
+            for c in cases]
+
+
+def train_cases_rank(device, cases: list, steps: int) -> list:
+    """Per case (``cfg``, ``mesh``, ``data`` (the whole batch, numpy),
+    ``np_params`` or None for the weights drawn from seed 0, ``terms``, the
+    gradient terms to keep, ``record``: whether to build the roofline
+    record): ``shapes.train_rank``'s results on this rank after ``steps``
+    AdamW steps, its slices kept."""
+    return [shapes.train_rank(device, c["cfg"], c["mesh"], steps,
+                              data=c["data"], np_params=c["np_params"],
+                              grad_terms=c["terms"], keep_params=True,
+                              record=c["record"])
             for c in cases]
 
 
