@@ -292,9 +292,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               the card through ``launch/shapes.py::run_one``, for each of
               the ten configs (DeepSeek-V2-236B at 2 layers,
               ``SHAPE_LAYERS``): prefill_32k
-              (B = 1, 32768 rows; ``SHAPE_PREFILL_LAYERS`` cuts the depth
-              of the configs whose plain flash loop would not fit the
-              phase's time), decode_32k (one card's batch, ``card_batch``,
+              (B = 1, 32768 rows; ``SHAPE_PREFILL_LAYERS`` cuts every
+              config to 4 layers, 236B's 2 whole, for the script's time
+              limit), decode_32k (one card's batch, ``card_batch``,
               against seeded 32768-row caches at positions 32761-32767)
               and long_500k (B = 1, full attention windowed at 8192 rows,
               positions 524281-524287). One line a record: batch and cuts,
@@ -325,7 +325,13 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               and its whole output never, each rank's collectives (calls
               and result bytes by axis and kind) and peak, and its build
               of the weights one leaf at a time (its peak then within its
-              slices and one leaf); bf16 tokens and ms a step, printed;
+              slices and one leaf); beside each f32 rank's collectives,
+              flops (``count_flops``) and peak over its baseline, the dry
+              run's prediction at its (1, 2) coordinate
+              (``launch/dryrun.py::serve_pass``, shapes only, no rank
+              launched): equal calls and bytes by axis and kind, else the
+              run fails; the flops and the peak with its predicted /
+              measured ratio printed; bf16 tokens and ms a step, printed;
               then f32 again with the allocator's history on: what is
               alive at a rank's peak (``obs/memory.py``).
 25. tp-train -- the transformer train step across ranks, and Mamba2 and
@@ -350,6 +356,20 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               logits within 1e-4 of the unsharded run's, equal tokens, the
               SSM state sharded by head, Hymba's ring sharded by sequence
               (the decode kernel's partial output, 2 x 8 launches a rank).
+              Beside each (b) and (c) rank, as in phase 24, the dry run's
+              prediction (``rank_pass`` of the train step, ``serve_pass``)
+              at its coordinate: collectives equal, flops and peak ratio
+              printed (each rank counts its first train step's flops and
+              its serve run's; the counter slows them).
+26. recompile, dryrun -- (a) the main path at phase 4's widths with
+              ``trace_recompiles=True``, serial and device_pipelined, 3
+              epochs of 3 steps: losses bitwise phase 4's and phase 7's,
+              the last epoch 0 new step signatures and the first more than
+              0, ``by_fn`` printed. (b) ``python -m
+              repro_torch.launch.dryrun --arch smollm-135m``: the four
+              input shapes on the 16 x 16 mesh, shapes only, one line a
+              record (a process started before phase 24, whose host work
+              runs beside phases 24 and 25).
 
 Launch counts are set to 0 just before each trainer run, each serve run,
 each transformer train run, each shape run and the entry point's run and
@@ -3746,12 +3766,14 @@ SHAPE_LAYERS = {"deepseek-v2-236b": 2}
 #: 528 live (1, H, 1024, 1024) float32 blocks a layer at 32768 rows, 0.16-0.7
 #: s a layer by heads (0.24 s at SmolLM's 9 heads, host-bound; NVIDIA H100
 #: 80GB HBM3 at 700 W), and
-#: a prefill runs twice (a warm call, a timed one): the
-#: attention configs run 8 layers (Granite's 52 would take 36 s a call),
-#: Hymba (a 1024-row window), Mamba2 and 236B's 2 layers run whole
-SHAPE_PREFILL_LAYERS = {**SHAPE_LAYERS, **{arch: 8 for arch in (
+#: a prefill runs twice (a warm call, a timed one): every config but
+#: 236B (whose 2 layers run whole) runs 4 layers (Granite's 52 would take
+#: 36 s a call; 4 keeps the script within its time limit, and each layer
+#: past the lead ones is the same)
+SHAPE_PREFILL_LAYERS = {**SHAPE_LAYERS, **{arch: 4 for arch in (
     "smollm-135m", "gemma-7b", "granite-20b", "phi3-mini-3.8b",
-    "musicgen-medium", "deepseek-v2-lite-16b", "llava-next-mistral-7b")}}
+    "musicgen-medium", "deepseek-v2-lite-16b", "llava-next-mistral-7b",
+    "hymba-1.5b", "mamba2-2.7b")}}
 #: a roofline share above this means the count is wrong: the step ran faster
 #: than the card's least time for it
 SHARE_LIMIT = 1.05
@@ -3927,6 +3949,53 @@ TP_TOL = dict(rtol=1e-4, atol=1e-4)
 TP_BUILD_SLACK = 1 << 20
 
 
+def dry_run_check(name, cfg, outs, *, prompts=None, new=None, batch=None):
+    """Phases 24 and 25: for each rank of a (1, 2) run, the dry run's
+    prediction at its coordinate (``launch/dryrun.py``, shapes only, no
+    rank launched) beside what the rank measured: its collectives (calls
+    and result bytes by axis and kind; the run fails unless they are
+    equal), its flops (``FlopCounterMode``'s, and on the card the decode
+    kernel's count from its cache shapes, which the counter never sees)
+    and its peak over its baseline (the bytes allocated before it built its
+    weights), with the predicted / measured ratio. A serve run
+    (``serve.serve_rank``: ``prompts`` (B, S) and ``new`` tokens) or a
+    train run (``train_rank``'s first step on ``batch`` (B, S))."""
+    import torch
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import abstract_mesh
+
+    lines = []
+    for rank, out in enumerate(outs):
+        mesh = abstract_mesh((1, 2), coords={"model": rank})
+        if batch is None:
+            pred = dryrun.serve_pass(cfg, mesh, torch.empty(
+                prompts, dtype=torch.int64, device="meta"), new)
+            coll = out["collectives"]
+            measured = out["max_memory_allocated"] - out["baseline_bytes"]
+        else:
+            pred = dryrun.rank_pass(cfg, "train", mesh, {"tokens": torch.empty(
+                batch, dtype=torch.int64, device="meta")})
+            coll = out["collectives"][0]
+            measured = out["peak_bytes"] - out["baseline_bytes"]
+        check(pred["collectives"]["by_axis"] == coll["by_axis"],
+              f"{name} rank {rank}: the dry run's collectives "
+              f"{pred['collectives']['by_axis']} != the rank's "
+              f"{coll['by_axis']}")
+        lines.append({
+            "rank": rank, "collectives_equal": True,
+            "collective_calls": coll["count"],
+            "collective_bytes": coll["total"],
+            "flops_measured": out["flops"], "flops_predicted": pred["flops"],
+            "flops_equal": out["flops"] == pred["flops"],
+            "peak_measured_over_baseline": measured,
+            "peak_predicted": pred["peak_bytes"],
+            "peak_ratio_predicted_over_measured": pred["peak_bytes"] / measured,
+            "argument_bytes_predicted": pred["argument_bytes"],
+            "t_trace_s": pred["t_trace_s"]})
+    return lines
+
+
 def tp_phase(dev, total):
     """Phase 24: the transformer across ranks on the serve path
     (``serve.generate`` with a mesh, ``serve.serve_rank``), Granite-20B (MQA:
@@ -4018,7 +4087,9 @@ def tp_phase(dev, total):
     # history on (a profile run: its times are not kept)
     runs = [(dtype, arch, False) for dtype in ("float32", "bfloat16")
             for arch in cfgs] + [("float32", arch, True) for arch in cfgs]
-    tasks = [(functools.partial(serve.serve_rank, profile_peak=profile),
+    # the f32 runs count their flops (the bf16 runs keep the decode times)
+    tasks = [(functools.partial(serve.serve_rank, profile_peak=profile,
+                                count_flops=dtype == "float32" and not profile),
               (replace(cfgs[arch], dtype=dtype), (1, 2), TP_NEW, TP_BATCH,
                TP_PROMPT))
              for dtype, arch, profile in runs]
@@ -4104,6 +4175,9 @@ def tp_phase(dev, total):
                 float((o["step_logits"] - ref["step_logits"]).abs().max())
                 for o in outs)
             line["tokens_equal_unsharded"] = True
+            line["dry_run"] = dry_run_check(
+                f"tp {arch}", cfg, outs,
+                prompts=(TP_BATCH, TP_PROMPT), new=TP_NEW)
             line["unsharded_decode_ms_per_step"] = statistics.median(
                 ref["step_ms"])
         else:
@@ -4327,11 +4401,12 @@ def tp_train_phase(dev, total):
             del model, prompts
         torch.cuda.empty_cache()
         tasks = [(functools.partial(train_rank, reference=refs[arch][2],
-                                    record=False),
+                                    record=False, count_flops=True),
                   (cfg, (1, 2), TPT_STEPS, TPT_BATCH, TPT_SEQ))
                  for arch, cfg in f32.items()]
-        tasks += [(serve.serve_rank, (f32[arch], (1, 2), TPT_SERVE_NEW,
-                                      TPT_SERVE_BATCH, TPT_SERVE_PROMPT))
+        tasks += [(functools.partial(serve.serve_rank, count_flops=True),
+                   (f32[arch], (1, 2), TPT_SERVE_NEW, TPT_SERVE_BATCH,
+                    TPT_SERVE_PROMPT))
                   for arch in TPT_SERVE]
         t0 = time.perf_counter()
         ranks = spmd.launch(tasks, world=2, shared_card=True, timeout_s=600.0)
@@ -4374,6 +4449,9 @@ def tp_train_phase(dev, total):
             "collective_bytes_per_step": outs[0]["collectives"][0]["total"],
             "peak_bytes_per_rank": [o.get("peak_bytes") for o in outs],
             "step_ms_per_rank": [o["step_ms"] for o in outs],
+            "step_ms_note": "step 1 under FlopCounterMode (count_flops)",
+            "dry_run": dry_run_check(f"tp-train {arch}", f32[arch], outs,
+                                     batch=(TPT_BATCH, TPT_SEQ)),
             "unsharded_wall_s": refs[arch][1], "card": CARD})
     for j, arch in enumerate(TPT_SERVE):
         outs = [r[len(TPT_ARCHS) + j] for r in ranks]
@@ -4407,9 +4485,94 @@ def tp_train_phase(dev, total):
             "collectives_per_rank": [o["collectives"]["by_axis"] for o in outs],
             "decode_ms_per_step": [statistics.median(o["step_ms"])
                                    for o in outs],
+            "decode_ms_note": "under FlopCounterMode (count_flops)",
+            "dry_run": dry_run_check(
+                f"tp-train {arch} serve", cfg, outs,
+                prompts=(TPT_SERVE_BATCH, TPT_SERVE_PROMPT),
+                new=TPT_SERVE_NEW),
             "card": CARD})
     emit("tp_train_phase", {"wall_s": time.perf_counter() - t_phase,
                             "launch_s": t_launch, **t_parts})
+
+
+def start_dryrun():
+    """Phase 26 (b)'s process: the dry run's CLI for SmolLM-135M's four
+    input shapes on the 16 x 16 mesh, shapes only. It is started before
+    phase 24, so that its host work runs beside phases 24 and 25, and read
+    in phase 26; its output goes to a file."""
+    out = tempfile.TemporaryDirectory(prefix="dryrun-")
+    log = open(os.path.join(out.name, "log"), "w+")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "smollm-135m", "--out", out.name], stdout=log,
+        stderr=subprocess.STDOUT,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    return SimpleNamespace(proc=proc, out=out, log=log, t0=time.perf_counter())
+
+
+def recompile_dryrun_phase(papers, cfg, dev, clean, total, dry):
+    """Phase 26. (a) Phase 4's SAGE run with ``trace_recompiles=True`` on
+    the serial and the device_pipelined source, 3 epochs of 3 steps:
+    losses bitwise ``clean``'s (phase 4's and phase 7's), the last epoch
+    without a new step signature and the first with some, each epoch's
+    ``recompiles`` and the tracer's ``by_fn`` printed; the runs' launches
+    are added to ``total``. (b) ``dry`` (``start_dryrun``'s process): it
+    ends in ``all dry-runs OK``, one line a record."""
+    from dataclasses import replace
+
+    from repro_torch.models.gnn import GNNSpec
+
+    t_phase = time.perf_counter()
+    both = ("gather_segsum_fwd", "gather_segsum_bwd_mixed", "src_sorted_csr",
+            "shuffle_bwd")
+    expect = {"serial": both, "device_pipelined": both + ("wavefront_expand",)}
+    for source, want in clean.items():
+        launches, tr, stats, losses = run_trainer(
+            papers, GNNSpec(model="sage"),
+            replace(cfg, plan_source=source, trace_recompiles=True), dev, 3,
+            f"sage, {source} source, trace_recompiles", expect[source],
+            epochs=3)
+        for k in total:
+            total[k] += launches[k]
+        check(losses == want, f"recompile {source}: losses differ from the "
+              f"clean run's {losses} != {want}")
+        epochs = [e.recompiles for e in stats]
+        check(epochs[-1]["misses"] == 0 and epochs[0]["misses"] > 0,
+              f"recompile {source}: misses by epoch {epochs}")
+        emit("recompile", {"source": source, "losses_bitwise_clean": True,
+                           "epochs": epochs,
+                           "by_fn": tr.recompiles.summary()["by_fn"],
+                           "total_misses": tr.recompiles.total_misses})
+        del tr
+    t_recompile = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    rc = dry.proc.wait(timeout=600)
+    t_wait = time.perf_counter() - t0
+    dry.log.seek(0)
+    stdout = dry.log.read()
+    dry.log.close()
+    dry.out.cleanup()
+    check(rc == 0 and "all dry-runs OK" in stdout,
+          f"dryrun: exit {rc}\n{stdout[-4000:]}")
+    records = [json.loads(line)["dryrun_record"]
+               for line in stdout.splitlines()
+               if line.startswith('{"dryrun_record"')]
+    check(len(records) == 4, f"dryrun: {len(records)} records")
+    for r in records:
+        emit("dryrun", {
+            "what": "counts from shapes on the meta device, terms at the "
+                    "H100 constants of launch/roofline.py: not a measurement",
+            **{k: r[k] for k in ("arch", "shape", "mesh", "chips", "depth",
+                                 "flops", "bytes_accessed", "rank_batch",
+                                 "memory", "t_trace_s")},
+            "collectives": {k: r["collectives"][k] for k in
+                            ("all-reduce", "all-gather", "reduce-scatter",
+                             "total", "count")},
+            "roofline": r["roofline"]})
+    emit("recompile_dryrun_phase", {
+        "wall_s": time.perf_counter() - t_phase, "recompile_s": t_recompile,
+        "dryrun_process_s": time.perf_counter() - dry.t0,
+        "dryrun_wait_s": t_wait})
 
 
 def main():
@@ -4580,7 +4743,7 @@ def main():
     spmd_phase(first, cfg, dev, total)
 
     # ---- 20. the other transformer families on the serve path --------------
-    del first, papers
+    del first
     families_phase(dev, total)
 
     # ---- 21. the transformer train step ----------------------------------
@@ -4592,11 +4755,24 @@ def main():
     # ---- 23. the entry points ----------------------------------------------
     entry_points_phase(dev, total)
 
-    # ---- 24. the transformer across ranks ---------------------------------
-    tp_phase(dev, total)
+    # phase 26's dry run: host work, beside phases 24 and 25
+    dry = start_dryrun()
+    try:
+        # ---- 24. the transformer across ranks -----------------------------
+        tp_phase(dev, total)
 
-    # ---- 25. the train step across ranks, Mamba2 and Hymba on a model axis -
-    tp_train_phase(dev, total)
+        # ---- 25. the train step across ranks, Mamba2 and Hymba on a model
+        # axis
+        tp_train_phase(dev, total)
+
+        # ---- 26. the recompile tracer; the dry run of the production mesh
+        recompile_dryrun_phase(papers, cfg, dev, {
+            "serial": main_losses["serial"],
+            "device_pipelined": device_pipelined_losses}, total, dry)
+    finally:
+        if dry.proc.poll() is None:
+            dry.proc.kill()
+            dry.proc.wait()
 
     emit("smoke", {"wall_s": time.perf_counter() - t_smoke, "card": CARD})
     for k, r in results.items():

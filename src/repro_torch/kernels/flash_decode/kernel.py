@@ -4,9 +4,11 @@
 
 For a CUDA tensor it launches the kernel or raises; for a CPU tensor it runs
 the plain version (``ref.decode_attention_ref``), the only reason it ever
-does; on a ``meta`` tensor it raises. It checks device, dtype, shapes and
-strides and raises on anything the kernel does not take, allocates the
-output with ``torch.empty`` (and the
+does; on a ``meta`` tensor (the shape-only pass of ``launch/dryrun.py``) it
+returns empty ``meta`` outputs of the kernel's shapes, allocated as the
+kernel's route allocates them, computes nothing and counts no launch. It
+checks device, dtype, shapes and strides and raises on anything the kernel
+does not take, allocates the output with ``torch.empty`` (and the
 split-K workspace once per shape and stream), and counts its launches in
 ``LAUNCHES``.
 
@@ -251,17 +253,26 @@ def _launch(q, k, v, cache_len, partial: bool):
     return out, md[0], md[1]
 
 
-def _on_cpu(q, k, v, cache_len) -> bool:
-    """True for a CPU tensor, after every check (the plain version runs only
-    what the kernel would take); raises on a ``meta`` tensor, which has no
-    values to run on."""
+def _on_host(q, k, v, cache_len) -> bool:
+    """True for a CPU or a ``meta`` tensor, after every check (the plain
+    version runs only what the kernel would take, and a shape-only pass
+    only what it would launch); raises on any other device."""
     if q.get_device() >= 0:
         return False
-    if q.device.type != "cpu":
-        raise ValueError(f"flash_decode runs on a card or the CPU, not on "
-                         f"{q.device}")
+    if q.device.type not in ("cpu", "meta"):
+        raise ValueError(f"flash_decode runs on a card, the CPU or meta, not "
+                         f"on {q.device}")
     _check(q, k, v, cache_len)
     return True
+
+
+def _meta_out(q, v, partial: bool):
+    """The kernel route's outputs on ``meta``: shapes, no values."""
+    shape = q.shape[:2] + v.shape[3:]
+    if not partial:
+        return torch.empty(shape, dtype=q.dtype, device="meta")
+    md = torch.empty((2,) + shape[:2], dtype=torch.float32, device="meta")
+    return torch.empty(shape, dtype=torch.float32, device="meta"), md[0], md[1]
 
 
 def flash_decode(q, k, v, cache_len):
@@ -275,7 +286,9 @@ def flash_decode(q, k, v, cache_len):
     K/V rows once). Split-K over chunks of ``decode_chunk(B, KV, S, G)`` rows,
     merged in a fixed order: no atomics, the result repeats bit for bit.
     """
-    if _on_cpu(q, k, v, cache_len):
+    if _on_host(q, k, v, cache_len):
+        if q.is_meta:
+            return _meta_out(q, v, partial=False)
         return ref.decode_attention_ref(q, k, v, cache_len.reshape(()))
     return _launch(q, k, v, cache_len, partial=False)
 
@@ -287,7 +300,9 @@ def flash_decode_partial(q, k, v, cache_len):
     (B, H), the sum of exp(s - m) over the valid rows. The same kernels and
     checks as ``flash_decode``; ``cache_len`` may be 0 (no valid row: o = 0,
     m = -1e30, d = 0)."""
-    if _on_cpu(q, k, v, cache_len):
+    if _on_host(q, k, v, cache_len):
+        if q.is_meta:
+            return _meta_out(q, v, partial=True)
         return ref.decode_attention_partial_ref(q, k, v,
                                                 cache_len.reshape(()))
     return _launch(q, k, v, cache_len, partial=True)

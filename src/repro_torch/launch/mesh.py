@@ -16,7 +16,11 @@ data group (the ranks that hold one model index across ``pod`` and
 requires; an axis of size 1 gets none. ``abstract_mesh`` is a mesh of axis
 sizes alone, with no process group: what the spec functions of
 ``launch/sharding.py`` need, so the production mesh's specs can be computed
-in one process.
+in one process. On an abstract mesh the collectives take ``meta`` tensors
+only (the shape-only pass of ``launch/dryrun.py``): they count their calls
+and bytes exactly as a real rank counts them and return ``meta`` results of
+the real results' shapes, without ``torch.distributed``; any other tensor
+raises.
 
 The collectives (``all_reduce``, ``all_gather``, ``enter`` and the
 reduce-scatter that is an all-gather's adjoint) count their calls and the
@@ -79,8 +83,9 @@ class Mesh:
     """A rank's place on the mesh: the axis names, each axis's size
     (``shape``, as ``jax.sharding.Mesh.shape``) and this rank's index on it
     (``coords``), the process group of its model axis and of its data axes
-    (None on an axis of size 1, and on an ``abstract_mesh``), and whether its
-    collectives copy CUDA tensors to the host (gloo)."""
+    (None on an axis of size 1, and on an ``abstract_mesh``), whether its
+    collectives copy CUDA tensors to the host (gloo), and whether it is an
+    ``abstract_mesh`` (shapes only: no process group)."""
 
     axis_names: tuple
     shape: dict
@@ -88,6 +93,7 @@ class Mesh:
     model_group: object = None
     data_group: object = None
     host_transport: bool = False
+    abstract: bool = False
 
     @property
     def model_size(self) -> int:
@@ -135,7 +141,7 @@ def abstract_mesh(shape, axes=None, coords=None) -> Mesh:
     for a, n in zip(axes, shape):
         if not 0 <= coords[a] < n:
             raise ValueError(f"coordinate {coords[a]} outside axis {a} of {n}")
-    return Mesh(axes, dict(zip(axes, shape)), coords)
+    return Mesh(axes, dict(zip(axes, shape)), coords, abstract=True)
 
 
 def production_mesh(multi_pod: bool = False) -> Mesh:
@@ -219,11 +225,24 @@ def _count(axis: str, kind: str, nbytes: int) -> None:
     c[1] += nbytes
 
 
+def _shape_only(t: torch.Tensor, mesh: Mesh) -> bool:
+    """True on an abstract mesh, whose collectives take ``meta`` tensors
+    only (they have no process group to run over); raises on any other."""
+    if not mesh.abstract:
+        return False
+    if t.device.type != "meta":
+        raise ValueError(f"a collective on an abstract mesh takes meta "
+                         f"tensors only, not one on {t.device}")
+    return True
+
+
 def _sum_(t: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
     """The counted in-place sum of ``t`` over ``axis`` (of more than one
     rank)."""
     group, _ = _group(mesh, axis)
     _count(axis, "all-reduce", t.numel() * t.element_size())
+    if _shape_only(t, mesh):
+        return t
     if mesh.host_transport and t.is_cuda:
         h = t.cpu()
         dist.all_reduce(h, group=group)
@@ -236,6 +255,8 @@ def _gather(t: torch.Tensor, mesh: Mesh, dim: int, axis: str) -> torch.Tensor:
     """The counted concatenation of the ranks' ``t`` along ``dim``."""
     group, n = _group(mesh, axis)
     _count(axis, "all-gather", n * t.numel() * t.element_size())
+    if _shape_only(t, mesh):
+        return torch.cat([t.contiguous()] * n, dim=dim)
     src = t.contiguous()
     if mesh.host_transport and t.is_cuda:
         src = src.cpu()
@@ -251,6 +272,9 @@ def _scatter(t: torch.Tensor, mesh: Mesh, dim: int, axis: str) -> torch.Tensor:
     size = t.shape[dim] // n
     idx = mesh.model_index if axis == "model" else mesh.data_index
     _count(axis, "reduce-scatter", t.numel() // n * t.element_size())
+    if _shape_only(t, mesh):
+        return t.narrow(dim, idx * size, size).clone(
+            memory_format=torch.contiguous_format)
     if mesh.host_transport:  # gloo: an all-reduce, the rank's block kept
         h = t.detach().to("cpu", copy=True).contiguous()
         dist.all_reduce(h, group=group)

@@ -118,14 +118,15 @@ _EXPERT_LEAVES = ("moe.w_in", "moe.w_gate", "moe.w_out")
 def weight_bytes(model, tokens: int) -> int:
     """Bytes of the weights a step over ``tokens`` tokens must read, once:
     every leaf whole, but a MoE layer's routed experts only as many as the
-    tokens can reach (tokens x top-k, at most E) and an untied embedding's
-    gathered rows only (one a token and codebook)."""
+    tokens can reach (tokens x top-k, at most the experts the leaf holds:
+    E, or a rank's E / M) and an untied embedding's gathered rows only (one
+    a token and codebook, at most the rows the leaf holds)."""
     cfg = model.cfg
     total = 0
     for name, p in model.named_parameters():
         n = p.numel()
         if name.endswith(_EXPERT_LEAVES):
-            E = cfg.num_experts
+            E = p.shape[0]
             n = n // E * min(E, tokens * cfg.moe_top_k)
         elif name == "embed" and not cfg.tie_embeddings:
             n = min(n, tokens * max(1, cfg.num_codebooks) * cfg.d_model)
@@ -152,8 +153,34 @@ def state_bytes(cfg) -> int:
     return 4 * cfg.ssm_nheads * cfg.ssm_state * cfg.ssm_headdim
 
 
+def _leaves(cache: dict):
+    for name, t in cache.items():
+        if isinstance(t, dict):
+            yield from _leaves(t)
+        else:
+            yield name, t
+
+
+def _caches_bytes(kind: str, caches: list) -> int:
+    """A rank's cache term of ``step_bytes`` from its cache tensors: a
+    prefill writes each leaf it emits once; a decode reads each attention
+    leaf whole (every row valid) and writes one row of it, and reads and
+    writes each SSM state."""
+    total = 0
+    for cache in caches:
+        for name, t in _leaves(cache):
+            n = t.numel() * t.element_size()
+            if kind == "prefill":
+                total += n
+            elif name == "state":
+                total += 2 * n
+            else:
+                total += n + n // t.shape[1]
+    return total
+
+
 def step_bytes(model, kind: str, batch: int, rows: int,
-               cache_len: int = 0) -> int:
+               cache_len: int = 0, caches: list | None = None) -> int:
     """The least bytes one step moves (each input read once, each output
     written once):
 
@@ -166,7 +193,11 @@ def step_bytes(model, kind: str, batch: int, rows: int,
       read up to ``cache_len`` and one row written, the SSM states read and
       written, the logits written.
 
-    Token ids (int32) and a VLM's patch rows are read once."""
+    Token ids (int32) and a VLM's patch rows are read once. With ``caches``
+    (the caches a rank's prefill emitted, or the caches its decode step
+    reads: a rank of a mesh holds its slices, which ``cfg`` does not give)
+    the cache term is theirs (``_caches_bytes``) and ``cache_len`` is not
+    read; ``model`` is then the rank's slices too."""
     cfg = model.cfg
     item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
     nc = max(1, cfg.num_codebooks)
@@ -181,10 +212,12 @@ def step_bytes(model, kind: str, batch: int, rows: int,
         return inputs + 9 * params
     out = item * batch * nc * cfg.vocab_size  # the last row's logits
     weights = weight_bytes(model, tokens)
-    if kind == "prefill":
+    if caches is not None:
+        cache_term = _caches_bytes(kind, caches)
+    elif kind == "prefill":
         kept = min(rows, cfg.attn_window) if cfg.attn_window else rows
-        caches = L * batch * (kept * cache_row_bytes(cfg) + state_bytes(cfg))
+        cache_term = L * batch * (kept * cache_row_bytes(cfg) + state_bytes(cfg))
     else:
-        caches = L * batch * ((cache_len + 1) * cache_row_bytes(cfg)
-                              + 2 * state_bytes(cfg))
-    return inputs + weights + caches + out
+        cache_term = L * batch * ((cache_len + 1) * cache_row_bytes(cfg)
+                                  + 2 * state_bytes(cfg))
+    return inputs + weights + cache_term + out

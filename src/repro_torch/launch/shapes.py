@@ -58,6 +58,7 @@ its peak bytes on a card and its coordinates.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import hashlib
@@ -67,6 +68,7 @@ import statistics
 import time
 
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels.flash_decode import kernel as flash_decode
@@ -130,6 +132,30 @@ def decode_kernel_dims(cfg) -> tuple[int, int, int, int]:
         return (cfg.num_heads, cfg.num_heads, cfg.qk_nope_dim + cfg.qk_rope_dim,
                 cfg.v_head_dim)
     return cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, cfg.head_dim
+
+
+def decode_attention_flops(cfg, model_size: int, cache_shapes: list) -> int:
+    """The decode kernel's operations in one decode step of a rank
+    (``flash_decode.kernel.decode_flops``), from the shapes of its caches
+    (one dict of shapes a layer, as ``serve.generate`` reports them): each
+    attention layer's call over the rank's physical cache rows (every row
+    valid, as at the reference's position ``seq_len - 1``; a partly filled
+    cache counts them all, as the plain version computes them), with every
+    query head where the cache is sharded by sequence (MLA's latents, k/v
+    whose KV heads the model axis does not divide) and the rank's block of
+    H / M heads where it is sharded by head."""
+    if not attention_layers(cfg):
+        return 0
+    H, _, D, Dv = decode_kernel_dims(cfg)
+    M = model_size
+    by_seq = M > 1 and (cfg.use_mla or cfg.num_kv_heads % M != 0)
+    heads = H if by_seq or M == 1 else H // M
+    total = 0
+    for shapes in cache_shapes:
+        attn = shapes.get("attn", shapes)
+        B, rows = (attn["k"] if "k" in attn else attn["c_kv"])[:2]
+        total += flash_decode.decode_flops(B, heads, rows, D, Dv)
+    return total
 
 
 def meta_flops(cfg, kind: str, batch: int, rows: int) -> int:
@@ -366,7 +392,7 @@ def _digest(t: torch.Tensor) -> str:
 def train_rank(device, cfg, mesh_shape, steps: int, batch: int = 2,
                seq: int = 1024, seed: int = 0, *, data=None, np_params=None,
                grad_terms=(), reference=None, keep_params: bool = False,
-               record: bool = True) -> dict:
+               record: bool = True, count_flops: bool = False) -> dict:
     """A rank function for ``launch``: ``steps`` steps of
     ``make_train_step(cfg, adamw(TRAIN_LR), mesh)`` on a
     ``make_mesh(mesh_shape)`` mesh, on the rank's ``device``.
@@ -403,13 +429,17 @@ def train_rank(device, cfg, mesh_shape, steps: int, batch: int = 2,
     (the rank's first m, so its first-step gradient, against the
     reference's slice over the leaf's max abs) and ``param_off_grad`` (the
     largest |m| / max |m| of the reference's first m at the entries
-    off). On a card also ``peak_bytes`` (``max_memory_allocated``
-    over the steps)."""
+    off). With ``count_flops`` also ``flops``: the products
+    ``FlopCounterMode`` counts over the first step (the counter slows it;
+    the train path launches no kernel). On a card also ``peak_bytes``
+    (``max_memory_allocated`` over the steps) and ``baseline_bytes`` (the
+    bytes allocated before the weights were built)."""
     if isinstance(cfg, str):
         cfg = get_arch(cfg)
     device = torch.device(device)
     mesh = mesh_mod.make_mesh(mesh_shape)
     on_card = device.type == "cuda"
+    baseline = torch.cuda.memory_allocated(device) if on_card else None
     if np_params is not None:
         model = transformer_params_from_jax(np_params, cfg, device, mesh)
     else:
@@ -452,7 +482,11 @@ def train_rank(device, cfg, mesh_shape, steps: int, batch: int = 2,
             start.record()
         else:
             t0 = time.perf_counter()
-        state, metrics = step(model, state, tokens, patches)
+        with (FlopCounterMode(display=False) if count_flops and k == 0
+              else contextlib.nullcontext()) as counter:
+            state, metrics = step(model, state, tokens, patches)
+        if counter is not None:
+            out["flops"] = counter.get_total_flops()
         if on_card:
             end.record()
             end.synchronize()
@@ -470,6 +504,7 @@ def train_rank(device, cfg, mesh_shape, steps: int, batch: int = 2,
     out.update(losses=losses, collectives=collectives, step_ms=step_ms)
     if on_card:
         out["peak_bytes"] = torch.cuda.max_memory_allocated(device)
+        out["baseline_bytes"] = baseline
     if record:
         # the flops of one rank's rows through the unsharded model (the
         # expert-local dispatch counts as the global one)

@@ -6,13 +6,23 @@ allocations alive then, each with the frame of this package that made it.
 ``peak_profile`` records on the card; ``peak_allocations`` is the replay,
 a function of the trace alone. While it is on, the history keeps a Python
 stack for every allocation, so it is for a profile run, not a timed one.
+
+``LiveStorage`` is the same high-water mark on any device, ``meta``
+included, where no allocator exists: a dispatch mode that adds the bytes
+of every storage an operation's result holds and a finalizer on that
+storage that takes them off when its last tensor dies (autograd's saved
+tensors keep it alive, as on a card). ``launch/dryrun.py`` reads it over a
+shape-only pass.
 """
 from __future__ import annotations
 
 import contextlib
 import os
+import weakref
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 #: events the allocator keeps at most while recording
 MAX_ENTRIES = 1_000_000
@@ -75,3 +85,48 @@ def peak_profile(device: torch.device, top: int = 6):
     finally:
         torch.cuda.memory._record_memory_history(enabled=None)
     out.update(peak_allocations(traces[device.index or 0], top))
+
+
+class LiveStorage(TorchDispatchMode):
+    """The bytes of the storages alive while the mode is on, and their most.
+
+    ``LiveStorage(*args)`` first takes the storages of every tensor in
+    ``args`` (any nesting of lists, tuples and dicts: a step's inputs) as
+    alive: their bytes are ``base``. Under the mode, every operation's
+    results add the bytes of each storage not yet alive; a storage leaves
+    when its last tensor dies (a finalizer on the storage object, which
+    PyTorch keeps for as long as the storage lives). ``live`` is the bytes
+    alive now and ``peak`` the most at once since the start. Storages made
+    outside the mode (before it, or by code that does not dispatch) are
+    not seen."""
+
+    def __init__(self, *args):
+        super().__init__()
+        self.live = self.peak = 0
+        self._alive: set = set()
+        for t in tree_leaves(args):
+            if isinstance(t, torch.Tensor):
+                self._add(t)
+        self.base = self.live
+
+    def _add(self, t: torch.Tensor) -> None:
+        s = t.untyped_storage()
+        key = id(s)
+        if key in self._alive:
+            return
+        n = s.nbytes()
+        self._alive.add(key)
+        self.live += n
+        self.peak = max(self.peak, self.live)
+        weakref.finalize(s, self._drop, key, n)
+
+    def _drop(self, key: int, n: int) -> None:
+        self._alive.discard(key)
+        self.live -= n
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self._add(t)
+        return out

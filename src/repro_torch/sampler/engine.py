@@ -275,6 +275,9 @@ class DeviceSampler:
         self._streams: dict[str, torch.cuda.Stream] = {}
         # tracing/metrics sink; the trainer re-points this at its own Obs
         self.obs = NULL_OBS
+        # the loop's callable: the trainer wraps it to count its call
+        # signatures (``runtime.recompile.Traced``) when tracing recompiles
+        self.sample_fn = _sample_device
 
     @property
     def num_devices(self) -> int:
@@ -389,7 +392,7 @@ class DeviceSampler:
         targets = np.asarray(targets, dtype=np.int64)
         caps = self.caps_tuple()
         t_dev, keys = self.device_inputs(targets, epoch, key_batch)
-        fronts, counts, layers, flags = to_host(_sample_device(
+        fronts, counts, layers, flags = to_host(self.sample_fn(
             self._dev, t_dev, targets.shape[0], keys, caps=caps,
             fanouts=self.fanouts,
         ))

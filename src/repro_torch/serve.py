@@ -36,10 +36,12 @@ import time
 
 import numpy as np
 import torch
+from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels.flash_decode import kernel as flash_decode_kernel
 from repro_torch.launch import mesh as mesh_mod
+from repro_torch.launch.shapes import decode_attention_flops
 from repro_torch.launch.sharding import batch_slice, model_dim
 from repro_torch.models.transformer.model import (
     init_caches,
@@ -210,7 +212,8 @@ def _shapes(cache: dict) -> dict:
 
 def serve_rank(device, cfg, mesh_shape, new_tokens: int, batch: int = 8,
                prompt_len: int = 1024, seed: int = 0, *, prompts=None,
-               patches=None, np_params=None, profile_peak: bool = False) -> dict:
+               patches=None, np_params=None, profile_peak: bool = False,
+               count_flops: bool = False) -> dict:
     """A rank function for ``launch``: ``generate`` of ``cfg`` (an
     ``ArchConfig`` or an architecture's name) on a ``make_mesh(mesh_shape)``
     mesh, on the rank's ``device``.
@@ -226,7 +229,14 @@ def serve_rank(device, cfg, mesh_shape, new_tokens: int, batch: int = 8,
     decode-kernel launches (``launches``) and its collectives
     (``collectives``, ``mesh.collective_record``), both counted over the
     ``generate`` call alone, and whether its collectives crossed the host
-    (``host_transport``). On a card also ``build_peak_bytes`` (the most
+    (``host_transport``). With ``count_flops`` also ``flops``: the products
+    ``FlopCounterMode`` counts over the ``generate`` call (on the CPU the
+    decode kernel's plain version among them), and on a card, where the
+    counter never sees the kernel's launch, the kernel's count from the
+    rank's cache shapes (``shapes.decode_attention_flops``, what the plain
+    version's products are) for each decode step; the counter slows the
+    call. On a card also ``baseline_bytes`` (the bytes allocated before the
+    weights were built), ``build_peak_bytes`` (the most
     bytes allocated while the weights were built, beyond those allocated
     before), ``param_bytes`` (the rank's slices), ``max_memory_allocated``
     over the ``generate`` call and, with ``profile_peak``, ``peak_profile``
@@ -256,8 +266,15 @@ def serve_rank(device, cfg, mesh_shape, new_tokens: int, batch: int = 8,
     flash_decode_kernel.reset_launches()
     mesh_mod.reset_collectives()
     with (peak_profile(device) if profile_peak and on_card
-          else contextlib.nullcontext()) as peak:
+          else contextlib.nullcontext()) as peak, \
+            (FlopCounterMode(display=False) if count_flops
+             else contextlib.nullcontext()) as counter:
         out = generate(model, prompts, new_tokens, patches)
+    if count_flops:
+        out["flops"] = counter.get_total_flops()
+        if on_card:
+            out["flops"] += (new_tokens - 1) * decode_attention_flops(
+                cfg, mesh.model_size, out["cache_shapes"])
     out["launches"] = dict(flash_decode_kernel.LAUNCHES)
     out["collectives"] = mesh_mod.collective_record()
     out["coords"] = dict(mesh.coords)
@@ -266,6 +283,7 @@ def serve_rank(device, cfg, mesh_shape, new_tokens: int, batch: int = 8,
     out["host_transport"] = mesh.host_transport
     if on_card:
         out["max_memory_allocated"] = torch.cuda.max_memory_allocated(device)
+        out["baseline_bytes"] = before
         out["build_peak_bytes"] = build_peak
         out["param_bytes"] = sum(p.numel() * p.element_size()
                                  for p in model.parameters())

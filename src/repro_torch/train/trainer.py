@@ -76,6 +76,7 @@ from repro_torch.runtime.plan_source import (
     finalize_cache_plan,
     make_plan_source,
 )
+from repro_torch.runtime.recompile import RecompileTracer, Traced
 from repro_torch.runtime.signature import SignatureCache
 from repro_torch.sampler import DeviceSampler
 from repro_torch.train import optimizer as opt_lib
@@ -130,6 +131,10 @@ class TrainConfig:
     # record every split-mode sample's frontier/edge counts
     # (core.partition.EdgeTelemetry) for ``Trainer.refine_partition``
     record_telemetry: bool = False
+    # Count new step-call signatures per step (the port's counterpart of
+    # jit cache misses: runtime.recompile.RecompileTracer); per-epoch counts
+    # land in ``EpochStats.recompiles``. A warm epoch at fixed caps has none.
+    trace_recompiles: bool = False
     # Tracing + metrics (repro_torch.obs): spans for every host stage,
     # flow-linked per (epoch, batch), and the metrics registry. Off by
     # default; off, the same code records nothing and adds no sync.
@@ -284,6 +289,9 @@ class EpochStats:
     pipeline: dict = field(default_factory=dict)  # plan source's stats()
     t_wall: float = 0.0  # consumer wall time for the whole epoch
     t_first_iter: float = 0.0  # to the end of the first step (pipeline fill)
+    # new step-call signatures this epoch (trace_recompiles=True): {"steps",
+    # "misses", "by_fn", "miss_steps"} from RecompileTracer.since()
+    recompiles: dict = field(default_factory=dict)
 
     def steady_step_seconds(self) -> float:
         """Per-step wall time without the first step (the pipeline fill)."""
@@ -411,9 +419,13 @@ class Trainer:
         self.nonfinite_skips = 0  # steps whose update the guard skipped
         self.injector = injector
         self.sig_cache = SignatureCache()
+        self._set_recompile_tracer()
         self.device_sampler = None
         if cfg.plan_source in DEVICE_SOURCES:
             self.device_sampler = self._make_device_sampler()
+            if self.recompiles is not None:
+                self.recompiles.register("sample_device",
+                                         self.device_sampler.sample_fn)
         self.producer = PlanProducer(
             self.sampler, dataset.features, dataset.labels,
             num_devices=cfg.num_devices, pad_multiple=cfg.pad_multiple,
@@ -448,7 +460,10 @@ class Trainer:
 
     def _make_device_sampler(self) -> DeviceSampler:
         """The device sampler over the current partition: its shards are
-        uploaded to the trainer's device."""
+        uploaded to the trainer's device. When tracing recompiles, its loop
+        is the trainer's one traced ``sample_device`` (a refined partition's
+        new sampler keeps it, as the reference's module-level jit keeps its
+        cache)."""
         cfg = self.cfg
         sampler = DeviceSampler(
             self.ds.graph, self.partition.assignment, cfg.num_devices,
@@ -456,21 +471,49 @@ class Trainer:
             device=self.device,
         )
         sampler.obs = self.obs
+        if self.recompiles is not None:
+            fn = self._traced.setdefault("sample_device",
+                                         Traced(sampler.sample_fn))
+            sampler.sample_fn = fn
         return sampler
 
+    def _set_recompile_tracer(self) -> None:
+        """With ``trace_recompiles``, the tracer (``self.recompiles``) and
+        the traced step callables by the reference's names: ``step`` and
+        ``cached_step`` (the 1-D path, uncached and served from the cache),
+        and on the mesh ``mesh_step`` and ``mesh_cached_step``; each is
+        ``_grads`` behind its own signature set (``self._traced``). Off,
+        ``self.recompiles`` is None and the step calls ``_grads`` itself."""
+        self.recompiles = None
+        self._traced: dict = {}
+        if not self.cfg.trace_recompiles:
+            return
+        self.recompiles = RecompileTracer()
+        names = ["step", "cached_step"]
+        if self.cfg.num_replicas >= 1:
+            names += ["mesh_step", "mesh_cached_step"]
+        for name in names:
+            self._traced[name] = Traced(self._grads)
+            self.recompiles.register(name, self._traced[name])
+
     # ------------------------------------------------------------------ #
-    def _replica_grads(self, part):
+    def _stage(self, part) -> tuple:
         """Stage one part (a ``PlanBatch``: the 1-D step's batch or one
-        replica's) and run its forward, masked loss and gradients. With a
-        cache plan ``feats`` is the miss block and the input is served from
-        the one resident block; every part shares the one ``rep_block``."""
-        feats_d, plan_arrays, labels_d = stage_batch(
+        replica's): ``(feats, plan dict, labels, cached)`` on the device,
+        ``cached`` whether a cache plan serves its input."""
+        return (*stage_batch(
             part.plan, part.feats, part.labels, self.device, part.cache_plan,
             with_halves=self.cfg.shuffle_overlap,
             num_replicated=self._num_replicated(),
-        )
+        ), part.cache_plan is not None)
+
+    def _replica_grads(self, feats_d, plan_arrays, labels_d, cached: bool):
+        """One staged part's forward, masked loss and gradients. With a
+        cache plan ``feats_d`` is the miss block and the input is served
+        from the one resident block; every part shares the one
+        ``rep_block``."""
         layers = list(self.model.layers)
-        if part.cache_plan is not None:
+        if cached:
             logits = gnn_forward_cached(self.spec, layers, self.cache_block,
                                         feats_d, plan_arrays,
                                         rep_block=self.rep_block)
@@ -484,22 +527,35 @@ class Trainer:
 
     def _step_grads(self, parts: list):
         """The step's ``(loss, acc, grads)`` over ``parts``: the 1-D step's
-        one batch, or a mesh batch's R replica parts. Each part runs the
-        same ``_replica_grads``; the gradients, losses and accuracies are
-        summed left to right in replica order and divided by R (the sim
-        statement of the spmd psum's fixed order). A sum of one term and a
-        division by 1 are exact, so the R = 1 mesh is bitwise the 1-D step;
-        the division is skipped there."""
+        one batch, or a mesh batch's R replica parts, each staged
+        (``_stage``), then ``_grads`` of the staged parts (with
+        ``trace_recompiles``, through the traced callable of the path's
+        name)."""
+        staged = [self._stage(part) for part in parts]
+        if self.recompiles is None:
+            return self._grads(staged)
+        name = "cached_step" if staged[0][3] else "step"
+        if self.cfg.num_replicas >= 1:
+            name = "mesh_" + name
+        return self._traced[name](staged)
+
+    def _grads(self, staged: list):
+        """``(loss, acc, grads)`` over the staged parts: each runs the same
+        ``_replica_grads``; the gradients, losses and accuracies are summed
+        left to right in replica order and divided by R (the sim statement
+        of the spmd psum's fixed order). A sum of one term and a division
+        by 1 are exact, so the R = 1 mesh is bitwise the 1-D step; the
+        division is skipped there."""
         grads = loss = acc = None
-        for part in parts:
-            loss_r, acc_r, grads_r = self._replica_grads(part)
+        for part in staged:
+            loss_r, acc_r, grads_r = self._replica_grads(*part)
             if grads is None:
                 loss, acc, grads = loss_r, acc_r, grads_r
             else:
                 loss, acc = loss + loss_r, acc + acc_r
                 grads = [a + b for a, b in zip(grads, grads_r)]
-        if len(parts) > 1:
-            num = len(parts)
+        if len(staged) > 1:
+            num = len(staged)
             loss, acc = loss / num, acc / num
             grads = [g / num for g in grads]
         return loss, acc, grads
@@ -688,6 +744,8 @@ class Trainer:
         with self.obs.span("step", {"wait_s": 0.0}) as step_sp:
             loss, acc, t_stage, t_device = self._step(parts)
             step_sp.attrs.update(stage_s=t_stage, device_s=t_device)
+        if self.recompiles is not None:
+            self.recompiles.step("train_iter")
         return self._iter_stats(parts, loss, acc, sp_sample.duration,
                                 sp_split.duration, sp_load.duration,
                                 t_stage, t_device)
@@ -734,6 +792,7 @@ class Trainer:
         source = self.plan_source_for(self._epoch, max_iters, start=start)
         n_batches = start + len(source.batches)  # this epoch's global count
         stats = EpochStats()
+        mark = self.recompiles.mark() if self.recompiles is not None else None
         t_epoch = time.perf_counter()
         try:
             it = iter(source)
@@ -769,10 +828,15 @@ class Trainer:
                         else (self._epoch, next_batch)
                     )
                     self.save_checkpoint(epoch=epoch, next_batch=next_batch)
+                if self.recompiles is not None:
+                    self.recompiles.step(f"epoch{self._epoch}")
                 if stats.t_first_iter == 0.0:
                     stats.t_first_iter = time.perf_counter() - t_epoch
         finally:
             source.close()
+        if mark is not None:
+            stats.recompiles = self.recompiles.since(mark)
+            self.obs.count("recompile/misses", stats.recompiles["misses"])
         stats.pipeline = source.stats()
         stats.t_wall = time.perf_counter() - t_epoch
         if self.obs.enabled:

@@ -276,11 +276,16 @@ def test_meta_model_has_init_params_shapes_and_refuses_the_kernel():
     assert [(n, p.shape, p.dtype) for n, p in real.named_parameters()] == \
         [(n, p.shape, p.dtype) for n, p in meta.named_parameters()]
     assert all(p.device.type == "meta" for p in meta.parameters())
+    # on meta the kernel's wrapper returns its output's shape, launches
+    # nothing, and refuses what the kernel would refuse
     q = torch.empty(1, 4, 32, device="meta")
     k = torch.empty(1, 8, 4, 32, device="meta")
     n = torch.empty(1, dtype=torch.int32, device="meta")
-    with pytest.raises(ValueError, match="meta"):
-        fd.flash_decode(q, k, k, n)
+    before = dict(fd.LAUNCHES)
+    out = fd.flash_decode(q, k, k, n)
+    assert out.is_meta and out.shape == (1, 4, 32) and fd.LAUNCHES == before
+    with pytest.raises(ValueError, match="do not match"):
+        fd.flash_decode(q, k[..., :16], k, n)
 
 
 # --------------------------------------------------------------------------- #

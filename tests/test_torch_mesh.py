@@ -334,8 +334,10 @@ def test_epoch_stats_steady_step_matches_jax(ds, tds):
     jtr = Trainer(ds, GNNSpec(agg_backend="jnp", **_kw(ds)), TrainConfig(**BASE))
     ttr = t_trainer.Trainer(tds, TGNNSpec(**_kw(tds)), _cfg(0), device="cpu")
     jst, tst = jtr.train_epoch(max_iters=2), ttr.train_epoch(max_iters=2)
-    jfields = {f.name for f in dataclasses.fields(jst)} - {"recompiles"}
+    # the same fields, ``recompiles`` included (empty without tracing)
+    jfields = {f.name for f in dataclasses.fields(jst)}
     assert {f.name for f in dataclasses.fields(tst)} == jfields
+    assert jst.recompiles == tst.recompiles == {}
     for st in (jst, tst, t_trainer.EpochStats(iters=tst.iters[:1],
                                               t_wall=0.5, t_first_iter=0.5),
                t_trainer.EpochStats(t_wall=0.25)):

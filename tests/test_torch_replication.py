@@ -36,7 +36,6 @@ from repro.graph.sampling import sample_minibatch
 from repro.models.gnn import GNNSpec, init_gnn_params
 from repro.models.gnn.layers import gnn_forward
 from repro.runtime import plan_signature as j_plan_signature
-from repro.testing import given, settings, st
 from repro.train.loss import masked_softmax_xent
 from repro.train.plan_io import load_features, load_labels, plan_to_device
 from repro.train.trainer import TrainConfig, Trainer
@@ -54,6 +53,7 @@ from repro_torch.runtime.signature import plan_signature
 from repro_torch.train import plan_io as t_plan_io
 from repro_torch.train import trainer as t_trainer
 from repro_torch.train.loss import masked_softmax_xent as t_xent
+from repro_torch.testing import given, settings, st
 
 NDEV = 4
 BUDGET = 0.10  # tiny graph: a 5% budget replicates too few rows to exercise

@@ -26,6 +26,8 @@ expert-local MoE, held on the CPU against the JAX package.
   for all ten configs; Mamba2 and Hymba build their slices and caches on a
   model axis (``tests/test_torch_tp_train.py`` serves and trains them
   there).
+* The dry run (``launch/dryrun.py::serve_pass``): at each rank's mesh and
+  coordinate, shapes only, the rank's collectives and flops exactly.
 * MoE: the port's ``moe_apply_shard_map`` on the ranks against JAX's under
   ``shard_map`` on a (2, 2) mesh of 4 forced host devices (one
   subprocess), 2e-4 / 2e-5, at the reference test's capacity 8.0 and at
@@ -62,7 +64,7 @@ from repro_torch import serve
 from repro_torch.configs import get_arch, list_archs
 from repro_torch.kernels.flash_decode import ref as fd_ref
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch import shapes, sharding, spmd
+from repro_torch.launch import dryrun, shapes, sharding, spmd
 from repro_torch.launch.input_specs import input_specs
 from repro_torch.models.transformer import blocks as tb
 from repro_torch.models.transformer import layers as tlayers
@@ -658,3 +660,38 @@ def test_moe_shard_map_needs_a_mesh_and_divisible_experts():
                          3)
     assert torch.isfinite(out["step_logits"]).all()
     assert tb.check_mesh(cfg, mesh) is None
+
+
+# --------------------------------------------------------------------- #
+# the dry run's shape-only pass against the ranks that ran
+# --------------------------------------------------------------------- #
+def _meta(a):
+    """A ``meta`` tensor of a numpy array's shape and dtype (None stays)."""
+    if a is None:
+        return None
+    return torch.empty(a.shape, dtype=torch.as_tensor(a[:0]).dtype,
+                       device="meta")
+
+
+def meta_serve(cfg, mesh, prompts, patches, new):
+    """``dryrun.serve_pass`` at a rank's mesh and coordinate, on ``meta``
+    tensors of the real prompts' and patches' shapes."""
+    return dryrun.serve_pass(cfg, mesh, _meta(prompts), new, _meta(patches))
+
+
+@pytest.mark.parametrize("case", SERVE_CASES)
+def test_dry_run_predicts_each_serving_ranks_collectives_and_flops(runs, case):
+    """For each rank of the launch, ``dryrun.serve_pass`` at its mesh and
+    coordinate, shapes only, counts its collectives (calls and result
+    bytes by axis and kind) and its ``FlopCounterMode`` flops exactly: the
+    CPU rank's count holds the decode kernel's plain version, whose
+    products are the kernel's count from the cache shapes that the dry run
+    adds."""
+    _, cfg = _cfgs(case)
+    prompts = serve.make_prompts(cfg, B, S, 1)
+    patches = serve.make_patches(cfg, B, 1)
+    for out in runs.serve[case]:
+        mesh = mesh_mod.abstract_mesh(MESH, coords=out["coords"])
+        pred = meta_serve(cfg, mesh, prompts, patches, NEW)
+        assert pred["collectives"] == out["collectives"], out["coords"]
+        assert pred["flops"] == out["flops"] > 0, out["coords"]

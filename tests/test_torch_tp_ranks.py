@@ -23,10 +23,10 @@ from repro_torch.models.transformer.model import _flatten, _unflatten
 def serve_cases_rank(device, mesh_shape, cases: list) -> list:
     """Per case (``cfg``, ``np_params`` or None for the weights drawn from
     seed 0, ``prompts``, ``patches``, ``new``), ``serve.serve_rank``'s
-    results on this rank."""
+    results on this rank, its flops counted."""
     return [serve.serve_rank(device, c["cfg"], mesh_shape, c["new"],
                              prompts=c["prompts"], patches=c["patches"],
-                             np_params=c["np_params"])
+                             np_params=c["np_params"], count_flops=True)
             for c in cases]
 
 
@@ -35,11 +35,11 @@ def train_cases_rank(device, cases: list, steps: int) -> list:
     ``np_params`` or None for the weights drawn from seed 0, ``terms``, the
     gradient terms to keep, ``record``: whether to build the roofline
     record): ``shapes.train_rank``'s results on this rank after ``steps``
-    AdamW steps, its slices kept."""
+    AdamW steps, its slices kept, its first step's flops counted."""
     return [shapes.train_rank(device, c["cfg"], c["mesh"], steps,
                               data=c["data"], np_params=c["np_params"],
                               grad_terms=c["terms"], keep_params=True,
-                              record=c["record"])
+                              record=c["record"], count_flops=True)
             for c in cases]
 
 

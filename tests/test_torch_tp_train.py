@@ -35,6 +35,9 @@ package.
 * Serve: Mamba2 and Hymba prefill and 4 decode steps at (2, 2) against the
   JAX package's unsharded serve (1e-4, equal tokens; Hymba's 16-row ring
   sharded by sequence).
+* The dry run (``launch/dryrun.py``): at each rank's mesh and coordinate,
+  shapes only, the train step's and the serve run's collectives and flops
+  exactly.
 * In process: ``opt_state_specs`` equal to the JAX ``param_specs(cfg,
   opt_sds, mesh)`` for all ten configs on the 16 x 16 and 2 x 16 x 16
   meshes; a (1, 1) mesh trains bitwise as the unsharded step for all ten
@@ -63,7 +66,7 @@ from repro.train import optimizer as j_opt
 from repro_torch import serve
 from repro_torch.configs import list_archs
 from repro_torch.launch import mesh as mesh_mod
-from repro_torch.launch import sharding, shapes, spmd
+from repro_torch.launch import dryrun, sharding, shapes, spmd
 from repro_torch.models.transformer import model as tm
 from repro_torch.models.transformer.config import ArchConfig
 from repro_torch.train import optimizer as t_opt
@@ -71,7 +74,7 @@ from test_torch_lm_train import jax_tree
 from test_torch_tp import B as SERVE_B
 from test_torch_tp import S as SERVE_S
 from test_torch_tp import NEW as SERVE_NEW
-from test_torch_tp import _jax_serve
+from test_torch_tp import _jax_serve, _meta, meta_serve
 from test_torch_tp_ranks import serve_cases_rank, train_cases_rank
 
 LR, STEPS = 1e-3, 2
@@ -502,3 +505,36 @@ def test_moe_loss_and_aux_trajectories_match_jax(runs):
     # full width is the setup's)
     assert losses[-1] < 0.01 * losses[0]
     assert all(0.95 < a < 1.1 for a in auxes), auxes
+
+
+# --------------------------------------------------------------------- #
+# the dry run's shape-only pass against the ranks that ran
+# --------------------------------------------------------------------- #
+@pytest.mark.parametrize("case", list(CASES))
+def test_dry_run_predicts_each_ranks_collectives_and_flops(runs, case):
+    """For each rank of the launch, ``dryrun.rank_pass`` of a train step at
+    its mesh and coordinate, shapes only, on the whole batch's shapes:
+    the collectives of either step (calls and result bytes by axis and
+    kind, the backward's and the data-axis gradient mean included) and the
+    first step's ``FlopCounterMode`` flops, exactly."""
+    c = runs.inputs[list(CASES).index(case)]
+    batch = {k: _meta(v) for k, v in c["data"].items()}
+    for out in runs.train[case]:
+        pred = dryrun.rank_pass(c["cfg"], "train", _rank_mesh(case, out),
+                                batch)
+        assert pred["collectives"] == out["collectives"][0], out["coords"]
+        assert pred["flops"] == out["flops"] > 0, out["coords"]
+
+
+@pytest.mark.parametrize("name", list(SERVE_CASES))
+def test_dry_run_predicts_each_ssm_serving_ranks_counts(runs, name):
+    """Mamba2 and Hymba served at (2, 2): ``dryrun.serve_pass`` at each
+    rank's coordinate counts its collectives and flops exactly."""
+    arch, over = SERVE_CASES[name]
+    _, cfg = _cfgs(arch, over)
+    prompts = serve.make_prompts(cfg, SERVE_B, SERVE_S, 1)
+    for out in runs.serve[name]:
+        mesh = mesh_mod.abstract_mesh(SERVE_MESH, coords=out["coords"])
+        pred = meta_serve(cfg, mesh, prompts, None, SERVE_NEW)
+        assert pred["collectives"] == out["collectives"], out["coords"]
+        assert pred["flops"] == out["flops"] > 0, out["coords"]
