@@ -292,9 +292,9 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               the card through ``launch/shapes.py::run_one``, for each of
               the ten configs (DeepSeek-V2-236B at 2 layers,
               ``SHAPE_LAYERS``): prefill_32k
-              (B = 1, 32768 rows; ``SHAPE_PREFILL_LAYERS`` cuts every
-              config to 4 layers, 236B's 2 whole, for the script's time
-              limit), decode_32k (one card's batch, ``card_batch``,
+              (B = 1, 32768 rows; ``SHAPE_PREFILL_LAYERS`` cuts the depth
+              of the configs whose plain flash loop would not fit the
+              phase's time), decode_32k (one card's batch, ``card_batch``,
               against seeded 32768-row caches at positions 32761-32767)
               and long_500k (B = 1, full attention windowed at 8192 rows,
               positions 524281-524287). One line a record: batch and cuts,
@@ -368,8 +368,7 @@ Phases (any failure exits non-zero; nothing is caught and continued):
               0, ``by_fn`` printed. (b) ``python -m
               repro_torch.launch.dryrun --arch smollm-135m``: the four
               input shapes on the 16 x 16 mesh, shapes only, one line a
-              record (a process started before phase 24, whose host work
-              runs beside phases 24 and 25).
+              record (a process of its own after (a), beside nothing).
 
 Launch counts are set to 0 just before each trainer run, each serve run,
 each transformer train run, each shape run and the entry point's run and
@@ -3766,14 +3765,12 @@ SHAPE_LAYERS = {"deepseek-v2-236b": 2}
 #: 528 live (1, H, 1024, 1024) float32 blocks a layer at 32768 rows, 0.16-0.7
 #: s a layer by heads (0.24 s at SmolLM's 9 heads, host-bound; NVIDIA H100
 #: 80GB HBM3 at 700 W), and
-#: a prefill runs twice (a warm call, a timed one): every config but
-#: 236B (whose 2 layers run whole) runs 4 layers (Granite's 52 would take
-#: 36 s a call; 4 keeps the script within its time limit, and each layer
-#: past the lead ones is the same)
-SHAPE_PREFILL_LAYERS = {**SHAPE_LAYERS, **{arch: 4 for arch in (
+#: a prefill runs twice (a warm call, a timed one): the
+#: attention configs run 8 layers (Granite's 52 would take 36 s a call),
+#: Hymba (a 1024-row window), Mamba2 and 236B's 2 layers run whole
+SHAPE_PREFILL_LAYERS = {**SHAPE_LAYERS, **{arch: 8 for arch in (
     "smollm-135m", "gemma-7b", "granite-20b", "phi3-mini-3.8b",
-    "musicgen-medium", "deepseek-v2-lite-16b", "llava-next-mistral-7b",
-    "hymba-1.5b", "mamba2-2.7b")}}
+    "musicgen-medium", "deepseek-v2-lite-16b", "llava-next-mistral-7b")}}
 #: a roofline share above this means the count is wrong: the step ran faster
 #: than the card's least time for it
 SHARE_LIMIT = 1.05
@@ -4495,29 +4492,16 @@ def tp_train_phase(dev, total):
                             "launch_s": t_launch, **t_parts})
 
 
-def start_dryrun():
-    """Phase 26 (b)'s process: the dry run's CLI for SmolLM-135M's four
-    input shapes on the 16 x 16 mesh, shapes only. It is started before
-    phase 24, so that its host work runs beside phases 24 and 25, and read
-    in phase 26; its output goes to a file."""
-    out = tempfile.TemporaryDirectory(prefix="dryrun-")
-    log = open(os.path.join(out.name, "log"), "w+")
-    proc = subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         "smollm-135m", "--out", out.name], stdout=log,
-        stderr=subprocess.STDOUT,
-        env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    return SimpleNamespace(proc=proc, out=out, log=log, t0=time.perf_counter())
-
-
-def recompile_dryrun_phase(papers, cfg, dev, clean, total, dry):
+def recompile_dryrun_phase(papers, cfg, dev, clean, total):
     """Phase 26. (a) Phase 4's SAGE run with ``trace_recompiles=True`` on
     the serial and the device_pipelined source, 3 epochs of 3 steps:
     losses bitwise ``clean``'s (phase 4's and phase 7's), the last epoch
     without a new step signature and the first with some, each epoch's
     ``recompiles`` and the tracer's ``by_fn`` printed; the runs' launches
-    are added to ``total``. (b) ``dry`` (``start_dryrun``'s process): it
-    ends in ``all dry-runs OK``, one line a record."""
+    are added to ``total``. (b) The dry run's CLI for SmolLM-135M's four
+    input shapes on the 16 x 16 mesh, shapes only, in a process of its own
+    once (a) is done (nothing else runs beside it): it ends in ``all
+    dry-runs OK``, one line a record."""
     from dataclasses import replace
 
     from repro_torch.models.gnn import GNNSpec
@@ -4546,12 +4530,13 @@ def recompile_dryrun_phase(papers, cfg, dev, clean, total, dry):
         del tr
     t_recompile = time.perf_counter() - t_phase
     t0 = time.perf_counter()
-    rc = dry.proc.wait(timeout=600)
-    t_wait = time.perf_counter() - t0
-    dry.log.seek(0)
-    stdout = dry.log.read()
-    dry.log.close()
-    dry.out.cleanup()
+    with tempfile.TemporaryDirectory(prefix="dryrun-") as out:
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             "smollm-135m", "--out", out], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    rc, stdout = proc.returncode, proc.stdout
     check(rc == 0 and "all dry-runs OK" in stdout,
           f"dryrun: exit {rc}\n{stdout[-4000:]}")
     records = [json.loads(line)["dryrun_record"]
@@ -4571,8 +4556,7 @@ def recompile_dryrun_phase(papers, cfg, dev, clean, total, dry):
             "roofline": r["roofline"]})
     emit("recompile_dryrun_phase", {
         "wall_s": time.perf_counter() - t_phase, "recompile_s": t_recompile,
-        "dryrun_process_s": time.perf_counter() - dry.t0,
-        "dryrun_wait_s": t_wait})
+        "dryrun_process_s": time.perf_counter() - t0})
 
 
 def main():
@@ -4755,24 +4739,16 @@ def main():
     # ---- 23. the entry points ----------------------------------------------
     entry_points_phase(dev, total)
 
-    # phase 26's dry run: host work, beside phases 24 and 25
-    dry = start_dryrun()
-    try:
-        # ---- 24. the transformer across ranks -----------------------------
-        tp_phase(dev, total)
+    # ---- 24. the transformer across ranks ---------------------------------
+    tp_phase(dev, total)
 
-        # ---- 25. the train step across ranks, Mamba2 and Hymba on a model
-        # axis
-        tp_train_phase(dev, total)
+    # ---- 25. the train step across ranks, Mamba2 and Hymba on a model axis -
+    tp_train_phase(dev, total)
 
-        # ---- 26. the recompile tracer; the dry run of the production mesh
-        recompile_dryrun_phase(papers, cfg, dev, {
-            "serial": main_losses["serial"],
-            "device_pipelined": device_pipelined_losses}, total, dry)
-    finally:
-        if dry.proc.poll() is None:
-            dry.proc.kill()
-            dry.proc.wait()
+    # ---- 26. the recompile tracer; the dry run of the production mesh -----
+    recompile_dryrun_phase(papers, cfg, dev, {
+        "serial": main_losses["serial"],
+        "device_pipelined": device_pipelined_losses}, total)
 
     emit("smoke", {"wall_s": time.perf_counter() - t_smoke, "card": CARD})
     for k, r in results.items():

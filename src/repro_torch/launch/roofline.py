@@ -27,6 +27,8 @@ Where the numbers come from (the reference reads all three off XLA's
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
@@ -134,25 +136,6 @@ def weight_bytes(model, tokens: int) -> int:
     return total
 
 
-def cache_row_bytes(cfg) -> int:
-    """Bytes of one cache row of one layer and sequence: k and v, or MLA's
-    latent and rope key; 0 for an SSM layer."""
-    item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
-    if cfg.family == "ssm":
-        return 0
-    if cfg.use_mla:
-        return item * (cfg.kv_lora_rank + cfg.qk_rope_dim)
-    return item * 2 * cfg.num_kv_heads * cfg.head_dim
-
-
-def state_bytes(cfg) -> int:
-    """Bytes of one layer's SSM state for one sequence (float32); 0 without
-    an SSM."""
-    if cfg.family not in ("ssm", "hybrid"):
-        return 0
-    return 4 * cfg.ssm_nheads * cfg.ssm_state * cfg.ssm_headdim
-
-
 def _leaves(cache: dict):
     for name, t in cache.items():
         if isinstance(t, dict):
@@ -161,11 +144,12 @@ def _leaves(cache: dict):
             yield name, t
 
 
-def _caches_bytes(kind: str, caches: list) -> int:
-    """A rank's cache term of ``step_bytes`` from its cache tensors: a
-    prefill writes each leaf it emits once; a decode reads each attention
-    leaf whole (every row valid) and writes one row of it, and reads and
-    writes each SSM state."""
+def caches_bytes(kind: str, caches: list, cache_len: int | None = None) -> int:
+    """The cache term of ``step_bytes``, from the cache tensors (one dict a
+    layer): a prefill writes each leaf it emits once; a decode reads and
+    writes each SSM ``state`` and, of each attention leaf (its rows on
+    dimension 1), reads the first ``cache_len`` rows (at most the rows the
+    leaf holds; ``None``: every row) and writes one."""
     total = 0
     for cache in caches:
         for name, t in _leaves(cache):
@@ -175,33 +159,40 @@ def _caches_bytes(kind: str, caches: list) -> int:
             elif name == "state":
                 total += 2 * n
             else:
-                total += n + n // t.shape[1]
+                row = t.element_size() * math.prod(t.shape[:1] + t.shape[2:])
+                held = t.shape[1]
+                read = held if cache_len is None else min(cache_len, held)
+                total += (read + 1) * row
     return total
 
 
 def step_bytes(model, kind: str, batch: int, rows: int,
-               cache_len: int = 0, caches: list | None = None) -> int:
+               cache_len: int | None = None, caches: list | None = None) -> int:
     """The least bytes one step moves (each input read once, each output
     written once):
 
     * train: the weights read once, the gradients written once, and AdamW's
       reads of p, g, m, v and writes of p, m, v (each in the leaf's dtype);
     * prefill over ``rows`` rows a sequence: the weights, the caches it
-      emits (the last ``attn_window`` rows when windowed) and the SSM states
-      written, the logits of the last row written;
+      emits (the last ``attn_window`` rows when windowed, and the SSM
+      states) written, the logits of the last row written;
     * decode at ``cache_len`` valid rows: the weights, each layer's cache
       read up to ``cache_len`` and one row written, the SSM states read and
       written, the logits written.
 
-    Token ids (int32) and a VLM's patch rows are read once. With ``caches``
-    (the caches a rank's prefill emitted, or the caches its decode step
-    reads: a rank of a mesh holds its slices, which ``cfg`` does not give)
-    the cache term is theirs (``_caches_bytes``) and ``cache_len`` is not
-    read; ``model`` is then the rank's slices too."""
+    Token ids (int32) and a VLM's patch rows are read once. The cache term
+    has one definition, ``caches_bytes`` over cache tensors: ``caches`` (the
+    caches the prefill emitted or the decode step reads; a rank of a mesh
+    holds its slices, which ``cfg`` does not give, and ``model`` is then
+    its slices too), else the one-card caches of ``cfg`` at ``batch`` and
+    ``rows`` (prefill) or ``cache_len`` rows (decode) on ``meta``. A decode
+    without ``cache_len`` reads every row its caches hold: the dry run's
+    decode at position ``seq_len - 1`` holds no row that is not valid."""
+    from repro_torch.models.transformer.model import init_caches
+
     cfg = model.cfg
     item = torch.finfo(getattr(torch, cfg.dtype)).bits // 8
     nc = max(1, cfg.num_codebooks)
-    L = cfg.num_layers
     tokens = batch if kind == "decode" else batch * rows
     text = rows - cfg.num_patches if kind != "decode" else 1
     inputs = 4 * batch * text * nc
@@ -212,12 +203,7 @@ def step_bytes(model, kind: str, batch: int, rows: int,
         return inputs + 9 * params
     out = item * batch * nc * cfg.vocab_size  # the last row's logits
     weights = weight_bytes(model, tokens)
-    if caches is not None:
-        cache_term = _caches_bytes(kind, caches)
-    elif kind == "prefill":
-        kept = min(rows, cfg.attn_window) if cfg.attn_window else rows
-        cache_term = L * batch * (kept * cache_row_bytes(cfg) + state_bytes(cfg))
-    else:
-        cache_term = L * batch * ((cache_len + 1) * cache_row_bytes(cfg)
-                                  + 2 * state_bytes(cfg))
-    return inputs + weights + cache_term + out
+    if caches is None:
+        context = rows if kind == "prefill" else cache_len or 0
+        caches = init_caches(cfg, batch, context, "meta")
+    return inputs + weights + caches_bytes(kind, caches, cache_len) + out

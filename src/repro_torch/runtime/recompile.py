@@ -9,9 +9,11 @@ signature of a step callable: the (shape, dtype, device) of every tensor
 (and numpy array) it is passed, found through lists, tuples, dicts and
 dataclasses, plus the value of every other argument (``call_signature``).
 ``Traced(fn)`` wraps a callable with the set of signatures it has been
-called with and exposes its size as ``_cache_size()``, so the tracer reads
-a traced callable exactly as the reference reads a jitted one; ``register``
-raises ``TypeError`` on any other callable, as the reference's does. The key
+called with (a ``SignatureSet``, whose ``note`` adds a key the caller
+takes itself) and exposes its size as ``_cache_size()``, so the tracer
+reads a traced callable exactly as the reference reads a jitted one;
+``register`` raises ``TypeError`` on any other callable, as the
+reference's does. The key
 is read from the arguments themselves, not from
 ``runtime/signature.py::plan_signature``: the tracer is the runtime witness
 of the signature contract, not a restatement of it.
@@ -24,8 +26,8 @@ The steady-state contract (DESIGN.md §6) is the reference's: with
 high-water-mark repadding and signature-keyed delivery, an epoch at fixed
 caps sees new signatures on its first batches only, and none once warm.
 The trainer exposes the per-epoch counts in ``EpochStats.recompiles`` when
-``TrainConfig.trace_recompiles`` is set; off, nothing is wrapped and it
-costs nothing.
+``TrainConfig.trace_recompiles`` is set; off, nothing is wrapped or
+noted, and the step runs as it does without the tracer.
 """
 from __future__ import annotations
 
@@ -63,26 +65,38 @@ def call_signature(args: tuple, kwargs: dict) -> tuple:
     return (_sig(args), tuple((k, _sig(kwargs[k])) for k in sorted(kwargs)))
 
 
-class Traced:
-    """A callable that records the distinct signatures it is called with
-    (``call_signature``) and exposes their count as ``_cache_size()``. Safe
-    to call from producer threads."""
+class SignatureSet:
+    """The distinct call signatures noted (``note``), their count as
+    ``_cache_size()``: what the tracer reads. The trainer notes its step's
+    key itself, since it stages and runs a mesh step's parts one at a time
+    (one part's device inputs alive at once) where the reference's step is
+    one call. Safe to use from producer threads."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self):
         self.signatures: set = set()
         self._lock = threading.Lock()
-        self.__wrapped__ = fn
 
-    def __call__(self, *args, **kwargs):
-        key = call_signature(args, kwargs)
+    def note(self, key) -> None:
         with self._lock:
             self.signatures.add(key)
-        return self.fn(*args, **kwargs)
 
     def _cache_size(self) -> int:
         with self._lock:
             return len(self.signatures)
+
+
+class Traced(SignatureSet):
+    """A callable that notes the signature of every call
+    (``call_signature``) and then calls ``fn``."""
+
+    def __init__(self, fn):
+        super().__init__()
+        self.fn = fn
+        self.__wrapped__ = fn
+
+    def __call__(self, *args, **kwargs):
+        self.note(call_signature(args, kwargs))
+        return self.fn(*args, **kwargs)
 
 
 def cache_size(fn) -> int | None:

@@ -76,7 +76,12 @@ from repro_torch.runtime.plan_source import (
     finalize_cache_plan,
     make_plan_source,
 )
-from repro_torch.runtime.recompile import RecompileTracer, Traced
+from repro_torch.runtime.recompile import (
+    RecompileTracer,
+    SignatureSet,
+    Traced,
+    call_signature,
+)
 from repro_torch.runtime.signature import SignatureCache
 from repro_torch.sampler import DeviceSampler
 from repro_torch.train import optimizer as opt_lib
@@ -479,11 +484,11 @@ class Trainer:
 
     def _set_recompile_tracer(self) -> None:
         """With ``trace_recompiles``, the tracer (``self.recompiles``) and
-        the traced step callables by the reference's names: ``step`` and
+        the step's signature sets by the reference's names: ``step`` and
         ``cached_step`` (the 1-D path, uncached and served from the cache),
-        and on the mesh ``mesh_step`` and ``mesh_cached_step``; each is
-        ``_grads`` behind its own signature set (``self._traced``). Off,
-        ``self.recompiles`` is None and the step calls ``_grads`` itself."""
+        and on the mesh ``mesh_step`` and ``mesh_cached_step``
+        (``self._traced``). Off, ``self.recompiles`` is None and nothing is
+        noted."""
         self.recompiles = None
         self._traced: dict = {}
         if not self.cfg.trace_recompiles:
@@ -493,27 +498,25 @@ class Trainer:
         if self.cfg.num_replicas >= 1:
             names += ["mesh_step", "mesh_cached_step"]
         for name in names:
-            self._traced[name] = Traced(self._grads)
+            self._traced[name] = SignatureSet()
             self.recompiles.register(name, self._traced[name])
 
     # ------------------------------------------------------------------ #
-    def _stage(self, part) -> tuple:
+    def _replica_grads(self, part, keys: list | None = None):
         """Stage one part (a ``PlanBatch``: the 1-D step's batch or one
-        replica's): ``(feats, plan dict, labels, cached)`` on the device,
-        ``cached`` whether a cache plan serves its input."""
-        return (*stage_batch(
+        replica's) and run its forward, masked loss and gradients. With a
+        cache plan ``feats`` is the miss block and the input is served from
+        the one resident block; every part shares the one ``rep_block``.
+        With ``keys``, the staged part's ``call_signature`` is appended."""
+        feats_d, plan_arrays, labels_d = stage_batch(
             part.plan, part.feats, part.labels, self.device, part.cache_plan,
             with_halves=self.cfg.shuffle_overlap,
             num_replicated=self._num_replicated(),
-        ), part.cache_plan is not None)
-
-    def _replica_grads(self, feats_d, plan_arrays, labels_d, cached: bool):
-        """One staged part's forward, masked loss and gradients. With a
-        cache plan ``feats_d`` is the miss block and the input is served
-        from the one resident block; every part shares the one
-        ``rep_block``."""
+        )
+        if keys is not None:
+            keys.append(call_signature((feats_d, plan_arrays, labels_d), {}))
         layers = list(self.model.layers)
-        if cached:
+        if part.cache_plan is not None:
             logits = gnn_forward_cached(self.spec, layers, self.cache_block,
                                         feats_d, plan_arrays,
                                         rep_block=self.rep_block)
@@ -527,37 +530,32 @@ class Trainer:
 
     def _step_grads(self, parts: list):
         """The step's ``(loss, acc, grads)`` over ``parts``: the 1-D step's
-        one batch, or a mesh batch's R replica parts, each staged
-        (``_stage``), then ``_grads`` of the staged parts (with
-        ``trace_recompiles``, through the traced callable of the path's
-        name)."""
-        staged = [self._stage(part) for part in parts]
-        if self.recompiles is None:
-            return self._grads(staged)
-        name = "cached_step" if staged[0][3] else "step"
-        if self.cfg.num_replicas >= 1:
-            name = "mesh_" + name
-        return self._traced[name](staged)
-
-    def _grads(self, staged: list):
-        """``(loss, acc, grads)`` over the staged parts: each runs the same
-        ``_replica_grads``; the gradients, losses and accuracies are summed
-        left to right in replica order and divided by R (the sim statement
-        of the spmd psum's fixed order). A sum of one term and a division
-        by 1 are exact, so the R = 1 mesh is bitwise the 1-D step; the
-        division is skipped there."""
+        one batch, or a mesh batch's R replica parts. Each part runs the
+        same ``_replica_grads``; the gradients, losses and accuracies are
+        summed left to right in replica order and divided by R (the sim
+        statement of the spmd psum's fixed order). A sum of one term and a
+        division by 1 are exact, so the R = 1 mesh is bitwise the 1-D step;
+        the division is skipped there. With ``trace_recompiles`` the step's
+        signature (its staged parts' in replica order) is noted under the
+        path's name: the key of the one call the reference's step is."""
+        keys = None if self.recompiles is None else []
         grads = loss = acc = None
-        for part in staged:
-            loss_r, acc_r, grads_r = self._replica_grads(*part)
+        for part in parts:
+            loss_r, acc_r, grads_r = self._replica_grads(part, keys)
             if grads is None:
                 loss, acc, grads = loss_r, acc_r, grads_r
             else:
                 loss, acc = loss + loss_r, acc + acc_r
                 grads = [a + b for a, b in zip(grads, grads_r)]
-        if len(staged) > 1:
-            num = len(staged)
+        if len(parts) > 1:
+            num = len(parts)
             loss, acc = loss / num, acc / num
             grads = [g / num for g in grads]
+        if keys is not None:
+            name = "step" if parts[0].cache_plan is None else "cached_step"
+            if self.cfg.num_replicas >= 1:
+                name = "mesh_" + name
+            self._traced[name].note(tuple(keys))
         return loss, acc, grads
 
     def _dispatch_step(self, parts: list):

@@ -1,10 +1,9 @@
 """splint over the port (``repro_torch.analysis``): each rule fires on a
 PyTorch fixture tree with known violations (exact rule ids and file:line
 spans), the deliberate exceptions are held both ways, and the real tree
-runs clean end to end, in process and through the CLI's exit codes. The
+runs clean end to end through the CLI's main, whose exit codes are held. The
 cases of ``tests/test_analysis.py``, retargeted."""
 import ast
-import subprocess
 import sys
 import textwrap
 from pathlib import Path
@@ -555,17 +554,13 @@ def test_every_exemption_carries_a_reason():
 
 
 def test_cli_clean_run_and_exit_codes(tmp_path, capsys):
-    """``python -m repro_torch.analysis`` exits 2 for an unknown family
-    (its own process), and in process 1 for a tree with a finding and 0
-    once the finding is in a baseline."""
+    """``python -m repro_torch.analysis``'s ``main`` (whose return value is
+    the exit code) gives 2 for an unknown family, 1 for a tree with a
+    finding and 0 once the finding is in a baseline."""
     from repro_torch.analysis.__main__ import main
 
-    proc = subprocess.run(
-        [sys.executable, "-m", "repro_torch.analysis", "--select", "BOGUS"],
-        capture_output=True, text=True, cwd=REPO,
-        env={"PYTHONPATH": str(SRC), "PATH": "/usr/bin:/bin"})
-    assert proc.returncode == 2, proc.stdout + proc.stderr
-    assert "unknown rule families: BOGUS" in proc.stderr
+    assert main(["--root", str(tmp_path), "--select", "BOGUS"]) == 2
+    assert "unknown rule families: BOGUS" in capsys.readouterr().err
     _write(tmp_path, "src/repro_torch/faults/bad.py", """\
         def f():
             try:

@@ -7,9 +7,10 @@ torch thread.
 
 * For each of the four plan sources, every epoch's ``misses`` and
   ``miss_steps`` equal the JAX ``Trainer``'s (``repro.runtime.recompile.
-  RecompileTracer`` over its jit caches, emptied first with
-  ``jax.clear_caches()``: the device sampler's jit is module-level, so an
-  earlier test in the process would have warmed it).
+  RecompileTracer`` over its jit caches; the device sampler's jit,
+  ``repro.sampler.engine._sample_device``, is module-level, so its cache is
+  emptied first: an earlier test in the process would have warmed it. The
+  step's jits are the trainer's own).
 * A warm epoch has no miss, the warm-up has some.
 * ``trace_recompiles=True`` leaves every loss bit as it was.
 * ``register`` raises on a callable that is not traced; the signature
@@ -18,13 +19,13 @@ torch thread.
 """
 import dataclasses
 
-import jax
 import numpy as np
 import pytest
 import torch
 
 from repro.graph.datasets import make_dataset
 from repro.models.gnn import GNNSpec
+from repro.sampler.engine import _sample_device
 from repro.train.trainer import TrainConfig, Trainer
 from repro_torch.graph.datasets import make_dataset as t_make_dataset
 from repro_torch.models.gnn import GNNSpec as TGNNSpec
@@ -68,7 +69,7 @@ def _port(tds, source, trace=True):
 @pytest.mark.parametrize("source", SOURCES)
 def test_misses_match_the_jax_tracer(data, source):
     ds, tds = data
-    jax.clear_caches()
+    _sample_device.clear_cache()
     jtr = Trainer(ds, GNNSpec(**_spec_kw(ds)), TrainConfig(
         plan_source=source, sampler_backend="jnp", trace_recompiles=True,
         **CFG))

@@ -74,7 +74,7 @@ from test_torch_lm_train import jax_tree
 from test_torch_tp import B as SERVE_B
 from test_torch_tp import S as SERVE_S
 from test_torch_tp import NEW as SERVE_NEW
-from test_torch_tp import _jax_serve, _meta, meta_serve
+from test_torch_tp import _jax_serve, _meta, by_model_coordinate, meta_serve
 from test_torch_tp_ranks import serve_cases_rank, train_cases_rank
 
 LR, STEPS = 1e-3, 2
@@ -513,15 +513,17 @@ def test_moe_loss_and_aux_trajectories_match_jax(runs):
 @pytest.mark.parametrize("case", list(CASES))
 def test_dry_run_predicts_each_ranks_collectives_and_flops(runs, case):
     """For each rank of the launch, ``dryrun.rank_pass`` of a train step at
-    its mesh and coordinate, shapes only, on the whole batch's shapes:
-    the collectives of either step (calls and result bytes by axis and
-    kind, the backward's and the data-axis gradient mean included) and the
-    first step's ``FlopCounterMode`` flops, exactly."""
+    its mesh and model coordinate (``by_model_coordinate``), shapes only,
+    on the whole batch's shapes: the collectives of either step (calls and
+    result bytes by axis and kind, the backward's and the data-axis
+    gradient mean included) and the first step's ``FlopCounterMode``
+    flops, exactly."""
     c = runs.inputs[list(CASES).index(case)]
     batch = {k: _meta(v) for k, v in c["data"].items()}
-    for out in runs.train[case]:
-        pred = dryrun.rank_pass(c["cfg"], "train", _rank_mesh(case, out),
-                                batch)
+    for out, pred in by_model_coordinate(
+            runs.train[case], lambda coords: dryrun.rank_pass(
+                c["cfg"], "train", _rank_mesh(case, {"coords": coords}),
+                batch)):
         assert pred["collectives"] == out["collectives"][0], out["coords"]
         assert pred["flops"] == out["flops"] > 0, out["coords"]
 
@@ -529,12 +531,13 @@ def test_dry_run_predicts_each_ranks_collectives_and_flops(runs, case):
 @pytest.mark.parametrize("name", list(SERVE_CASES))
 def test_dry_run_predicts_each_ssm_serving_ranks_counts(runs, name):
     """Mamba2 and Hymba served at (2, 2): ``dryrun.serve_pass`` at each
-    rank's coordinate counts its collectives and flops exactly."""
+    rank's model coordinate (``by_model_coordinate``) counts its
+    collectives and flops exactly."""
     arch, over = SERVE_CASES[name]
     _, cfg = _cfgs(arch, over)
     prompts = serve.make_prompts(cfg, SERVE_B, SERVE_S, 1)
-    for out in runs.serve[name]:
-        mesh = mesh_mod.abstract_mesh(SERVE_MESH, coords=out["coords"])
-        pred = meta_serve(cfg, mesh, prompts, None, SERVE_NEW)
+    for out, pred in by_model_coordinate(runs.serve[name], lambda c: meta_serve(
+            cfg, mesh_mod.abstract_mesh(SERVE_MESH, coords=c), prompts, None,
+            SERVE_NEW)):
         assert pred["collectives"] == out["collectives"], out["coords"]
         assert pred["flops"] == out["flops"] > 0, out["coords"]
