@@ -1,0 +1,6 @@
+"""``gss_bwd_w``'s share of its roofline over the traced segment (%)."""
+from gsbench.roofline import share
+
+
+def read(rec):
+    return share(rec, "gss_bwd_w")
