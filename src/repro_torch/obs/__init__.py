@@ -15,7 +15,13 @@ The span and counter names are the JAX package's (``plan/build``,
 ``plan/sample``, ``plan/split``, ``plan/load``, ``plan/repad``,
 ``plan/queue_dwell``, ``step/wait``, ``step/stage``, ``step/device``,
 ``sig/hit|miss``, ``fault/*``, ``hwm/*``), and a trace written by either
-package reads with the other's report. All spans are on the host's clock.
+package reads with the other's report. The port adds the trainer step's
+phases inside ``step/stage`` (``step/pack``, ``step/forward``,
+``step/backward``, ``step/optimizer``), its accounting after the step
+(``step/stats``) and the counter ``plan/h2d_bytes`` (the bytes the staging
+copies carry). All spans are on the host's ``perf_counter`` clock; with a
+tracer attached each also opens a ``torch.profiler.record_function`` range
+of its name, so a profiler's trace shows them on the device trace's clock.
 """
 from __future__ import annotations
 

@@ -13,8 +13,13 @@ queue dwell, staging and device step are linked by flow arrows.
   * **No cross-thread contention on the hot path.** Each thread owns a ring;
     the tracer's lock is taken on a thread's first event and at export.
     Rings are bounded: overflow drops the oldest events and counts them.
-  * **Host clock only.** A span around device work ends when the host
-    returns; the trainer's ``step/device`` span ends at the step's one sync.
+  * **Host clock, and the profiler's.** A span around device work ends
+    when the host returns; the trainer's ``step/device`` span ends at the
+    step's one sync. With a tracer attached, a span also opens a
+    ``torch.profiler.record_function`` range of its name, entered and
+    exited with it, so a ``torch.profiler`` trace holds the program's
+    phases on the device trace's own clock, each kernel under the range
+    that launched it. With no tracer, no range is entered.
 
 Flows link a producer's ``plan/build`` span to the consumer ``step`` that
 trains on its plan, keyed by the plan's ``(epoch, batch)``.
@@ -26,6 +31,8 @@ import threading
 import time
 from collections import deque
 from dataclasses import dataclass
+
+from torch.profiler import record_function
 
 __all__ = ["Span", "SpanEvent", "Tracer"]
 
@@ -46,26 +53,37 @@ class SpanEvent:
 
 class Span:
     """Context manager that times a region and records it when a tracer is
-    attached; ``duration`` is valid after ``__exit__`` either way."""
+    attached, inside a profiler range of its name; ``duration`` is valid
+    after ``__exit__`` either way."""
 
-    __slots__ = ("_tracer", "name", "attrs", "t0", "t1")
+    __slots__ = ("_tracer", "name", "attrs", "t0", "t1", "_range")
 
     def __init__(self, tracer: "Tracer | None", name: str, attrs=None):
         self._tracer = tracer
         self.name = name
         self.attrs = attrs
         self.t0 = self.t1 = 0.0
+        self._range = None
 
     def __enter__(self) -> "Span":
-        if self._tracer is not None:
-            self._tracer._enter()
+        if self._tracer is None:
+            self.t0 = time.perf_counter()
+            return self
+        self._tracer._enter()
+        # the range's own cost is inside the span, so a parent span's
+        # children account for it
         self.t0 = time.perf_counter()
+        self._range = record_function(self.name)
+        self._range.__enter__()
         return self
 
     def __exit__(self, *exc) -> None:
+        if self._tracer is None:
+            self.t1 = time.perf_counter()
+            return
+        self._range.__exit__(*exc)
         self.t1 = time.perf_counter()
-        if self._tracer is not None:
-            self._tracer._exit(self)
+        self._tracer._exit(self)
 
     @property
     def duration(self) -> float:

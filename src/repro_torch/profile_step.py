@@ -17,12 +17,16 @@ step, then profiles an epoch of ``--steps`` steps with CPU and CUDA
 activities (a pipelined epoch starts with its pipeline filling). Prints the
 top operators by device time, then one JSON line: the host wall time of the
 profiled steps, the device time summed over kernels and copies, the device
-idle share over the window, a step's top-level torch calls and device
-operations (kernels, copies, memsets), the device time of torch's indexing
-adjoint (``indexing_backward_kernel``) and of the port's shuffle adjoint
+idle share over the window (one less the union of the device's kernel, copy
+and memset intervals over the wall: work that overlaps counts once), a
+step's top-level torch calls and device operations (kernels, copies,
+memsets), the device time of torch's indexing adjoint
+(``indexing_backward_kernel``) and of the port's shuffle adjoint
 (``shuffle_bwd``), the host-to-device copies of the window by kind
-(``pageable`` or ``pinned``: count and device ms), and the steps' wait,
-staging and sync times. ``--shapes`` records input
+(``pageable`` or ``pinned``: count and device ms), and each step's wait,
+staging and sync times, the phases of its staging (pack, forward, backward,
+optimizer), its accounting and the bytes its staging copies carried.
+``--shapes`` records input
 shapes (at some host cost) and splits the indexing adjoints' device time by
 the shapes of their ``index_put`` calls, which tells the shuffle's (values
 (P, P, S, F)) from the other gathers'. Needs a card.
@@ -31,6 +35,8 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 
 import torch
@@ -79,6 +85,32 @@ def h2d_copies(events) -> dict:
     return out
 
 
+#: the trace categories of the device's own work
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def device_busy_us(prof) -> float:
+    """The union of the device's kernel, copy and memset intervals in the
+    profile (us), read from its Chrome trace."""
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.unlink(path)
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0)))
+                   for e in events
+                   if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS)
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--model", default="sage", choices=("sage", "gcn", "gat"))
@@ -125,6 +157,7 @@ def main(argv=None) -> int:
         e.self_device_time_total for e in events
         if e.device_type == torch.autograd.DeviceType.CUDA
     )
+    busy_us = device_busy_us(prof)
     # top-level torch calls on the host, and what the card ran: kernels,
     # copies and memsets
     calls = sum(1 for e in prof.events() if e.cpu_parent is None
@@ -148,7 +181,8 @@ def main(argv=None) -> int:
         "steps": len(stats.iters),
         "wall_ms": 1e3 * wall,
         "device_ms": device_us / 1e3,
-        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "device_busy_ms": busy_us / 1e3,
+        "device_idle_share": 1.0 - busy_us / 1e6 / wall,
         "host_stage_ms": 1e3 * sum(
             i.t_sample + i.t_split + i.t_load for i in stats.iters
         ),
@@ -160,6 +194,9 @@ def main(argv=None) -> int:
         "h2d_copies": h2d_copies(events),
         "wait_ms": [1e3 * i.t_wait for i in stats.iters],
         "stage_ms": [1e3 * i.t_stage for i in stats.iters],
+        **{f"{k}_ms": [1e3 * getattr(i, f"t_{k}") for i in stats.iters]
+           for k in ("pack", "forward", "backward", "optimizer", "stats")},
+        "h2d_bytes": [i.h2d_bytes for i in stats.iters],
         "device_sync_ms": [1e3 * i.t_device for i in stats.iters],
         "device": torch.cuda.get_device_name(0),
     }}))

@@ -180,12 +180,18 @@ def pack_host(plan: SplitPlan, labels: np.ndarray, pin: bool,
                               num_replicated), pin)
 
 
-def _pack(fields: list, pin: bool):
+def _layout(fields: list) -> tuple:
+    """``(spans, bytes)`` of the packed buffer of ``fields``."""
     spans, at = [], 0
     for layer, key, a in fields:
         spans.append((layer, key, at, a.dtype, a.shape))
         at += -(-a.nbytes // ALIGN) * ALIGN
-    buf = torch.empty(at, dtype=torch.uint8, pin_memory=pin)
+    return spans, at
+
+
+def _pack(fields: list, pin: bool):
+    spans, nbytes = _layout(fields)
+    buf = torch.empty(nbytes, dtype=torch.uint8, pin_memory=pin)
     view = buf.numpy()
     for (_, _, off, _, _), (_, _, a) in zip(spans, fields):
         view[off:off + a.nbytes] = a.reshape(-1).view(np.uint8)
@@ -213,7 +219,8 @@ def pad_rows(feats: torch.Tensor, rows: int) -> torch.Tensor:
 
 def stage_batch(plan: SplitPlan, feats: torch.Tensor, labels: np.ndarray,
                 device, cache_plan: CachePlan | None = None,
-                with_halves: bool = False, num_replicated: int = 0) -> tuple:
+                with_halves: bool = False, num_replicated: int = 0,
+                counts: dict | None = None) -> tuple:
     """One delivered batch on ``device``: ``(feats, plan dict, labels
     (P, N_0))``. ``feats`` is padded on the device to the plan's input
     height, or with a cache plan to its miss width (the (P, M, F) miss block
@@ -225,11 +232,11 @@ def stage_batch(plan: SplitPlan, feats: torch.Tensor, labels: np.ndarray,
     (``gather_features``/``gather_miss_features`` with ``pin=True``); a
     pageable block raises. Elsewhere, the plain per-array copies. A plan
     whose replicated region is not ``num_replicated`` rows high raises on
-    either path.
+    either path. ``counts`` is ``stage_fields``'.
     """
     return stage_fields(
         batch_fields(plan, labels, cache_plan, with_halves, num_replicated),
-        feats, staged_rows(plan, cache_plan), device, plan.num_layers,
+        feats, staged_rows(plan, cache_plan), device, plan.num_layers, counts,
     )
 
 
@@ -242,13 +249,17 @@ def staged_rows(plan: SplitPlan, cache_plan: CachePlan | None = None) -> int:
 
 
 def stage_fields(fields: list, feats: torch.Tensor, rows: int, device,
-                 num_layers: int) -> tuple:
+                 num_layers: int, counts: dict | None = None) -> tuple:
     """``stage_batch`` on its ``batch_fields`` (or any slice of each, as a
     spmd rank stages its split): ``(feats padded to rows, plan dict,
     labels)`` on ``device``, by the two pinned copies on a card and the
-    plain per-array copies elsewhere."""
+    plain per-array copies elsewhere. With ``counts``, the bytes the two
+    copies carry (the packed buffer's and the feature block's; the same
+    count off the card) are added to ``counts["h2d_bytes"]``."""
     device = torch.device(device)
     if device.type != "cuda":
+        if counts is not None:
+            counts["h2d_bytes"] += _layout(fields)[1] + feats.nbytes
         items = [(place, key, torch.as_tensor(a, device=device))
                  for place, key, a in fields]
         labels_d = items.pop()[2]
@@ -261,6 +272,8 @@ def stage_fields(fields: list, feats: torch.Tensor, rows: int, device,
             "(gather it with gather_features(pin=True))"
         )
     buf, spans = _pack(fields, pin=True)
+    if counts is not None:
+        counts["h2d_bytes"] += buf.nbytes + feats.nbytes
     plan_arrays, labels_d = unpack(
         buf.to(device, non_blocking=True), spans, num_layers
     )

@@ -33,7 +33,13 @@ The loss/accuracy transfer at the end of the step is its one sync point.
 ``train_epoch`` records the spans of the JAX package's loop
 (``step/wait``, ``step/stage``, ``step/device``) through
 ``repro_torch.obs`` when ``obs_trace`` is on, and the pipelined sources run
-under the supervision of ``repro_torch.faults``.
+under the supervision of ``repro_torch.faults``. Inside ``step/stage`` each
+part opens ``step/pack`` (``stage_batch``), ``step/forward`` (the forward,
+loss and accuracy) and ``step/backward``, and the step ``step/optimizer``
+(the mesh's gradient average, the update and its guard); ``step/stats``
+times the step's accounting (``_iter_stats``). Their durations, and the
+bytes the staging copies carry, land in ``IterStats`` with tracing on or
+off.
 
 A checkpoint (``save_checkpoint``, every ``ckpt_every`` steps of
 ``train_epoch``) holds the params, the optimizer state and the resume
@@ -45,6 +51,7 @@ those tensors, so rebinding them would split the three apart.
 """
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -286,6 +293,21 @@ class IterStats:
     busiest_edges: int = 0  # true edges of the most-loaded split
     load_imbalance: float = 1.0  # max / mean edges per split
     cross_edge_fraction: float = 0.0  # edges reading the recv region
+    # the step's host phases inside t_stage, summed over its parts: the
+    # step/pack, step/forward, step/backward and step/optimizer spans
+    t_pack: float = 0.0
+    t_forward: float = 0.0
+    t_backward: float = 0.0
+    t_optimizer: float = 0.0
+    t_stats: float = 0.0  # this accounting, after the step (step/stats)
+    h2d_bytes: int = 0  # bytes the staging copies carried, over the parts
+
+
+def _step_times() -> dict:
+    """A step's phase times and staged bytes as ``_step`` sums them, under
+    their ``IterStats`` names."""
+    return {"t_pack": 0.0, "t_forward": 0.0, "t_backward": 0.0,
+            "t_optimizer": 0.0, "h2d_bytes": 0}
 
 
 @dataclass
@@ -422,6 +444,7 @@ class Trainer:
         self._start_iter = 0  # resume cursor: first batch of the next epoch
         self.global_step = 0  # optimizer steps taken (checkpoint naming)
         self.nonfinite_skips = 0  # steps whose update the guard skipped
+        self._times = _step_times()  # the step in flight's (``_step``)
         self.injector = injector
         self.sig_cache = SignatureCache()
         self._set_recompile_tracer()
@@ -508,25 +531,37 @@ class Trainer:
         cache plan ``feats`` is the miss block and the input is served from
         the one resident block; every part shares the one ``rep_block``.
         With ``keys``, the staged part's ``call_signature`` is appended."""
-        feats_d, plan_arrays, labels_d = stage_batch(
-            part.plan, part.feats, part.labels, self.device, part.cache_plan,
-            with_halves=self.cfg.shuffle_overlap,
-            num_replicated=self._num_replicated(),
-        )
-        if keys is not None:
-            keys.append(call_signature((feats_d, plan_arrays, labels_d), {}))
-        layers = list(self.model.layers)
-        if part.cache_plan is not None:
-            logits = gnn_forward_cached(self.spec, layers, self.cache_block,
-                                        feats_d, plan_arrays,
-                                        rep_block=self.rep_block)
-        else:
-            logits = gnn_forward(self.spec, layers, feats_d, plan_arrays,
-                                 rep_block=self.rep_block)
-        mask = plan_arrays["target_mask"]
-        loss = masked_softmax_xent(logits, labels_d, mask)
-        acc = masked_accuracy(logits, labels_d, mask)
-        return loss, acc, torch.autograd.grad(loss, self.params)
+        with self._phase("pack"):
+            feats_d, plan_arrays, labels_d = stage_batch(
+                part.plan, part.feats, part.labels, self.device,
+                part.cache_plan, with_halves=self.cfg.shuffle_overlap,
+                num_replicated=self._num_replicated(), counts=self._times,
+            )
+            if keys is not None:
+                keys.append(call_signature((feats_d, plan_arrays, labels_d), {}))
+        with self._phase("forward"):
+            layers = list(self.model.layers)
+            if part.cache_plan is not None:
+                logits = gnn_forward_cached(self.spec, layers, self.cache_block,
+                                            feats_d, plan_arrays,
+                                            rep_block=self.rep_block)
+            else:
+                logits = gnn_forward(self.spec, layers, feats_d, plan_arrays,
+                                     rep_block=self.rep_block)
+            mask = plan_arrays["target_mask"]
+            loss = masked_softmax_xent(logits, labels_d, mask)
+            acc = masked_accuracy(logits, labels_d, mask)
+        with self._phase("backward"):
+            grads = torch.autograd.grad(loss, self.params)
+        return loss, acc, grads
+
+    @contextlib.contextmanager
+    def _phase(self, name: str):
+        """The ``step/<name>`` span; its duration adds to the step's
+        ``t_<name>``."""
+        with self.obs.span(f"step/{name}") as sp:
+            yield
+        self._times[f"t_{name}"] += sp.duration
 
     def _step_grads(self, parts: list):
         """The step's ``(loss, acc, grads)`` over ``parts``: the 1-D step's
@@ -537,20 +572,19 @@ class Trainer:
         division by 1 are exact, so the R = 1 mesh is bitwise the 1-D step;
         the division is skipped there. With ``trace_recompiles`` the step's
         signature (its staged parts' in replica order) is noted under the
-        path's name: the key of the one call the reference's step is."""
+        path's name: the key of the one call the reference's step is. The
+        mesh's average is timed as ``step/optimizer``."""
         keys = None if self.recompiles is None else []
-        grads = loss = acc = None
-        for part in parts:
-            loss_r, acc_r, grads_r = self._replica_grads(part, keys)
-            if grads is None:
-                loss, acc, grads = loss_r, acc_r, grads_r
-            else:
-                loss, acc = loss + loss_r, acc + acc_r
-                grads = [a + b for a, b in zip(grads, grads_r)]
+        results = [self._replica_grads(part, keys) for part in parts]
+        loss, acc, grads = results[0]
         if len(parts) > 1:
-            num = len(parts)
-            loss, acc = loss / num, acc / num
-            grads = [g / num for g in grads]
+            with self._phase("optimizer"):
+                for loss_r, acc_r, grads_r in results[1:]:
+                    loss, acc = loss + loss_r, acc + acc_r
+                    grads = [a + b for a, b in zip(grads, grads_r)]
+                num = len(parts)
+                loss, acc = loss / num, acc / num
+                grads = [g / num for g in grads]
         if keys is not None:
             name = "step" if parts[0].cache_plan is None else "cached_step"
             if self.cfg.num_replicas >= 1:
@@ -564,24 +598,25 @@ class Trainer:
         ``(loss, acc, finite)``; ``finite`` is None unless ``skip_nonfinite``
         is on."""
         loss, acc, grads = self._step_grads(parts)
-        if not self.cfg.skip_nonfinite:
-            self.params, self.opt_state = self.opt.update(
-                grads, self.opt_state, self.params
-            )
-            return loss, acc, None
-        # the guarded step: one isfinite reduction on the device over the
-        # (averaged) gradient, any replica's NaN poisoning it, and the
-        # update kept or dropped by a select, with no host round trip
-        with torch.no_grad():
-            finite = torch.isfinite(loss)
-            for g in grads:
-                finite = finite & torch.isfinite(g).all()
-            old = [t.clone() for t in self._opt_tensors()]
-            self.params, self.opt_state = self.opt.update(
-                grads, self.opt_state, self.params
-            )
-            for t, o in zip(self._opt_tensors(), old):
-                t.copy_(torch.where(finite, t, o))
+        with self._phase("optimizer"):
+            if not self.cfg.skip_nonfinite:
+                self.params, self.opt_state = self.opt.update(
+                    grads, self.opt_state, self.params
+                )
+                return loss, acc, None
+            # the guarded step: one isfinite reduction on the device over
+            # the (averaged) gradient, any replica's NaN poisoning it, and
+            # the update kept or dropped by a select, with no host round trip
+            with torch.no_grad():
+                finite = torch.isfinite(loss)
+                for g in grads:
+                    finite = finite & torch.isfinite(g).all()
+                old = [t.clone() for t in self._opt_tensors()]
+                self.params, self.opt_state = self.opt.update(
+                    grads, self.opt_state, self.params
+                )
+                for t, o in zip(self._opt_tensors(), old):
+                    t.copy_(torch.where(finite, t, o))
         return loss, acc, finite
 
     def _opt_tensors(self) -> list:
@@ -615,57 +650,61 @@ class Trainer:
 
     def _step(self, parts: list):
         """Stage and take one optimizer step over ``parts`` inside the
-        ``step`` span; returns ``(loss, acc, t_stage, t_device)`` on the
-        host."""
+        ``step`` span; returns ``(loss, acc, times)`` on the host, ``times``
+        ``_step_times()``'s with ``t_stage`` and ``t_device``."""
         step_before = self.opt_state.step
+        self._times = times = _step_times()
         with self.obs.span("step/stage") as sp_stage:
             loss, acc, finite = self._dispatch_step(parts)
         with self.obs.span("step/device") as sp_dev:
             loss, acc = self._sync_step(loss, acc, finite, step_before)
         self.global_step += 1
-        return loss, acc, sp_stage.duration, sp_dev.duration
+        times.update(t_stage=sp_stage.duration, t_device=sp_dev.duration)
+        return loss, acc, times
 
     def _iter_stats(self, parts, loss, acc, t_sample, t_split, t_load,
-                    t_stage, t_device, t_wait=0.0) -> IterStats:
-        """One step's ``IterStats`` over its parts (one on the 1-D path).
-        The work counters (loaded rows, edges, shuffle rows, padded slots,
-        wire bytes, the load breakdown) are summed over the parts, the real
-        work of the global batch; ``busiest_edges`` is the max (all R*P
-        splits run at once, so the busiest is the critical path); the
-        balance ratios are means."""
-        plans = [p.plan for p in parts]
-        # one pass over each part's edge masks for the four split counters
-        acct = [plan.edge_accounting() for plan in plans]
-        breakdowns = [p.breakdown for p in parts]
-        breakdown = None
-        if all(b is not None for b in breakdowns):
-            breakdown = LoadBreakdown(
-                local_hit=sum(b.local_hit for b in breakdowns),
-                remote_hit=sum(b.remote_hit for b in breakdowns),
-                host_miss=sum(b.host_miss for b in breakdowns),
+                    times, t_wait=0.0) -> IterStats:
+        """One step's ``IterStats`` over its parts (one on the 1-D path),
+        inside the ``step/stats`` span. ``times`` is ``_step``'s. The work
+        counters (loaded rows, edges, shuffle rows, padded slots, wire
+        bytes, the load breakdown) are summed over the parts, the real work
+        of the global batch; ``busiest_edges`` is the max (all R*P splits
+        run at once, so the busiest is the critical path); the balance
+        ratios are means."""
+        with self.obs.span("step/stats") as sp:
+            plans = [p.plan for p in parts]
+            # one pass over each part's edge masks for the four split counters
+            acct = [plan.edge_accounting() for plan in plans]
+            breakdowns = [p.breakdown for p in parts]
+            breakdown = None
+            if all(b is not None for b in breakdowns):
+                breakdown = LoadBreakdown(
+                    local_hit=sum(b.local_hit for b in breakdowns),
+                    remote_hit=sum(b.remote_hit for b in breakdowns),
+                    host_miss=sum(b.host_miss for b in breakdowns),
+                )
+            st = IterStats(
+                loss=loss,
+                accuracy=acc,
+                t_sample=t_sample,
+                t_split=t_split,
+                t_load=t_load,
+                t_compute=times["t_stage"] + times["t_device"],
+                loaded_rows=sum(p.loaded_feature_rows() for p in plans),
+                computed_edges=sum(a[0] for a in acct),
+                shuffle_rows=sum(p.shuffle_rows() for p in plans),
+                t_wait=t_wait,
+                load_breakdown=breakdown,
+                wire_bytes=sum(modeled_wire_bytes(p, self.spec, self.cfg.wire_dtype)
+                               for p in plans),
+                padded_edge_slots=sum(p.padded_edge_slots() for p in plans),
+                busiest_edges=max(a[1] for a in acct),
+                load_imbalance=float(np.mean([a[2] for a in acct])),
+                cross_edge_fraction=float(np.mean([a[3] for a in acct])),
+                **times,
             )
-        st = IterStats(
-            loss=loss,
-            accuracy=acc,
-            t_sample=t_sample,
-            t_split=t_split,
-            t_load=t_load,
-            t_compute=t_stage + t_device,
-            loaded_rows=sum(p.loaded_feature_rows() for p in plans),
-            computed_edges=sum(a[0] for a in acct),
-            shuffle_rows=sum(p.shuffle_rows() for p in plans),
-            t_wait=t_wait,
-            t_stage=t_stage,
-            t_device=t_device,
-            load_breakdown=breakdown,
-            wire_bytes=sum(modeled_wire_bytes(p, self.spec, self.cfg.wire_dtype)
-                           for p in plans),
-            padded_edge_slots=sum(p.padded_edge_slots() for p in plans),
-            busiest_edges=max(a[1] for a in acct),
-            load_imbalance=float(np.mean([a[2] for a in acct])),
-            cross_edge_fraction=float(np.mean([a[3] for a in acct])),
-        )
-        self._emit_iter_metrics(st)
+            self._emit_iter_metrics(st)
+        st.t_stats = sp.duration
         return st
 
     def _emit_iter_metrics(self, st: IterStats) -> None:
@@ -674,9 +713,9 @@ class Trainer:
         obs = self.obs
         if not obs.enabled:
             return
-        obs.observe("step/compute_s", st.t_compute)
         obs.count("wire/bytes", st.wire_bytes)
         obs.count("plan/loaded_rows", st.loaded_rows)
+        obs.count("plan/h2d_bytes", st.h2d_bytes)
         obs.count("plan/shuffle_rows", st.shuffle_rows)
         if st.load_breakdown is not None:
             obs.count("cache/local_hit", st.load_breakdown.local_hit)
@@ -740,13 +779,13 @@ class Trainer:
                         finalize_cache_plan(part.cache_plan, self._pad_hwm,
                                             part.plan.front_ids[-1].shape[1])
         with self.obs.span("step", {"wait_s": 0.0}) as step_sp:
-            loss, acc, t_stage, t_device = self._step(parts)
-            step_sp.attrs.update(stage_s=t_stage, device_s=t_device)
+            loss, acc, times = self._step(parts)
+            step_sp.attrs.update(stage_s=times["t_stage"],
+                                 device_s=times["t_device"])
         if self.recompiles is not None:
             self.recompiles.step("train_iter")
         return self._iter_stats(parts, loss, acc, sp_sample.duration,
-                                sp_split.duration, sp_load.duration,
-                                t_stage, t_device)
+                                sp_split.duration, sp_load.duration, times)
 
     def plan_source_for(self, epoch: int, max_iters: int | None = None,
                         start: int = 0):
@@ -808,14 +847,14 @@ class Trainer:
                     self.obs.flow_end(("plan", batch.epoch, batch.index))
                     parts = (batch.parts if isinstance(batch, MeshPlanBatch)
                              else [batch])
-                    loss, acc, t_stage, t_device = self._step(parts)
+                    loss, acc, times = self._step(parts)
                     step_sp.attrs.update(
-                        wait_s=sp_wait.duration, stage_s=t_stage,
-                        device_s=t_device,
+                        wait_s=sp_wait.duration, stage_s=times["t_stage"],
+                        device_s=times["t_device"],
                     )
                 stats.iters.append(self._iter_stats(
                     parts, loss, acc, batch.t_sample, batch.t_split,
-                    batch.t_load, t_stage, t_device, sp_wait.duration,
+                    batch.t_load, times, sp_wait.duration,
                 ))
                 cfg = self.cfg
                 if (cfg.ckpt_dir and cfg.ckpt_every > 0

@@ -1027,8 +1027,9 @@ def _tiny_trainer(cuda, source="serial", injector=None, **over):
 def test_cuda_pinned_stage_batch_is_byte_equal(cuda):
     """``stage_batch`` on the card (one pinned, non-blocking copy of the
     packed plan and labels, one of the pinned feature block, padded on the
-    card) gives tensors byte-equal to pageable per-array staging; a pageable
-    feature block raises."""
+    card) gives tensors byte-equal to pageable per-array staging, and counts
+    the packed buffer's and the block's bytes; a pageable feature block
+    raises."""
     from repro_torch.core.splitting import pad_axis
     from repro_torch.train import plan_io
 
@@ -1038,7 +1039,11 @@ def test_cuda_pinned_stage_batch_is_byte_equal(cuda):
         # a block gathered before the marks grew: the card pads it
         short = batch.feats[:, : batch.feats.shape[1] // 2].contiguous().pin_memory()
         for feats in (batch.feats, short):
-            f_d, pa, l_d = plan_io.stage_batch(batch.plan, feats, batch.labels, cuda)
+            counts = {"h2d_bytes": 0}
+            f_d, pa, l_d = plan_io.stage_batch(batch.plan, feats, batch.labels,
+                                               cuda, counts=counts)
+            packed, _ = plan_io.pack_host(batch.plan, batch.labels, pin=False)
+            assert counts["h2d_bytes"] == packed.nbytes + feats.nbytes
             want = plan_io.plan_to_device(batch.plan, cuda)
             rows = batch.plan.front_ids[-1].shape[1]
             torch.cuda.synchronize()
@@ -1304,6 +1309,11 @@ def test_cuda_cached_overlap_window_stays_at_two_pinned_copies(cuda):
     assert "pageable" not in copies, copies
     assert copies["pinned"]["count"] == 2 * prof["steps"], copies
     assert prof["resident_bytes"] > 0
+    # the idle share's busy time is the union: overlaps count once
+    assert 0 < prof["device_busy_ms"] <= prof["device_ms"] + 1e-3
+    for key in ("pack_ms", "forward_ms", "backward_ms", "optimizer_ms",
+                "stats_ms", "h2d_bytes"):
+        assert len(prof[key]) == prof["steps"] and min(prof[key]) > 0, key
 
 
 # --------------------------------------------------------------------- #

@@ -6,10 +6,18 @@ growth, and the trainer contract that observation never changes a loss bit.
   ``validate_trace`` results with either package's report.
 * Tracing is observation only: serial and pipelined runs are bitwise equal
   with tracing on and off.
+* The trainer step's phases: ``step/pack``, ``step/forward``,
+  ``step/backward`` and ``step/optimizer`` inside ``step/stage``,
+  ``step/stats`` after the step, their ``IterStats`` fields with tracing
+  off, the spans as ``torch.profiler`` ranges only with a tracer, the staged
+  bytes, and the benchmark's readers of them.
 """
+import importlib.util
 import json
 import logging
 import threading
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pytest
@@ -342,16 +350,22 @@ def tds():
     return t_make_dataset("tiny")
 
 
-def _run(tds, source, obs_path=None, epochs=2, iters=3):
+def _trainer(tds, source, obs_path=None, **over):
     spec = TGNNSpec(model="sage", in_dim=tds.spec.feat_dim, hidden_dim=16,
                     out_dim=tds.spec.num_classes, num_layers=2)
-    cfg = t_trainer.TrainConfig(
-        num_devices=4, fanouts=(4, 4), batch_size=16, presample_epochs=2,
-        plan_source=source, pipeline_depth=2, plan_workers=2, seed=7,
-        stall_timeout_s=30.0, obs_trace=obs_path is not None,
-        obs_path=str(obs_path) if obs_path else None,
-    )
-    tr = t_trainer.Trainer(tds, spec, cfg, device="cpu")
+    cfg = t_trainer.TrainConfig(**{
+        **dict(num_devices=4, fanouts=(4, 4), batch_size=16,
+               presample_epochs=2, plan_source=source, pipeline_depth=2,
+               plan_workers=2, seed=7, stall_timeout_s=30.0,
+               obs_trace=obs_path is not None,
+               obs_path=str(obs_path) if obs_path else None),
+        **over,
+    })
+    return t_trainer.Trainer(tds, spec, cfg, device="cpu")
+
+
+def _run(tds, source, obs_path=None, epochs=2, iters=3):
+    tr = _trainer(tds, source, obs_path)
     traj = []
     for _ in range(epochs):
         st = tr.train_epoch(max_iters=iters)
@@ -373,7 +387,7 @@ def test_tracing_is_observation_only(tds, tmp_path, source):
     assert sum(s["stall_classes"].values()) == s["steps"]
     for stage in ("plan/build", "plan/sample", "plan/split", "plan/load",
                   "plan/repad", "plan/queue_dwell", "step/wait",
-                  "step/stage", "step/device"):
+                  "step/stage", "step/device", *PHASES):
         assert stage in s["stages"], f"missing {stage} spans"
     # producer build spans flow-link to consumer steps: all resolved
     flows = [e for e in trace["traceEvents"] if e["ph"] in ("s", "f")]
@@ -425,3 +439,190 @@ def test_reports_agree_across_packages(traces, writer):
                   "step/stage", "step/device", "step"):
         assert stage in s["stages"], f"{writer}: missing {stage}"
     assert np.isfinite([row["mean_ms"] for row in s["stages"].values()]).all()
+
+
+# --------------------------------------------------------------------- #
+# the step's phases: spans, IterStats fields, profiler ranges, bytes
+# --------------------------------------------------------------------- #
+#: the children of ``step/stage``, then the accounting's span
+CHILDREN = ("step/pack", "step/forward", "step/backward", "step/optimizer")
+PHASES = (*CHILDREN, "step/stats")
+#: the IterStats fields the phases fill
+PHASE_FIELDS = ("t_pack", "t_forward", "t_backward", "t_optimizer", "t_stats",
+                "h2d_bytes")
+
+
+def _within(inner: dict, outer: dict) -> bool:
+    return (inner["tid"] == outer["tid"] and inner["ts"] >= outer["ts"]
+            and inner["ts"] + inner["dur"] <= outer["ts"] + outer["dur"] + 1e-3)
+
+
+@pytest.mark.parametrize("replicas", [0, 2])
+def test_phase_spans_nest_inside_stage(tds, replicas):
+    """Each part opens pack, forward and backward; the step one optimizer
+    span (two on the mesh: its average, then the update), all inside
+    ``step/stage`` and summing to no more than it; ``step/stats`` follows
+    each step outside its ``step`` span."""
+    tr = _trainer(tds, "serial", obs_path=None, obs_trace=True,
+                  num_replicas=replicas)
+    iters = tr.train_epoch(max_iters=3).iters
+    events = [e for e in tr.obs.tracer.to_chrome()["traceEvents"]
+              if e["ph"] == "X"]
+    by = {n: [e for e in events if e["name"] == n]
+          for n in ("step", "step/stage", *PHASES)}
+    parts = max(replicas, 1)
+    assert len(by["step/stage"]) == len(by["step/stats"]) == len(iters) == 3
+    for stage in by["step/stage"]:
+        inside = [e for e in events if e["name"] in CHILDREN
+                  and _within(e, stage)]
+        got = sorted(e["name"] for e in inside)
+        assert got == sorted([*CHILDREN[:3]] * parts + ["step/optimizer"]
+                             * (2 if parts > 1 else 1))
+        assert sum(e["dur"] for e in inside) <= stage["dur"]
+    for name in CHILDREN:
+        assert all(any(_within(e, st) for st in by["step/stage"])
+                   for e in by[name])
+    for stats in by["step/stats"]:
+        assert not any(_within(stats, st) for st in by["step"])
+    snap = tr.obs.metrics.snapshot()
+    assert snap["plan/h2d_bytes"] == sum(it.h2d_bytes for it in iters) > 0
+    assert "step/compute_s" not in snap
+
+
+@pytest.mark.parametrize("path", ["train_epoch", "train_iter"])
+def test_phase_fields_are_timed_with_obs_off(tds, path):
+    tr = _trainer(tds, "serial")
+    assert not tr.obs.enabled
+    if path == "train_epoch":
+        iters = tr.train_epoch(max_iters=2).iters
+    else:
+        iters = [tr.train_iter(t) for t in tr.sampler.epoch_targets(0)[:2]]
+    for it in iters:
+        for name in PHASE_FIELDS:
+            assert getattr(it, name) > 0, name
+        assert (it.t_pack + it.t_forward + it.t_backward + it.t_optimizer
+                <= it.t_stage)
+
+
+@pytest.mark.parametrize("traced", [True, False])
+def test_spans_are_profiler_ranges_only_with_a_tracer(tds, tmp_path, traced):
+    from torch.profiler import ProfilerActivity, profile
+
+    tr = _trainer(tds, "serial", obs_path=tmp_path / "t.json" if traced else None)
+    tr.train_epoch(max_iters=1)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        iters = tr.train_epoch(max_iters=2).iters
+    events = prof.events()
+    names = {e.name for e in events}
+    if not traced:
+        assert not {n for n in names if n.startswith(("step", "plan/"))}
+        return
+    assert set(PHASES) | {"step/stage", "step/device", "step/wait"} <= names
+    for e in events:
+        if e.name in CHILDREN:
+            parent = e.cpu_parent
+            while parent is not None and parent.name != "step/stage":
+                parent = parent.cpu_parent
+            assert parent is not None, e.name
+    assert sum(e.name == "step/pack" for e in events) == len(iters)
+
+
+class _OneBatch:
+    """A plan source delivering one prepared batch."""
+
+    def __init__(self, batch):
+        self.batches = [batch]
+
+    def __iter__(self):
+        yield from self.batches
+
+    def stats(self) -> dict:
+        return {}
+
+    def close(self) -> None:
+        pass
+
+
+@pytest.mark.parametrize("mode", ["split", "dp"])
+def test_h2d_bytes_are_the_packed_buffer_and_the_feature_block(tds, mode):
+    from repro_torch.train import plan_io
+
+    tr = _trainer(tds, "serial", mode=mode)
+    source = tr.plan_source_for(0, max_iters=1)
+    batch = next(iter(source))
+    source.close()
+    packed, _ = plan_io.pack_host(batch.plan, batch.labels, pin=False)
+    want = packed.nbytes + batch.feats.nbytes
+    counts = {"h2d_bytes": 0}
+    plan_io.stage_batch(batch.plan, batch.feats, batch.labels, "cpu",
+                        counts=counts)
+    assert counts["h2d_bytes"] == want
+    tr.plan_source_for = lambda *a, **k: _OneBatch(batch)
+    assert tr.train_epoch().iters[0].h2d_bytes == want
+
+
+def test_profile_step_idle_reads_the_union_of_device_intervals(tmp_path):
+    """A copy beside a kernel counts once; host ranges and the device-side
+    copies of user annotations are no device work."""
+    from repro_torch.profile_step import device_busy_us
+
+    class Prof:
+        def export_chrome_trace(self, path):
+            ev = [("kernel", 0.0, 10.0), ("gpu_memcpy", 5.0, 10.0),
+                  ("gpu_memset", 20.0, 5.0), ("kernel", 21.0, 2.0),
+                  ("user_annotation", 0.0, 100.0),
+                  ("gpu_user_annotation", 0.0, 40.0)]
+            with open(path, "w") as f:
+                json.dump({"traceEvents": [
+                    {"ph": "X", "cat": c, "name": c, "ts": t, "dur": d}
+                    for c, t, d in ev]}, f)
+
+    assert device_busy_us(Prof()) == pytest.approx(20.0)
+
+
+# --------------------------------------------------------------------- #
+# the benchmark's readers of the phases (gsbench/metrics/<name>.py)
+# --------------------------------------------------------------------- #
+METRICS_DIR = Path(__file__).resolve().parents[1] / "gsbench" / "metrics"
+#: two steps: (wait, stage, device, pack, forward, backward, optimizer,
+#: stats) in ms and the staged bytes; 0.5 ms a step no span covers
+STEPS = [(1.0, 10.0, 2.0, 4.0, 3.0, 2.0, 0.5, 1.0, 1000),
+         (3.0, 12.0, 4.0, 6.0, 4.0, 1.0, 1.5, 2.0, 3000)]
+WANT = {"pack_ms": 5.0, "forward_ms": 3.5, "backward_ms": 1.5,
+        "optimizer_ms": 1.0, "stats_ms": 1.5, "h2d_bytes": 2000.0,
+        "unspanned_ms": 0.5}
+
+
+def _read(name, rec):
+    spec = importlib.util.spec_from_file_location(
+        f"gsbench_metric_{name}", METRICS_DIR / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.read(rec)
+
+
+def _synthetic_rec():
+    steps = []
+    for w, st, d, pk, fw, bw, op, sa, nb in STEPS:
+        steps.append(t_trainer.IterStats(
+            loss=1.0, accuracy=0.5, t_sample=0.0, t_split=0.0, t_load=0.0,
+            t_compute=(st + d) / 1e3, loaded_rows=1, computed_edges=1,
+            shuffle_rows=1, t_wait=w / 1e3, t_stage=st / 1e3,
+            t_device=d / 1e3, t_pack=pk / 1e3, t_forward=fw / 1e3,
+            t_backward=bw / 1e3, t_optimizer=op / 1e3, t_stats=sa / 1e3,
+            h2d_bytes=nb))
+    spanned = sum(w + st + d + sa for w, st, d, *_, sa, _ in STEPS)
+    return {"steps": steps, "window_s": (spanned + 0.5 * len(STEPS)) / 1e3}
+
+
+@pytest.mark.parametrize("name", sorted(WANT))
+def test_phase_metric_reads_a_synthetic_window(name):
+    assert _read(name, _synthetic_rec()) == pytest.approx(WANT[name])
+
+
+@pytest.mark.parametrize("name", sorted(WANT))
+def test_phase_metric_reads_nothing_without_its_field(name):
+    """A program whose ``IterStats`` lacks the phases reads as no metric."""
+    old = SimpleNamespace(t_wait=1e-3, t_stage=1e-2, t_device=1e-3,
+                          t_compute=1.1e-2, loaded_rows=1)
+    assert _read(name, {"steps": [old], "window_s": 1.3e-2}) is None
